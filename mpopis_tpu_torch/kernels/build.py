@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -81,6 +82,13 @@ def build(name: str) -> Path:
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     BUILD_INFO[name] = {"so": str(so), "seconds": seconds, "log": log}
     return so
+
+
+def build_all(names) -> None:
+    """Build several libraries at once, one nvcc each."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for fut in [pool.submit(build, name) for name in names]:
+            fut.result()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -5,8 +5,12 @@ from mpopis_tpu_torch.models.car_racing import (
     car_reward,
     step_car_state,
 )
+from mpopis_tpu_torch.models.cheetah_device import CheetahDeviceEnv
+from mpopis_tpu_torch.models.hopper_device import HopperDeviceEnv
+from mpopis_tpu_torch.models.planar_contact import PlanarContactEnv, PlanarContactModel
 from mpopis_tpu_torch.models.rollout import rollout_batch
 from mpopis_tpu_torch.models.track import Track, distance_query
+from mpopis_tpu_torch.models.walker2d_device import Walker2dDeviceEnv
 
 __all__ = [
     "Env",
@@ -16,6 +20,11 @@ __all__ = [
     "CarRacingEnv",
     "car_reward",
     "step_car_state",
+    "CheetahDeviceEnv",
+    "HopperDeviceEnv",
+    "Walker2dDeviceEnv",
+    "PlanarContactEnv",
+    "PlanarContactModel",
     "rollout_batch",
     "Track",
     "distance_query",

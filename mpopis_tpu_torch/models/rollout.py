@@ -11,17 +11,20 @@ import torch
 from mpopis_tpu_torch.models.base import Env, EnvState
 
 
-def rollout_batch(env: Env, state0: EnvState, controls: torch.Tensor, log_states: bool = False):
+def rollout_batch(env: Env, state0: EnvState, controls: torch.Tensor, log_states: bool = False,
+                  step_reward=None):
     """Roll K control sequences (K, T, as) from a shared state0.
 
     Returns (base_costs (K,), states (K, T, state_dim) or None) with
-    base_cost = Σ_t −reward(s_{t+1}).
+    base_cost = Σ_t −reward_t, reward_t from `step_reward` (default
+    `env.step_reward`).
     """
+    step_reward = env.step_reward if step_reward is None else step_reward
     k, horizon = controls.shape[0], controls.shape[1]
     s = state0.replace(x=state0.x.expand(k, *state0.x.shape))
     rews, xs = [], []
     for t in range(horizon):
-        s, r = env.step_reward(s, controls[:, t])
+        s, r = step_reward(s, controls[:, t])
         rews.append(r)
         if log_states:
             xs.append(s.x)

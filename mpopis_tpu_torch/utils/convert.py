@@ -1,8 +1,8 @@
 """Hand the JAX package's parameters and state to the port.
 
 The system has no learned weights: what carries across is its physical
-parameters, track geometry, environment state, policy mean and sampling
-covariance. Each function takes the JAX package's value as numpy arrays or
+parameters, the planar contact models' tables, track geometry, environment
+state, policy mean and sampling covariance. Each function takes the JAX package's value as numpy arrays or
 a plain dict (e.g. `dataclasses.asdict(jax_params)`, `np.asarray(state.x)`)
 and returns the port's; nothing here imports jax.
 """
@@ -16,6 +16,13 @@ import torch
 
 from mpopis_tpu_torch.models.base import EnvState, make_state
 from mpopis_tpu_torch.models.car_racing import CarParams
+from mpopis_tpu_torch.models.planar_contact import (
+    PCBody,
+    PCCapsulePair,
+    PCContact,
+    PCLimit,
+    PlanarContactModel,
+)
 from mpopis_tpu_torch.models.track import Track
 from mpopis_tpu_torch.policies.config import PolicyState, init_policy_state
 
@@ -23,6 +30,25 @@ from mpopis_tpu_torch.policies.config import PolicyState, init_policy_state
 def car_params(d: dict) -> CarParams:
     """CarParams from a dict holding every field."""
     return CarParams(**{f.name: float(d[f.name]) for f in dataclasses.fields(CarParams)})
+
+
+def _frozen(cls, d: dict):
+    """A table dataclass from a dict of its fields, lists made tuples."""
+    return cls(**{
+        f.name: tuple(d[f.name]) if isinstance(d[f.name], (list, tuple)) else d[f.name]
+        for f in dataclasses.fields(cls)
+    })
+
+
+def planar_model(d: dict) -> PlanarContactModel:
+    """PlanarContactModel from `dataclasses.asdict(jax_model)`, its nested
+    body, contact, limit and capsule-pair tables included."""
+    nested = {"bodies": PCBody, "contacts": PCContact, "limits": PCLimit,
+              "pairs": PCCapsulePair}
+    d = dict(d)
+    for name, cls in nested.items():
+        d[name] = tuple(_frozen(cls, item) for item in d[name])
+    return _frozen(PlanarContactModel, d)
 
 
 def track(d: dict) -> Track:

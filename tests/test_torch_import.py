@@ -15,15 +15,26 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
+for blocked in ("jax", "jaxlib", "flax", "mpopis_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
 import mpopis_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mpopis_tpu_torch.__path__, "mpopis_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpopis_tpu"))
-print(len(names), bad)
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpopis_tpu") and sys.modules[m])
+print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
+
+_PLANAR_MODULES = (
+    "mpopis_tpu_torch.models.planar",
+    "mpopis_tpu_torch.models.planar_contact",
+    "mpopis_tpu_torch.models.cheetah_device",
+    "mpopis_tpu_torch.models.hopper_device",
+    "mpopis_tpu_torch.models.walker2d_device",
+    "mpopis_tpu_torch.kernels.planar_step",
+)
 
 
 def test_port_imports_every_module_without_jax():
@@ -32,8 +43,9 @@ def test_port_imports_every_module_without_jax():
         text=True, timeout=120, check=False,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 20  # every subpackage and module was walked
+    n_modules, _bad, *names = proc.stdout.split()
+    assert int(n_modules) >= 26  # every subpackage and module was walked
+    assert set(_PLANAR_MODULES) <= set(names)
 
 
 def _fields(cls):
