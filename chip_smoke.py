@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the kernels of `mpopis_tpu_torch/csrc/` with nvcc (one process
-per library, all at once) and drives the port's two paths:
+per library, all at once) and drives the port's three paths:
 
 - phases 1-5, the car: the car rollout kernel against its plain PyTorch
   version, a car race with CEMPPI at K=8192, H=50, 10 AIS iterations,
@@ -17,17 +17,32 @@ per library, all at once) and drives the port's two paths:
   median relative error beside the plain version's own spread under a
   nudge of its controls), the f64 CEMPPI step through the kernel against
   the plain path, `simulate_mujoco_on_device` for the three tasks (HalfCheetah at
-  K=2048, H=15, 3 AIS iterations, `mle`, λ=0.1), and the timings.
+  K=2048, H=15, 3 AIS iterations, `mle`, λ=0.1), and the timings;
+- phases 11-15, the policy layer: the AIS-update kernels (masked and
+  weighted refit, CMA tail) and the Cholesky and forward-solve kernels
+  against their plain versions (float32 at the JAX kernel tests'
+  tolerances, float64 at 1e-9 relative), the float32 control step at
+  K=8192 on the kernel path against the library path under each switch
+  (MPOPIS_FUSED_UPDATE=1, MPOPIS_PALLAS_LINALG=1), `simulate_car_racing`
+  at full width for all nine policy kinds (CMAMPPI raced on both paths),
+  and the timings of each kernel, its plain version, the library
+  composition it replaces and each kind's control step.
 
 Every kernel's launch count is set to 0 just before each path and read
-just after. Every phase raises on failure; there is no CPU path. The last
-two lines are a JSON line of per-kernel numbers and the result line
+just after. Every phase raises on failure; there is no CPU path. The
+bound of each kernel (`bound_ms`) is the larger of its operations over the
+H100's float32 peak and its bytes over the memory rate, counted as the
+comments say. The last two lines are a JSON line of per-kernel numbers and
+the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -50,6 +65,11 @@ DROP = {"HalfCheetah-v4": -0.35, "Hopper-v4": 1.15, "Walker2d-v4": 1.17}
 # relative nudge of the controls: a few ulps (the states are not nudged, as a
 # joint at 0 sits exactly on Hopper's and Walker2d's knee limits)
 NUDGE = {torch.float64: 1e-15, torch.float32: 1e-6}
+# the policy layer at full width: n = cs = 2·H, m_elite = round(0.2·K)
+N_CS, M_ELITE = 2 * H, round(0.2 * K)
+CMA_RACE_STEPS, KIND_STEPS = 1000, 100
+# the H100's published peaks (float32 outside the tensor cores; HBM3)
+PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -96,19 +116,56 @@ def _uniform(k, horizon, na, seed, dtype):
     return torch.as_tensor(ctrl, dtype=dtype, device="cuda")
 
 
-def _zero_counts():
-    from mpopis_tpu_torch.kernels import car_rollout, planar_step
+_COUNTERS = {  # kernel name -> (module, counter)
+    "car_rollout": ("car_rollout", "LAUNCHES"),
+    "planar_rollout": ("planar_step", "LAUNCHES"),
+    "planar_step_states": ("planar_step", "STEP_LAUNCHES"),
+    "masked_refit": ("ais_update", "MASKED_LAUNCHES"),
+    "weighted_refit": ("ais_update", "WEIGHTED_LAUNCHES"),
+    "cma_update": ("ais_update", "CMA_LAUNCHES"),
+    "cholesky": ("linalg", "CHOL_LAUNCHES"),
+    "forward_solve": ("linalg", "SOLVE_LAUNCHES"),
+}
 
-    car_rollout.LAUNCHES = 0
-    planar_step.LAUNCHES = 0
-    planar_step.STEP_LAUNCHES = 0
+
+def _kernel_module(mod: str):
+    return importlib.import_module(f"mpopis_tpu_torch.kernels.{mod}")
+
+
+def _zero_counts():
+    for mod, counter in _COUNTERS.values():
+        setattr(_kernel_module(mod), counter, 0)
 
 
 def _counts() -> dict:
-    from mpopis_tpu_torch.kernels import car_rollout, planar_step
+    return {name: getattr(_kernel_module(mod), counter)
+            for name, (mod, counter) in _COUNTERS.items()}
 
-    return {"car_rollout": car_rollout.LAUNCHES, "planar_rollout": planar_step.LAUNCHES,
-            "planar_step_states": planar_step.STEP_LAUNCHES}
+
+def _bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the float32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables (None removes one) for the duration."""
+    old = {name: os.environ.get(name) for name in values}
+    try:
+        for name, v in values.items():
+            if v is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = v
+        yield
+    finally:
+        for name, v in old.items():
+            if v is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = v
 
 
 def _ptxas_lines(log: str):
@@ -382,6 +439,15 @@ def _planar_path(card: str) -> list:
 
     cheetah = counts["HalfCheetah-v4"]
     ks_ms, ps_ms = times[("HalfCheetah-v4", "step")]
+    # Operations counted: per substep the two mass-matrix factorizations and
+    # solves of the Euler-implicit step, 2·(n³/3 + 2n²) multiply-adds; the
+    # mass matrix, bias, constraint rows and the contact QP are not counted,
+    # so the bound is loose. Bytes: the controls read and the costs written.
+    env = CheetahDeviceEnv(dtype=torch.float32, device="cuda")
+    nd, fs, na = env.MODEL.n_dof, env.FRAME_SKIP, env.action_dim
+    sub_flops = 2 * 2.0 * (nd**3 / 3 + 2 * nd * nd)
+    roll_bound = _bound(PK * PH * fs * sub_flops, 4.0 * (PH * na * PK + PK))
+    step_bound = _bound(fs * sub_flops, 4.0 * (2 * env.state_dim + na))
     return [{
         "name": "planar_rollout",
         "route": "cuda",
@@ -391,6 +457,9 @@ def _planar_path(card: str) -> list:
         "max_abs_err": results["HalfCheetah-v4"]["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": roll_bound[0],
+        "bound_by": roll_bound[1],
+        "library_ms": None,
         "median_rel_err_f32": results["HalfCheetah-v4"]["median_rel_err_f32"],
     }, {
         "name": "planar_step_states",
@@ -401,7 +470,375 @@ def _planar_path(card: str) -> list:
         "max_abs_err": results["HalfCheetah-v4"]["step_max_abs_err_float32"],
         "ms": ks_ms,
         "plain_ms": ps_ms,
+        "bound_ms": step_bound[0],
+        "bound_by": step_bound[1],
+        "library_ms": None,
     }]
+
+
+def _err_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """max |got − want| / (atol + rtol·|want|): at most 1 within the tolerance;
+    a NaN on one side only counts as out."""
+    g, w = got.double(), want.double()
+    r = (g - w).abs() / (atol + rtol * w.abs())
+    r = torch.where(torch.isnan(g) & torch.isnan(w), torch.zeros_like(r), r)
+    return float(torch.nan_to_num(r, nan=float("inf")).max())
+
+
+# float32 tolerances of the JAX kernel tests (rtol, atol) per kernel family
+F32_TOL = {"refit": (5e-4, 5e-5), "cma": (5e-3, 5e-4), "solve": (5e-5, 5e-6)}
+
+
+def _ais_path(card: str) -> list:
+    """Phases 11-15: the AIS-update and small-linalg kernels and the policy
+    layer at full width. Returns their `kernels` entries."""
+    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
+    from mpopis_tpu_torch.kernels import ais_update, build, linalg
+    from mpopis_tpu_torch.models import CarRacingEnv
+    from mpopis_tpu_torch.ops.covariance import shrinkage_cov_masked, weighted_mean_and_cov
+    from mpopis_tpu_torch.policies import POLICY_KINDS, PolicyConfig, make_policy
+    from mpopis_tpu_torch.policies.strategies import AISCarry, CMAStrategy, make_strategy
+
+    n, dev = N_CS, "cuda"
+    fused, pallas = "MPOPIS_FUSED_UPDATE", "MPOPIS_PALLAS_LINALG"
+
+    # -- phase 11: build ---------------------------------------------------
+    for name in ("ais_update", "linalg"):
+        build.load_library(name)
+        info = build.BUILD_INFO[name]
+        print(f"phase 11: {info['so']} built in {info['seconds']:.1f} s (in parallel with the "
+              f"others)")
+        for line in _ptxas_lines(info["log"]):
+            print("  ptxas:", line)
+
+    # -- phase 12: each kernel against its plain version ---------------------
+    t_phase = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(12)
+    e64 = 0.3 * torch.randn((n, K), generator=g, device=dev, dtype=torch.float64)
+    mask64 = torch.zeros(K, device=dev, dtype=torch.float64)
+    mask64[torch.randperm(K, generator=g, device=dev)[:M_ELITE]] = 1.0
+    w64 = torch.rand(K, generator=g, device=dev, dtype=torch.float64) ** 4
+    w64 /= w64.sum()
+    counts64 = torch.bincount(torch.multinomial(w64, K, replacement=True, generator=g),
+                              minlength=K).to(torch.float64)
+    consts = CMAStrategy.constants(K, n, 0.8)
+    consts_t = tuple(sorted((name, float(consts[name])) for name in ais_update.CMA_CONSTS))
+    a64 = 0.05 * torch.randn((n, n), generator=g, device=dev, dtype=torch.float64)
+    cma64 = (a64 @ a64.T + 0.3 * torch.eye(n, device=dev, dtype=torch.float64),
+             0.3 * torch.randn(n, generator=g, device=dev, dtype=torch.float64),
+             0.5 * torch.randn(n, generator=g, device=dev, dtype=torch.float64),
+             0.1 * torch.randn(n, generator=g, device=dev, dtype=torch.float64),
+             torch.randn(K, generator=g, device=dev, dtype=torch.float64),
+             torch.as_tensor(consts["ws"], device=dev),
+             torch.tensor(0.8, device=dev, dtype=torch.float64))
+    spd64 = {}
+    for size in (n, 600):
+        b = 0.2 * torch.randn((size, size), generator=g, device=dev, dtype=torch.float64)
+        spd64[size] = b @ b.T + torch.eye(size, device=dev, dtype=torch.float64)
+    rhs64 = {size: torch.randn((2, size), generator=g, device=dev, dtype=torch.float64)
+             for size in spd64}
+
+    def cases(dt):
+        e, mask, w, cnt = (t.to(dt) for t in (e64, mask64, w64, counts64))
+        mu_m, mu_w, mu_c = (e @ mask) / M_ELITE, e @ w, e @ (cnt / K)
+        cma = tuple(t.to(dt) for t in cma64)
+        out = []
+        for method in ais_update.METHODS:
+            out.append((f"masked_refit {method}", "refit",
+                        lambda m=method: ais_update.masked_refit_chol(
+                            e, mask, mu_m, M_ELITE, m, 1e-8),
+                        lambda m=method: ais_update.masked_refit_chol_reference(
+                            e, mask, mu_m, M_ELITE, m, 1e-8)))
+        out.append(("weighted_refit", "refit",
+                    lambda: ais_update.weighted_refit_chol(e, w, mu_w, False, 1e-8),
+                    lambda: ais_update.weighted_refit_chol_reference(e, w, mu_w, False, 1e-8)))
+        out.append(("weighted_refit corrected (PMC)", "refit",
+                    lambda: ais_update.weighted_refit_chol(e, cnt / K, mu_c, True, 1e-8),
+                    lambda: ais_update.weighted_refit_chol_reference(e, cnt / K, mu_c, True, 1e-8)))
+        for upd in (True, False):
+            out.append((f"cma_update update_chol={upd}", "cma",
+                        lambda u=upd: ais_update.cma_update_chol(*cma, 3.0, consts_t, 1e-8,
+                                                                 update_chol=u),
+                        lambda u=upd: ais_update.cma_update_chol_reference(
+                            *cma, 3.0, consts_t, 1e-8, update_chol=u)))
+        for size in spd64:
+            a = spd64[size].to(dt)
+            l_ref = linalg.chol_reference(a)
+            rhs = rhs64[size].to(dt)
+            out.append((f"cholesky n={size}", "refit", lambda a=a: linalg.chol_kernel(a),
+                        lambda a=a: linalg.chol_reference(a)))
+            out.append((f"forward_solve n={size} nrhs=2", "solve",
+                        lambda l=l_ref, r=rhs: linalg.fwd_solve_kernel(l, r),
+                        lambda l=l_ref, r=rhs: linalg.fwd_solve_reference(l, r)))
+        return out
+
+    max_abs = {}
+    for dt in (torch.float32, torch.float64):
+        for name, family, run_k, run_p in cases(dt):
+            got, want = run_k(), run_p()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                rtol, atol = F32_TOL[family]
+                err = max(_err_ratio(gg, ww, rtol, atol) for gg, ww in zip(got, want))
+                mabs = max(float((gg - ww).abs().max()) for gg, ww in zip(got, want))
+                max_abs[name] = mabs
+                print(f"phase 12: {name} f32: max|err| {mabs:.3e}, {err:.3f} of the tolerance "
+                      f"(rtol {rtol:g}, atol {atol:g})")
+                _require(err <= 1.0, f"{name}: f32 kernel disagrees with its plain version")
+            else:
+                rel = max(_rel_norm(gg, ww) for gg, ww in zip(got, want))
+                print(f"phase 12: {name} f64: max|err| / max|plain| {rel:.3e} (bound 1e-9)")
+                _require(rel <= 1e-9, f"{name}: f64 kernel disagrees with its plain version")
+    for dt in (torch.float32, torch.float64):
+        bad = torch.eye(6, device=dev, dtype=dt)
+        bad[3, 3] = -1.0
+        l_bad = linalg.chol_kernel(bad)
+        torch.cuda.synchronize()
+        nan_ok = bool(torch.isnan(l_bad[3:, 3]).all()) and not bool(torch.isnan(l_bad[:, :3]).any())
+        print(f"phase 12: cholesky of a matrix that is not positive definite ({dt}): NaN from "
+              f"the failing column on: {nan_ok}")
+        _require(nan_ok, "the Cholesky kernel did not give NaNs for a non-PD matrix")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 13: the f32 control step, kernel path against library path ----
+    t_phase = time.perf_counter()
+    env32 = CarRacingEnv(dtype=torch.float32, device=dev)
+    gz = torch.Generator(dev).manual_seed(13)
+    z = torch.randn((ITS, n, K), generator=gz, device=dev, dtype=torch.float32)
+    uni = torch.rand((ITS, K), generator=gz, device=dev, dtype=torch.float32)
+    # The early stop is off, so both paths run every iteration. CMA runs 3:
+    # with more forced iterations its step size grows without bound at this
+    # configuration, on both paths as in the JAX package (PERF.md §6, PR 3),
+    # and the main path's CMA stops after 1-3. PMC runs 2: its first
+    # iteration's costs, weights and resampling counts are the same on both
+    # paths, so the refit that shapes the second iteration's samples starts
+    # from the same counts; the second's refit is not kept (the carry
+    # freezes on the last iteration's samples). With more iterations a
+    # rounding-level difference in the factor moves a uniform across a CDF
+    # boundary and the counts part.
+    step_cases = (  # (what, kind, switch, iterations, config, family, kernels of the path)
+        ("CEMPPI ss", "cemppi", fused, ITS, dict(sigma_est="ss"), "refit", ("masked_refit",)),
+        ("μΣ-AIS", "musigmaaismppi", fused, ITS, {}, "refit", ("weighted_refit",)),
+        ("PMC", "pmcmppi", fused, 2, {}, "refit", ("weighted_refit",)),
+        ("CMAMPPI Newton–Schulz", "cmamppi", fused, 3, dict(cma_fast_sqrt=True), "cma",
+         ("cma_update",)),
+        ("CEMPPI ss α=0.9", "cemppi", pallas, ITS, dict(sigma_est="ss", alpha=0.9), "refit",
+         ("cholesky", "forward_solve")),
+    )
+
+    def one_step(kind, switch_on, switch, its, cfg_kw, zz):
+        with _env(**{switch: "1" if switch_on else None}):
+            cfg = PolicyConfig(kind=kind, num_samples=K, horizon=H, lam=10.0, opt_its=its,
+                               elite_stop_tol=0.0, **cfg_kw)
+            pol = make_policy(env32, cfg, cov_mat=np.diag([0.0625, 0.1]))
+            extra = {"uniforms": uni[:its]} if kind == "pmcmppi" else {}
+            _zero_counts()
+            a, ps, info = pol.step(env32.reset(), pol.init_state(0), z=zz[:its], **extra)
+            torch.cuda.synchronize()
+            return a, ps.U, info["ais_its"], _counts()
+
+    for what, kind, switch, its, cfg_kw, family, path_kernels in step_cases:
+        rtol, atol = F32_TOL[family]
+        a_k, u_k, its_k, n_k = one_step(kind, True, switch, its, cfg_kw, z)
+        a_l, u_l, its_l, n_l = one_step(kind, False, switch, its, cfg_kw, z)
+        err = max(_err_ratio(a_k, a_l, rtol, atol), _err_ratio(u_k, u_l, rtol, atol))
+        print(f"phase 13: {what} f32 step K={K}, {its} its, {switch}=1 against the library "
+              f"path: {err:.3f} of the tolerance (rtol {rtol:g}, atol {atol:g}; max|Δaction| "
+              f"{float((a_k - a_l).abs().max()):.3e}, max|ΔU| "
+              f"{float((u_k - u_l).abs().max()):.3e}); launches "
+              f"{ {k: n_k[k] for k in path_kernels} } in {its_k} its, library path "
+              f"{ {k: n_l[k] for k in path_kernels} }")
+        _require(its_k == its_l == its, f"{what}: the paths ran different iteration counts")
+        _require(all(n_k[k] == its_k for k in path_kernels) and
+                 all(n_l[k] == 0 for k in path_kernels),
+                 f"{what}: the kernel path did not run on the kernel (or the library path did)")
+        _require(err <= 1.0, f"{what}: kernel path against library path {err:.3e} of the "
+                 f"tolerance")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 14: the main path, every kind at full width -------------------
+    main_runs = (  # (what, kind, switch, steps, extra, kernels that run once per iteration)
+        ("CMAMPPI, library path", "cmamppi", None, CMA_RACE_STEPS, {}, ()),
+        ("CMAMPPI, MPOPIS_FUSED_UPDATE=1", "cmamppi", fused, CMA_RACE_STEPS, {}, ("cma_update",)),
+        ("CEMPPI, MPOPIS_FUSED_UPDATE=1", "cemppi", fused, KIND_STEPS, {}, ("masked_refit",)),
+        ("μΣ-AIS, MPOPIS_FUSED_UPDATE=1", "musigmaaismppi", fused, KIND_STEPS, {},
+         ("weighted_refit",)),
+        ("PMC, MPOPIS_FUSED_UPDATE=1", "pmcmppi", fused, KIND_STEPS, {}, ("weighted_refit",)),
+        ("CEMPPI α=0.9, MPOPIS_PALLAS_LINALG=1", "cemppi", pallas, KIND_STEPS, dict(alpha=0.9),
+         ("cholesky", "forward_solve")),
+        *((kind.upper(), kind, None, KIND_STEPS, {}, ())
+          for kind in ("mppi", "gmppi", "imppi", "muaismppi", "nesmppi")),
+    )
+    new_kernels = ("masked_refit", "weighted_refit", "cma_update", "cholesky", "forward_solve")
+    launches = dict.fromkeys(new_kernels, 0)
+    race_sps = {}
+    for what, kind, switch, steps, extra, path_kernels in main_runs:
+        t_phase = time.perf_counter()
+        with _env(**({switch: "1"} if switch else {})):
+            _zero_counts()
+            m = simulate_car_racing(
+                policy_type=kind, num_trials=1, num_steps=steps, num_samples=K, horizon=H,
+                lam=10.0, ais_its=ITS, ce_sigma_est="ss", laps=2, seed=SEED, device=dev,
+                dtype=torch.float32, print_output=False, **extra,
+            )
+            counts = _counts()
+        its = int(m["ais_iterations"][0])
+        sps = float(m["control_steps_per_s"][0])
+        race_sps[what] = sps
+        print(f"phase 14: {what} K={K}: {int(m['steps'][0])} steps, laps at "
+              f"{int(m['lap1_times'][0])} / {int(m['lap2_times'][0])}, "
+              f"{int(m['track_violations'][0])} track / {int(m['beta_violations'][0])} β "
+              f"violations, reward {float(m['rewards'][0]):.4f}, {sps:.3f} control steps/s, "
+              f"AIS iterations {its}, launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})} "
+              f"({time.perf_counter() - t_phase:.1f} s)")
+        _require(np.isfinite(m["rewards"][0]), f"{what}: non-finite reward")
+        _require(counts["car_rollout"] == its > 0, f"{what}: not every rollout ran on the kernel")
+        for k in new_kernels:
+            want = its if k in path_kernels else 0
+            _require(counts[k] == want, f"{what}: {k} launched {counts[k]} times, want {want}")
+            launches[k] += counts[k]
+
+    # -- phase 15: timings by CUDA events ------------------------------------
+    t_phase = time.perf_counter()
+    e, mask, w = e64.float(), mask64.float(), w64.float()
+    mu_m, mu_w = (e @ mask) / M_ELITE, e @ w
+    cma = tuple(t.float() for t in cma64)
+    a100, rhs = spd64[n].float(), rhs64[n].float()
+    l100 = linalg.chol_reference(a100)
+
+    def lib_masked():
+        sigma = shrinkage_cov_masked(e, mask, M_ELITE, "ss")
+        return linalg.cholesky_lower(ais_update.jitter_mat(sigma, 1e-8))
+
+    def lib_weighted():
+        return linalg.cholesky_lower(ais_update.jitter_mat(weighted_mean_and_cov(e, w)[1], 1e-8))
+
+    # CMA: the strategy's update on the library path (Newton–Schulz with its
+    # convergence read, rank-μ, cuSOLVER Cholesky) against the fused one
+    strat = make_strategy(PolicyConfig(kind="cmamppi", num_samples=K, horizon=H,
+                                       cma_fast_sqrt=True), n, torch.float32)
+    sig0 = torch.as_tensor(np.kron(np.eye(H), np.diag([0.0625, 0.1])), dtype=torch.float32,
+                           device=dev)
+    carry = AISCarry(U=torch.zeros(n, device=dev), chol=torch.linalg.cholesky(sig0), E=e,
+                     costs=torch.rand(K, generator=g, device=dev) * 100.0, trajs=None,
+                     extra=strat.make_extra(sig0))
+
+    def cma_strategy(flag):
+        def run():
+            with _env(**{fused: flag}):
+                return strat.update(carry, None, carry.U, 2)
+        return run
+
+    timed = {  # name: (kernel, plain, library call or None, library composition, reps)
+        "masked_refit": (lambda: ais_update.masked_refit_chol(e, mask, mu_m, M_ELITE, "ss", 1e-8),
+                         lambda: ais_update.masked_refit_chol_reference(e, mask, mu_m, M_ELITE,
+                                                                        "ss", 1e-8),
+                         None, lib_masked),
+        "weighted_refit": (lambda: ais_update.weighted_refit_chol(e, w, mu_w, False, 1e-8),
+                           lambda: ais_update.weighted_refit_chol_reference(e, w, mu_w, False,
+                                                                            1e-8),
+                           None, lib_weighted),
+        "cma_update": (lambda: ais_update.cma_update_chol(*cma, 3.0, consts_t, 1e-8),
+                       lambda: ais_update.cma_update_chol_reference(*cma, 3.0, consts_t, 1e-8),
+                       None, cma_strategy(None)),
+        "cholesky": (lambda: linalg.chol_kernel(a100), lambda: linalg.chol_reference(a100),
+                     lambda: torch.linalg.cholesky_ex(a100), lambda: linalg.cholesky_lower(a100)),
+        "forward_solve": (lambda: linalg.fwd_solve_kernel(l100, rhs),
+                          lambda: linalg.fwd_solve_reference(l100, rhs),
+                          lambda: torch.linalg.solve_triangular(l100, rhs.T, upper=False),
+                          lambda: linalg.forward_solve(l100, rhs)),
+    }
+    times = {}
+    for name, (run_k, run_p, run_lib, run_comp) in timed.items():
+        for fn in (run_k, run_p, run_comp) + ((run_lib,) if run_lib else ()):
+            fn()
+        torch.cuda.synchronize()
+        p_a = _time_ms(run_p, 3)
+        k_a = _time_ms(run_k, 30)
+        k_b = _time_ms(run_k, 30)
+        p_b = _time_ms(run_p, 3)
+        c_a = _time_ms(run_comp, 30)
+        lib = (_time_ms(run_lib, 30) + _time_ms(run_lib, 30)) / 2 if run_lib else None
+        c_b = _time_ms(run_comp, 30)
+        times[name] = {"ms": (k_a + k_b) / 2, "plain_ms": (p_a + p_b) / 2, "library_ms": lib,
+                       "composition_ms": (c_a + c_b) / 2}
+        lib_txt = f", library call {lib:.4f} ms" if lib is not None else ""
+        print(f"phase 15: {name} f32 n={n} K={K}: kernel {k_a:.4f} / {k_b:.4f} ms, plain "
+              f"{p_a:.3f} / {p_b:.3f} ms, the library composition it replaces {c_a:.4f} / "
+              f"{c_b:.4f} ms{lib_txt} (CUDA events; {card})")
+    fused_cma = cma_strategy("1")
+    fused_cma()
+    print(f"phase 15: CMA strategy update, fused path {_time_ms(fused_cma, 30):.4f} ms (the "
+          f"library path's is the composition above)")
+
+    # each kind's control step at K=8192: host clock around synchronised steps
+    kinds = [(kind, None) for kind in POLICY_KINDS] + [
+        ("cemppi", fused), ("musigmaaismppi", fused), ("pmcmppi", fused), ("cmamppi", fused),
+        ("cemppi", pallas)]
+    for kind, switch in kinds:
+        with _env(**({switch: "1"} if switch else {})):
+            pol = make_policy(env32, PolicyConfig(kind=kind, num_samples=K, horizon=H, lam=10.0,
+                                                  opt_its=ITS, sigma_est="ss",
+                                                  alpha=0.9 if switch == pallas else 1.0),
+                              cov_mat=np.diag([0.0625, 0.1]))
+            s, pstate = env32.reset(), pol.init_state(SEED)
+            step_ms, its = [], []
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, pstate, info = pol.step(s, pstate)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    its.append(info["ais_its"])
+        label = kind + (f" {switch}=1" if switch else "")
+        print(f"phase 15: {label} control step K={K}: median {np.median(step_ms):.3f} ms "
+              f"(range {min(step_ms):.3f}-{max(step_ms):.3f}, AIS iterations {its})")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+    # bounds: float32 operations over 67 TFLOP/s against bytes over 3.35 TB/s.
+    # A symmetric moment is n(n+1)/2 multiply-adds per column that counts:
+    # the m elite columns of the mask (the others are zeroed), the columns of
+    # nonzero weight. All of E is read: the elite columns are spread over
+    # E's rows, so the 32-byte sectors holding them cover most of E.
+    chol_flops = n**3 / 3.0
+    sym_flops = n * (n + 1.0)
+    m_run, k_run = int(mask.sum()), int((w != 0).sum())
+    refit_bytes = 4.0 * (n * K + K + n + n * n)
+    bounds = {
+        # ss: A and B over the elite columns, their centring and squares, the Cholesky
+        "masked_refit": _bound(m_run * (2 * sym_flops + 2.0 * n) + chol_flops, refit_bytes),
+        # the one moment over the weighted columns, centring and weighting, the Cholesky
+        "weighted_refit": _bound(k_run * (sym_flops + 2.0 * n) + chol_flops, refit_bytes),
+        # 20 Newton–Schulz steps of 3 products, the rank-μ sum over K, the Cholesky
+        "cma_update": _bound(60 * 2.0 * n**3 + 8.0 * K + chol_flops,
+                             4.0 * (3 * n * n + 4 * n + 2 * K + 2)),
+        "cholesky": _bound(chol_flops, 4.0 * 2 * n * n),
+        "forward_solve": _bound(2 * n * n, 4.0 * (n * n + 2 * 2 * n)),
+    }
+    sources = {"masked_refit": ("ais_update", "mpopis_tpu/kernels/ais_update.py:192"),
+               "weighted_refit": ("ais_update", "mpopis_tpu/kernels/ais_update.py:219"),
+               "cma_update": ("ais_update", "mpopis_tpu/kernels/ais_update.py:329"),
+               "cholesky": ("linalg", "mpopis_tpu/kernels/linalg.py:34"),
+               "forward_solve": ("linalg", "mpopis_tpu/kernels/linalg.py:53")}
+    err_key = {"masked_refit": "masked_refit ss", "weighted_refit": "weighted_refit",
+               "cma_update": "cma_update update_chol=True", "cholesky": f"cholesky n={n}",
+               "forward_solve": f"forward_solve n={n} nrhs=2"}
+    entries = []
+    for name, (src, replaces) in sources.items():
+        bound_ms, bound_by = bounds[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"mpopis_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_abs[err_key[name]], "ms": times[name]["ms"],
+            "plain_ms": times[name]["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times[name]["library_ms"],
+            "composition_ms": times[name]["composition_ms"],
+        })
+    return entries
 
 
 def main() -> int:
@@ -422,7 +859,7 @@ def main() -> int:
 
     # -- phase 1: build (every library at once, one nvcc each) ---------------
     t0 = time.perf_counter()
-    build.build_all(["car_rollout", "planar_rollout"])
+    build.build_all(["car_rollout", "planar_rollout", "ais_update", "linalg"])
     build_s = time.perf_counter() - t0
     build.load_library("car_rollout")
     info = build.BUILD_INFO["car_rollout"]
@@ -575,6 +1012,16 @@ def main() -> int:
           f"read); per-run ms {json.dumps(step_ms)}")
 
     planar = _planar_path(card)
+    ais = _ais_path(card)
+
+    # Operations counted per sample and action step: the substeps' arithmetic
+    # (~120 operations and ~15 transcendentals each, counted as one operation
+    # apiece, from step_car_state) and the reward's sweep over the M track
+    # points (6 per point) plus ~40 more; bytes: controls read, costs written.
+    n_sub = int(round(env32.dt / env32.ddt))
+    m_track = env32.track_xyw.shape[1]
+    car_bound = _bound(K * H * (n_sub * 135.0 + 6.0 * m_track + 40.0),
+                       4.0 * (2 * H * K + K + 3 * m_track + 8))
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -586,9 +1033,12 @@ def main() -> int:
         "max_abs_err": max_abs_f32,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": car_bound[0],
+        "bound_by": car_bound[1],
+        "library_ms": None,
         "max_abs_err_f64": max_abs_f64,
         "median_rel_err_f32": float(np.median(rel32)),
-    }, *planar]}))
+    }, *planar, *ais]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

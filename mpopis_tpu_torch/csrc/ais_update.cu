@@ -1,0 +1,509 @@
+// Fused AIS distribution updates: the elite / weighted covariance refit with
+// shrinkage, jitter and Cholesky, and the CMA-ES tail.
+//
+// Replaces the Pallas TPU kernels of mpopis_tpu/kernels/ais_update.py, which
+// the JAX package runs behind MPOPIS_FUSED_UPDATE=1:
+// - _masked_refit_kernel (:192) and _weighted_refit_kernel (:219), both
+//   launched at :265 by _refit_call: L = chol(jitter(estimate)) of the masked
+//   elite columns of E (CEMPPI, five estimators) or of the probability-
+//   weighted columns (muSigma-AIS, and PMC with its K/(K-1) correction). The
+//   two share one call site and one finalize step, and here one kernel pair.
+// - _cma_kernel (:329), launched at :471 by cma_update_chol: Sigma^-1/2 by 20
+//   coupled Newton-Schulz steps, the evolution paths, the guarded step size,
+//   h_sigma, the scalar rank-mu term over K, the symmetrization from the upper
+//   triangle, jitter and sigma * chol.
+//
+// Design
+// - Refit, launch 1 (refit_moments_kernel): A = Xl Xr^T and, for `lw`/`ss`,
+//   B = (Xl o Xl)(Xr o Xr)^T over the K sample columns, with Xl = (E - mu) w
+//   and Xr = (E - mu) w for the 0/1 elite mask, Xr = E - mu for the weighted
+//   refit. The grid spreads 16 x 16 output tiles over the K splits of 512
+//   samples; each block stages 32-sample chunks of its rows and columns in
+//   shared memory, and writes its partial sums to its own slot of a scratch
+//   buffer. The TPU kernel's 2048-column chunking and zero padding existed for
+//   VMEM: here the last chunk is masked instead.
+// - Refit, launch 2 (refit_finalize_kernel), one block: sums the partial slots
+//   in split order (no atomics, so double repeats bit for bit), applies the
+//   estimator in the TPU kernel's standardization-free form (_shrink_finalize,
+//   :122), the jitter (_jitter_mat, :114) and the Cholesky (block_linalg.cuh).
+//   A and B (2 n^2 + 2 n values) sit in shared memory while they fit (n = 100:
+//   81 KB float, 162 KB double), else in global scratch.
+// - CMA (cma_kernel), one block: the four n x n Newton-Schulz matrices (160 KB
+//   in float at n = 100) in shared memory while they fit, else in global
+//   scratch (double). The 60 n x n products are written in the kernel, one
+//   output entry per thread and step, full precision, no tensor cores.
+//
+// What bounds them on an H100: at the headline (n = 100, K = 8192) the
+// refit's moments are 2 n^2 K = 164 MFLOP each (A, and B for lw/ss), ~2.4 us
+// at the 67 TFLOP/s float peak, against 3.3 MB of E read (~1 us at 3.35 TB/s);
+// the one-block finalize (n sequential Cholesky columns) and the CMA tail
+// (60 dependent 2 MFLOP products on one SM, then a Cholesky) are latency-bound
+// chains on one SM, far from either peak.
+//
+// Interface: plain C functions per dtype, loaded with ctypes. Each launches on
+// the given stream, does not synchronise, and returns cudaGetLastError(); the
+// caller allocates the scratch that *_scratch_elems asks for.
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <cmath>
+
+#include "block_linalg.cuh"
+
+namespace {
+
+constexpr int kTile = 16;       // output tile edge of the moments kernel
+constexpr int kChunk = 32;      // samples staged in shared memory at a time
+constexpr int kSplit = 512;     // samples per K split
+constexpr int kThreads = 1024;  // one-block kernels
+constexpr size_t kMaxDynamicSmem = 227 * 1024 - 1024;
+
+enum Method { kMle = 0, kLw = 1, kSs = 2, kRblw = 3, kOas = 4, kWeighted = 5 };
+
+int num_splits(int k) { return (k + kSplit - 1) / kSplit; }
+
+__host__ __device__ constexpr double eps_of(float) { return FLT_EPSILON; }
+__host__ __device__ constexpr double eps_of(double) { return DBL_EPSILON; }
+__host__ __device__ constexpr double tiny_of(float) { return FLT_MIN; }
+__host__ __device__ constexpr double tiny_of(double) { return DBL_MIN; }
+
+// max and clip that keep a NaN, as jnp.maximum and jnp.clip do
+template <typename T>
+__device__ T max_nan(T a, T b) {
+  return (a != a || a > b) ? a : b;
+}
+
+template <typename T>
+__device__ T clip_nan(T x, T lo, T hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// ---------------------------------------------------------------------------
+// refit
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kTile * kTile)
+    refit_moments_kernel(const T* __restrict__ e, const T* __restrict__ w,
+                         const T* __restrict__ mu, int n, int k, int masked, int need_b,
+                         T* __restrict__ part) {
+  __shared__ T xl[kTile][kChunk + 1];
+  __shared__ T xr[kTile][kChunk + 1];
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  const int split = blockIdx.z;
+  const int k_begin = split * kSplit;
+  const int k_end = min(k, k_begin + kSplit);
+  const int tx = threadIdx.x % kTile;
+  const int ty = threadIdx.x / kTile;
+  T acc_a = T(0);
+  T acc_b = T(0);
+  for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kTile * kChunk; idx += blockDim.x) {
+      const int r = idx / kChunk;
+      const int c = idx % kChunk;
+      const int kk = k0 + c;
+      T vl = T(0);
+      T vr = T(0);
+      if (kk < k_end) {
+        const T wk = w[kk];
+        if (i0 + r < n) vl = (e[static_cast<size_t>(i0 + r) * k + kk] - mu[i0 + r]) * wk;
+        if (j0 + r < n) {
+          vr = e[static_cast<size_t>(j0 + r) * k + kk] - mu[j0 + r];
+          if (masked) vr *= wk;
+        }
+      }
+      xl[r][c] = vl;
+      xr[r][c] = vr;
+    }
+    __syncthreads();
+    for (int c = 0; c < kChunk; ++c) {
+      const T a = xl[ty][c];
+      const T b = xr[tx][c];
+      acc_a += a * b;
+      if (need_b) acc_b += (a * a) * (b * b);
+    }
+  }
+  const int i = i0 + ty;
+  const int j = j0 + tx;
+  if (i < n && j < n) {
+    const size_t nn = static_cast<size_t>(n) * n;
+    part[(2 * split) * nn + i * n + j] = acc_a;
+    if (need_b) part[(2 * split + 1) * nn + i * n + j] = acc_b;
+  }
+}
+
+// sigma (in a) from the moment sums a, b over m samples: _shrink_finalize.
+template <typename T>
+__device__ void shrink_finalize(T* a, const T* b, T* vec, int n, double m, int method, T* red) {
+  const int nn = n * n;
+  const T tiny = T(tiny_of(T()));
+  if (method == kMle) {
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) a[idx] = a[idx] / T(m);
+    __syncthreads();
+    return;
+  }
+  if (method == kLw) {
+    T num = T(0), num_d = T(0), den = T(0), den_d = T(0);
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+      const T s = a[idx] / T(m);
+      const T var_s = (b[idx] / T(m) - s * s) / T(m);
+      num += var_s;
+      den += s * s;
+      if (idx / n == idx % n) {
+        num_d += var_s;
+        den_d += s * s;
+      }
+    }
+    const T numv = mpopis::block_sum(num, red) - mpopis::block_sum(num_d, red);
+    const T denv = mpopis::block_sum(den, red) - mpopis::block_sum(den_d, red);
+    const T lam = clip_nan(numv / max_nan(denv, tiny), T(0), T(1));
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+      const T s = a[idx] / T(m);
+      a[idx] = (T(1) - lam) * s + lam * (idx / n == idx % n ? s : T(0));
+    }
+    __syncthreads();
+    return;
+  }
+  if (method == kSs) {
+    T* inv_sd = vec;      // (n,) 1 / sd, unbiased variances
+    T* sd_mle = vec + n;  // (n,) MLE standard deviations
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const T d = a[i * n + i];
+      inv_sd[i] = T(1) / sqrt(max_nan(d / T(m - 1.0), tiny));
+      sd_mle[i] = sqrt(max_nan(d / T(m), tiny));
+    }
+    __syncthreads();
+    const T c_r = T(m / (m - 1.0));
+    const T c_var = T(m / ((m - 1.0) * (m - 1.0) * (m - 1.0)));
+    T num = T(0), num_d = T(0), den = T(0), den_d = T(0);
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+      const int i = idx / n;
+      const int j = idx % n;
+      const T wbar = a[idx] / T(m) * inv_sd[i] * inv_sd[j];
+      const T r = c_r * wbar;
+      const T sum_w2 = b[idx] * (inv_sd[i] * inv_sd[i]) * (inv_sd[j] * inv_sd[j]);
+      const T var_r = c_var * (sum_w2 - T(m) * wbar * wbar);
+      num += var_r;
+      den += r * r;
+      if (i == j) {
+        num_d += var_r;
+        den_d += r * r;
+      }
+    }
+    const T numv = mpopis::block_sum(num, red) - mpopis::block_sum(num_d, red);
+    const T denv = mpopis::block_sum(den, red) - mpopis::block_sum(den_d, red);
+    const T lam = clip_nan(numv / max_nan(denv, tiny), T(0), T(1));
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+      const int i = idx / n;
+      const int j = idx % n;
+      const T r = c_r * (a[idx] / T(m) * inv_sd[i] * inv_sd[j]);
+      const T r_shrunk = i == j ? T(1) : (T(1) - lam) * r;
+      a[idx] = r_shrunk * sd_mle[i] * sd_mle[j];
+    }
+    __syncthreads();
+    return;
+  }
+  // rblw / oas: target tr(S)/p I
+  T tr = T(0), tr2 = T(0);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    const T s = a[idx] / T(m);
+    tr2 += s * s;
+    if (idx / n == idx % n) tr += s;
+  }
+  const T tr_s = mpopis::block_sum(tr, red);
+  const T tr_s2 = mpopis::block_sum(tr2, red);
+  const double p = n;
+  T num, den;
+  if (method == kRblw) {
+    num = T((m - 2.0) / m) * tr_s2 + tr_s * tr_s;
+    den = T(m + 2.0) * (tr_s2 - tr_s * tr_s / T(p));
+  } else {
+    num = T(1.0 - 2.0 / p) * tr_s2 + tr_s * tr_s;
+    den = T(m + 1.0 - 2.0 / p) * (tr_s2 - tr_s * tr_s / T(p));
+  }
+  const T rho = clip_nan(num / max_nan(den, tiny), T(0), T(1));
+  const T target = tr_s / T(p);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    const T s = a[idx] / T(m);
+    a[idx] = (T(1) - rho) * s + rho * (idx / n == idx % n ? target : T(0));
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    refit_finalize_kernel(const T* __restrict__ part, int splits, int n, double m, int method,
+                          double jitter, int corrected, int in_smem, T* __restrict__ work,
+                          T* __restrict__ l_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[32];
+  const int nn = n * n;
+  T* a = in_smem ? reinterpret_cast<T*>(smem_raw) : work;
+  T* b = a + nn;
+  T* vec = b + nn;
+  const int need_b = method == kLw || method == kSs;
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    T sa = T(0), sb = T(0);
+    for (int s = 0; s < splits; ++s) {
+      sa += part[(2 * static_cast<size_t>(s)) * nn + idx];
+      if (need_b) sb += part[(2 * static_cast<size_t>(s) + 1) * nn + idx];
+    }
+    a[idx] = sa;
+    b[idx] = sb;
+  }
+  __syncthreads();
+  if (method == kWeighted) {
+    if (corrected) {
+      const T c = T(m / (m - 1.0));
+      for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) a[idx] *= c;
+    }
+    __syncthreads();
+  } else {
+    shrink_finalize(a, b, vec, n, m, method, red);
+  }
+  mpopis::block_jitter(a, n, jitter, eps_of(T()), red);
+  mpopis::block_cholesky(a, n);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) l_out[idx] = a[idx];
+}
+
+size_t refit_work_elems(int n) { return 2 * static_cast<size_t>(n) * n + 2 * n; }
+
+size_t refit_part_elems(int n, int k) {
+  return 2 * static_cast<size_t>(num_splits(k)) * n * n;
+}
+
+template <typename T>
+int refit_launch(const void* e, const void* w, const void* mu, int n, int k, int method,
+                 double m, double jitter, int corrected, void* scratch, void* l, void* stream) {
+  if (n < 1 || k < 1 || method < kMle || method > kWeighted)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* part = static_cast<T*>(scratch);
+  T* work = part + refit_part_elems(n, k);
+  const int splits = num_splits(k);
+  const int tiles = (n + kTile - 1) / kTile;
+  const int need_b = method == kLw || method == kSs;
+  refit_moments_kernel<T><<<dim3(tiles, tiles, splits), kTile * kTile, 0, s>>>(
+      static_cast<const T*>(e), static_cast<const T*>(w), static_cast<const T*>(mu), n, k,
+      method != kWeighted, need_b, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = refit_work_elems(n) * sizeof(T);
+  const int in_smem = bytes <= kMaxDynamicSmem;
+  const size_t smem = in_smem ? bytes : 0;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(refit_finalize_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  refit_finalize_kernel<T><<<1, kThreads, smem, s>>>(part, splits, n, m, method, jitter,
+                                                      corrected, in_smem, work,
+                                                      static_cast<T*>(l));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// CMA tail
+// ---------------------------------------------------------------------------
+
+struct CmaConsts {
+  double c1, c_Sigma, c_mu, c_sigma, d_sigma, e_norm, mu_eff;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cma_kernel(const T* __restrict__ sigma_in, const T* __restrict__ dw,
+               const T* __restrict__ ps_in, const T* __restrict__ pS_in,
+               const T* __restrict__ svals, const T* __restrict__ ws,
+               const T* __restrict__ sigma_s_in, int n, int k, CmaConsts c, double it,
+               double jitter, int guards, int ns_its, int update_chol, int in_smem,
+               T* __restrict__ work, T* __restrict__ chol_out, T* __restrict__ sigma_out,
+               T* __restrict__ ps_out, T* __restrict__ pS_out, T* __restrict__ sig_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[32];
+  const int nn = n * n;
+  T* y = in_smem ? reinterpret_cast<T*>(smem_raw) : work;
+  T* z = y + nn;
+  T* t = z + nn;
+  T* w = t + nn;
+  T* p_sig = w + nn;  // (n,)
+  T* p_Sig = p_sig + n;  // (n,)
+  const T it_f = T(it);
+  const T sigma_s = *sigma_s_in;
+
+  // C = Sigma^-1/2 by coupled Newton-Schulz: Y -> (Sigma/s)^1/2, Z -> (Sigma/s)^-1/2
+  T d = T(0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) d += sigma_in[i * n + i];
+  const T s_tr = mpopis::block_sum(d, red);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    y[idx] = sigma_in[idx] / s_tr;
+    z[idx] = idx / n == idx % n ? T(1) : T(0);
+  }
+  __syncthreads();
+  for (int step = 0; step < ns_its; ++step) {
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {  // t = 1.5 I - 0.5 z y
+      const int i = idx / n;
+      const int j = idx % n;
+      T acc = T(0);
+      for (int q = 0; q < n; ++q) acc += z[i * n + q] * y[q * n + j];
+      t[idx] = (i == j ? T(1.5) : T(0)) - T(0.5) * acc;
+    }
+    __syncthreads();
+    mpopis::block_matmul(y, t, w, n);  // y <- y t
+    T* tmp = y;
+    y = w;
+    w = tmp;
+    mpopis::block_matmul(t, z, w, n);  // z <- t z
+    tmp = z;
+    z = w;
+    w = tmp;
+  }
+  const T sqrt_s = sqrt(s_tr);
+  T c2 = T(0);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    const T cij = z[idx] / sqrt_s;
+    z[idx] = cij;
+    c2 += cij * cij;
+  }
+  const T norm_c2 = mpopis::block_sum(c2, red);  // also orders the writes to z
+
+  // evolution path p_sigma and the step size
+  const T k_ps = T(sqrt(c.c_sigma * (2.0 - c.c_sigma) * c.mu_eff));
+  T ps2 = T(0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    T c_dw = T(0);
+    for (int j = 0; j < n; ++j) c_dw += z[i * n + j] * dw[j];
+    const T p = T(1.0 - c.c_sigma) * ps_in[i] + k_ps * c_dw;
+    p_sig[i] = p;
+    ps2 += p * p;
+  }
+  const T norm_ps = sqrt(mpopis::block_sum(ps2, red));
+  T step_exp = T(c.c_sigma / c.d_sigma) * (norm_ps / T(c.e_norm) - T(1));
+  if (guards) step_exp = clip_nan(step_exp, T(-20), T(20));
+  T sigma_new = sigma_s * exp(step_exp);
+  if (guards) sigma_new = clip_nan(sigma_new, T(1e-10), T(1e10));
+
+  // h_sigma with (1 - c_sigma)^(2 it) as exp(2 it log(1 - c_sigma)), and p_Sigma
+  const T decay = exp(T(2) * it_f * T(log(1.0 - c.c_sigma)));
+  const T denom = sqrt(T(1) - decay);
+  const T h_sigma = norm_ps / denom < T((1.4 + 2.0 / (n + 1.0)) * c.e_norm) ? T(1) : T(0);
+  const T k_pS = T(sqrt(c.c_Sigma * (2.0 - c.c_Sigma) * c.mu_eff));
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    p_Sig[i] = T(1.0 - c.c_Sigma) * pS_in[i] + h_sigma * k_pS * dw[i];
+
+  // the scalar rank-mu term (the reference's quirk form) over the K samples
+  T rm = T(0);
+  for (int q = threadIdx.x; q < k; q += blockDim.x) {
+    const T sv = svals[q];
+    const T wq = ws[q];
+    const T w0 = wq >= T(0) ? wq : it_f * wq / max_nan(norm_c2 * sv * sv, T(1e-30));
+    rm += w0 * sv * sv;
+  }
+  const T rank_mu = mpopis::block_sum(rm, red);  // also orders p_Sig
+
+  // Sigma_new from the upper triangle, symmetrized
+  const T k_old = T(1.0 - c.c1 - c.c_mu);
+  const T k_h = (T(1) - h_sigma) * T(c.c_Sigma) * T(2.0 - c.c_Sigma);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    const int i = idx / n;
+    const int j = idx % n;
+    const int u = i <= j ? idx : j * n + i;  // the upper-triangle entry
+    const int ui = i <= j ? i : j;
+    const int uj = i <= j ? j : i;
+    const T sg = sigma_in[u];
+    const T v = k_old * sg + T(c.c1) * (p_Sig[ui] * p_Sig[uj] + k_h * sg) + T(c.c_mu) * rank_mu;
+    sigma_out[idx] = v;
+    w[idx] = v;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    ps_out[i] = p_sig[i];
+    pS_out[i] = p_Sig[i];
+  }
+  if (threadIdx.x == 0) *sig_out = sigma_new;
+  __syncthreads();
+  if (update_chol) {
+    mpopis::block_jitter(w, n, jitter, eps_of(T()), red);
+    mpopis::block_cholesky(w, n);
+  }
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+    chol_out[idx] = update_chol ? sigma_new * w[idx] : T(0);
+}
+
+size_t cma_work_elems(int n) { return 4 * static_cast<size_t>(n) * n + 2 * n; }
+
+template <typename T>
+int cma_launch(const void* sigma, const void* dw, const void* ps, const void* pS,
+               const void* svals, const void* ws, const void* sigma_s, int n, int k,
+               const double* consts, double it, double jitter, int guards, int ns_its,
+               int update_chol, void* scratch, void* chol, void* sigma_out, void* ps_out,
+               void* pS_out, void* sig_out, void* stream) {
+  if (n < 1 || k < 1 || ns_its < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const CmaConsts c{consts[0], consts[1], consts[2], consts[3], consts[4], consts[5], consts[6]};
+  const size_t bytes = cma_work_elems(n) * sizeof(T);
+  const int in_smem = bytes <= kMaxDynamicSmem;
+  const size_t smem = in_smem ? bytes : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cma_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(sigma), static_cast<const T*>(dw), static_cast<const T*>(ps),
+      static_cast<const T*>(pS), static_cast<const T*>(svals), static_cast<const T*>(ws),
+      static_cast<const T*>(sigma_s), n, k, c, it, jitter, guards, ns_its, update_chol, in_smem,
+      static_cast<T*>(scratch), static_cast<T*>(chol), static_cast<T*>(sigma_out),
+      static_cast<T*>(ps_out), static_cast<T*>(pS_out), static_cast<T*>(sig_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scratch (in elements of the dtype) the caller allocates for one call.
+long long ais_refit_scratch_elems(int n, int k) {
+  return static_cast<long long>(refit_part_elems(n, k) + refit_work_elems(n));
+}
+
+long long ais_cma_scratch_elems(int n) { return static_cast<long long>(cma_work_elems(n)); }
+
+int ais_num_cma_consts() { return 7; }
+
+// method: 0 mle, 1 lw, 2 ss, 3 rblw, 4 oas (masked refit); 5 the weighted refit
+int ais_refit_chol_f32(const void* e, const void* w, const void* mu, int n, int k, int method,
+                       double m, double jitter, int corrected, void* scratch, void* l,
+                       void* stream) {
+  return refit_launch<float>(e, w, mu, n, k, method, m, jitter, corrected, scratch, l, stream);
+}
+
+int ais_refit_chol_f64(const void* e, const void* w, const void* mu, int n, int k, int method,
+                       double m, double jitter, int corrected, void* scratch, void* l,
+                       void* stream) {
+  return refit_launch<double>(e, w, mu, n, k, method, m, jitter, corrected, scratch, l, stream);
+}
+
+// consts: c1, c_Sigma, c_mu, c_sigma, d_sigma, e_norm, mu_eff
+int ais_cma_update_f32(const void* sigma, const void* dw, const void* ps, const void* pS,
+                       const void* svals, const void* ws, const void* sigma_s, int n, int k,
+                       const double* consts, double it, double jitter, int guards, int ns_its,
+                       int update_chol, void* scratch, void* chol, void* sigma_out,
+                       void* ps_out, void* pS_out, void* sig_out, void* stream) {
+  return cma_launch<float>(sigma, dw, ps, pS, svals, ws, sigma_s, n, k, consts, it, jitter,
+                           guards, ns_its, update_chol, scratch, chol, sigma_out, ps_out,
+                           pS_out, sig_out, stream);
+}
+
+int ais_cma_update_f64(const void* sigma, const void* dw, const void* ps, const void* pS,
+                       const void* svals, const void* ws, const void* sigma_s, int n, int k,
+                       const double* consts, double it, double jitter, int guards, int ns_its,
+                       int update_chol, void* scratch, void* chol, void* sigma_out,
+                       void* ps_out, void* pS_out, void* sig_out, void* stream) {
+  return cma_launch<double>(sigma, dw, ps, pS, svals, ws, sigma_s, n, k, consts, it, jitter,
+                            guards, ns_its, update_chol, scratch, chol, sigma_out, ps_out,
+                            pS_out, sig_out, stream);
+}
+
+}  // extern "C"

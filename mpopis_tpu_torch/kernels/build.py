@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled with nvcc for
 Hopper (`sm_90a`) into a shared library under `mpopis_tpu_torch/_build/`
-(listed in .gitignore), named by a hash of the source and the flags, and
-loaded with ctypes. A missing nvcc or a failed compile raises: there is no
-fallback.
+(listed in .gitignore), named by a hash of the source, the `csrc/` headers
+it includes and the flags, and loaded with ctypes. A missing nvcc or a
+failed compile raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,8 +52,22 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> None:
+    """Read `path` and the `csrc/` headers it includes, transitively, into `seen`."""
+    seen[path] = path.read_bytes()
+    for inc in _INCLUDE.findall(seen[path]):
+        header = CSRC_DIR / inc.decode()
+        if header not in seen and header.is_file():
+            _sources(header, seen)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    seen: dict[Path, bytes] = {}
+    _sources(CSRC_DIR / f"{name}.cu", seen)
+    src = b"".join(seen[p] for p in sorted(seen))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

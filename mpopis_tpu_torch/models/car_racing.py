@@ -187,5 +187,10 @@ class CarRacingEnv(Env):
 
         return car_rollout_costs_tak(self, state.x, controls_tak, controls_tak.shape[0])
 
+    def fused_rollout_costs(self, state: EnvState, controls: torch.Tensor):
+        """The same with clamped controls (K, T, 2), the layout of plain
+        MPPI: one transpose into the kernel's layout."""
+        return self.fused_rollout_costs_tak(state, controls.permute(1, 2, 0).contiguous())
+
     def within_track(self, state: EnvState):
         return distance_query(self.pts, self.widths, state.x[..., :2])

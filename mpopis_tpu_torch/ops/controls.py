@@ -1,9 +1,33 @@
-"""Control clamping and the receding-horizon shift; counterpart of
-`mpopis_tpu/ops/controls.py`."""
+"""Control-vector utilities: block-diagonal covariance tiling, clamping and
+the receding-horizon shift; counterpart of `mpopis_tpu/ops/controls.py`."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def block_diag_repeat(a: torch.Tensor, reps: int) -> torch.Tensor:
+    """A (d,) variance vector or a (d, d) covariance block tiled `reps`
+    times along the diagonal of a (d·reps, d·reps) matrix: the per-step
+    action covariance expanded over the horizon."""
+    a = torch.as_tensor(a)
+    if a.dim() == 1:
+        return torch.diag(a.repeat(reps))
+    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"expected (d,) or (d,d), got {tuple(a.shape)}")
+    return torch.block_diag(*([a] * reps))
+
+
+def controls_from_flat(v_flat: torch.Tensor, horizon: int, action_dim: int) -> torch.Tensor:
+    """A flat timestep-major (cs,) control vector [u_1; …; u_T] as
+    (horizon, action_dim)."""
+    return v_flat.reshape(horizon, action_dim)
+
+
+def action_bounds_tiled(low, high, horizon: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-step action bounds tiled over the horizon for flat (cs,) vectors."""
+    return np.tile(np.asarray(low), horizon), np.tile(np.asarray(high), horizon)
 
 
 def clamp_controls(v: torch.Tensor, low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,38 @@
-"""Linear-shrinkage covariance estimators over masked sample columns.
+"""Covariance estimation: weighted moments and linear-shrinkage estimators.
 
-Counterpart of `mpopis_tpu/ops/covariance.py::shrinkage_cov_masked` and
-the five estimators behind the CE refit's `sigma_est` (`mle`, `lw`, `ss`,
-`rblw`, `oas`): Ledoit & Wolf 2004 (diagonal-unequal-variance target),
-Schäfer & Strimmer 2005 (Target D), and Chen, Wiesel, Eldar & Hero 2009
-(RBLW / OAS, diagonal-common-variance target). Each takes centered data
-`xc` (n_rows, p) whose unselected rows are zero and the selected count n.
+Counterpart of `mpopis_tpu/ops/covariance.py`:
+- the probability-weighted moments of μΣ-AIS (StatsBase's uncorrected
+  `mean_and_cov(E, w, 2)`) and the unweighted moments of PMC;
+- the five estimators behind the CE refit's `sigma_est` (`mle`, `lw`, `ss`,
+  `rblw`, `oas`): Ledoit & Wolf 2004 (diagonal-unequal-variance target),
+  Schäfer & Strimmer 2005 (Target D), and Chen, Wiesel, Eldar & Hero 2009
+  (RBLW / OAS, diagonal-common-variance target), over a sample matrix
+  (`shrinkage_cov`) or over masked sample columns (`shrinkage_cov_masked`).
+  Each `_*_from_centered` takes centered data `xc` (n_rows, p) whose
+  unselected rows are zero and the selected count n.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def weighted_mean_and_cov(e: torch.Tensor, w: torch.Tensor):
+    """Probability-weighted mean and covariance of the K columns of `e`
+    (d, K), `w` (K,) summing to 1: (μ (d,), Σ (d, d)) with the uncorrected
+    convention Σ = Σ_k w_k (x_k − μ)(x_k − μ)ᵀ."""
+    mu = e @ w
+    xc = e - mu[:, None]
+    return mu, (xc * w[None, :]) @ xc.T
+
+
+def mean_and_cov(e: torch.Tensor, corrected: bool = True):
+    """Unweighted mean and covariance of the columns of `e` (d, K);
+    `corrected` divides by K − 1 (PMC's resampled moments)."""
+    k = e.shape[1]
+    mu = torch.mean(e, dim=1)
+    xc = e - mu[:, None]
+    return mu, (xc @ xc.T) / ((k - 1) if corrected else k)
 
 
 def _offdiag_sum(m: torch.Tensor) -> torch.Tensor:
@@ -97,6 +119,59 @@ _MASKED_ESTIMATORS = {
     "rblw": lambda xc, n: _common_variance_from_centered(xc, n, _rho_rblw),
     "oas": lambda xc, n: _common_variance_from_centered(xc, n, _rho_oas),
 }
+
+
+def _centered(x: torch.Tensor) -> torch.Tensor:
+    return x - torch.mean(x, dim=0, keepdim=True)
+
+
+def sample_cov(x: torch.Tensor, corrected: bool = False) -> torch.Tensor:
+    """Sample covariance of the rows of `x` (n, p): /n (the reference's
+    `mle`), or /(n − 1) when `corrected`."""
+    n = x.shape[0]
+    xc = _centered(x)
+    return (xc.T @ xc) / ((n - 1) if corrected else n)
+
+
+def lw_shrinkage_cov(x: torch.Tensor) -> torch.Tensor:
+    """Ledoit–Wolf shrinkage toward diag(S) over the rows of `x` (n, p)."""
+    return _lw_from_centered(_centered(x), x.shape[0])
+
+
+def ss_shrinkage_cov(x: torch.Tensor) -> torch.Tensor:
+    """Schäfer–Strimmer Target-D shrinkage over the rows of `x` (n, p)."""
+    return _ss_from_centered(_centered(x), x.shape[0])
+
+
+def rblw_shrinkage_cov(x: torch.Tensor) -> torch.Tensor:
+    """RBLW shrinkage toward tr(S)/p · I over the rows of `x` (n, p)."""
+    return _common_variance_from_centered(_centered(x), x.shape[0], _rho_rblw)
+
+
+def oas_shrinkage_cov(x: torch.Tensor) -> torch.Tensor:
+    """OAS shrinkage toward tr(S)/p · I over the rows of `x` (n, p)."""
+    return _common_variance_from_centered(_centered(x), x.shape[0], _rho_oas)
+
+
+_ESTIMATORS = {
+    "mle": sample_cov,
+    "lw": lw_shrinkage_cov,
+    "ss": ss_shrinkage_cov,
+    "rblw": rblw_shrinkage_cov,
+    "oas": oas_shrinkage_cov,
+}
+
+
+def shrinkage_cov(x: torch.Tensor, method: str = "mle") -> torch.Tensor:
+    """The estimator named by the reference's Σ_est symbol, over the rows of
+    `x` (n, p)."""
+    try:
+        est = _ESTIMATORS[method]
+    except KeyError:
+        raise ValueError(
+            f"unknown Σ estimation method {method!r}; options: {sorted(_ESTIMATORS)}"
+        ) from None
+    return est(x)
 
 
 def shrinkage_cov_masked(

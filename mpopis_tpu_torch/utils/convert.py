@@ -2,7 +2,8 @@
 
 The system has no learned weights: what carries across is its physical
 parameters, the planar contact models' tables, track geometry, environment
-state, policy mean and sampling covariance. Each function takes the JAX package's value as numpy arrays or
+state, policy mean and sampling covariance, and the AIS state inside a
+control step. Each function takes the JAX package's value as numpy arrays or
 a plain dict (e.g. `dataclasses.asdict(jax_params)`, `np.asarray(state.x)`)
 and returns the port's; nothing here imports jax.
 """
@@ -25,6 +26,7 @@ from mpopis_tpu_torch.models.planar_contact import (
 )
 from mpopis_tpu_torch.models.track import Track
 from mpopis_tpu_torch.policies.config import PolicyState, init_policy_state
+from mpopis_tpu_torch.policies.strategies import AISCarry
 
 
 def car_params(d: dict) -> CarParams:
@@ -76,4 +78,25 @@ def u0_and_sigma(u0, sigma, dtype=torch.float32, device="cpu"):
     return (
         torch.as_tensor(np.asarray(u0), dtype=dtype, device=device),
         torch.as_tensor(np.asarray(sigma), dtype=dtype, device=device),
+    )
+
+
+def ais_carry(d: dict, dtype=torch.float32, device="cpu") -> AISCarry:
+    """AISCarry from a JAX AISCarry's fields as numpy arrays: `U`, `chol`,
+    `E`, `costs`, optionally `trajs`, and `extra` — None, or a dict of
+    arrays (CMA's `Sigma`, `sigma`, `p_sigma`, `p_Sigma`; NES's `A`). The
+    JAX carry's `done` and `key` have no counterpart: the port's driver
+    keeps the stop flag and the generator outside the carry."""
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    extra = d.get("extra")
+    return AISCarry(
+        U=tensor(d["U"]),
+        chol=tensor(d["chol"]),
+        E=tensor(d["E"]),
+        costs=tensor(d["costs"]),
+        trajs=None if d.get("trajs") is None else tensor(d["trajs"]),
+        extra=None if extra is None else {name: tensor(v) for name, v in extra.items()},
     )

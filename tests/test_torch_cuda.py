@@ -1,5 +1,6 @@
-"""The CUDA kernels (car rollout, planar-contact rollout and control step)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (car rollout, planar-contact rollout and control step,
+the AIS-update refits and CMA tail, Cholesky and forward solve) against
+their plain PyTorch versions, on the card.
 
 Marked `cuda`; without a card every test skips. This file imports neither
 jax nor the JAX package, so it runs on a machine without jax:
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from mpopis_tpu_torch.kernels import car_rollout, planar_step
+from mpopis_tpu_torch.kernels import ais_update, car_rollout, linalg, planar_step
 from mpopis_tpu_torch.models import (
     CarRacingEnv,
     CheetahDeviceEnv,
@@ -19,6 +20,8 @@ from mpopis_tpu_torch.models import (
     Walker2dDeviceEnv,
     make_state,
 )
+from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+from mpopis_tpu_torch.policies.strategies import CMAStrategy
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +143,160 @@ def test_planar_wrappers_reject_bad_inputs(cuda_device):
         planar_step.planar_step_states(env, x0[None], torch.zeros((1, 6), device=cuda_device,
                                                                   dtype=torch.float64))
     assert (planar_step.LAUNCHES, planar_step.STEP_LAUNCHES) == before
+
+
+# -- AIS updates and small linear algebra --------------------------------------
+# float32 at the JAX kernel tests' tolerances (refits and Cholesky rtol 5e-4 /
+# atol 5e-5, CMA rtol 5e-3 / atol 5e-4, forward solve rtol 5e-5 / atol 5e-6);
+# float64 at rtol 1e-9.
+AIS_TOL = {"refit": (5e-4, 5e-5), "cma": (5e-3, 5e-4), "solve": (5e-5, 5e-6)}
+
+
+def _tol(family, dtype):
+    return AIS_TOL[family] if dtype == torch.float32 else (1e-9, 1e-12)
+
+
+def _ais_close(got, want, family, dtype):
+    rtol, atol = _tol(family, dtype)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+def _refit_data(device, dtype, cs=100, k=8192, m=1638, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    e = torch.randn((cs, k), generator=g, dtype=torch.float64) * 0.3
+    mask = torch.zeros(k, dtype=torch.float64)
+    mask[torch.randperm(k, generator=g)[:m]] = 1.0
+    w = torch.rand(k, generator=g, dtype=torch.float64) ** 4
+    w /= w.sum()
+    return (t.to(device=device, dtype=dtype) for t in (e, mask, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", ["mle", "lw", "ss", "rblw", "oas"])
+def test_masked_refit_kernel_matches_plain_version(cuda_device, dtype, method):
+    e, mask, _ = _refit_data(cuda_device, dtype)
+    mu = (e @ mask) / 1638
+    before = ais_update.MASKED_LAUNCHES
+    got = ais_update.masked_refit_chol(e, mask, mu, 1638, method, 1e-8)
+    assert ais_update.MASKED_LAUNCHES == before + 1
+    want = ais_update.masked_refit_chol_reference(e, mask, mu, 1638, method, 1e-8)
+    _ais_close(got, want, "refit", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("corrected", [False, True])
+def test_weighted_refit_kernel_matches_plain_version(cuda_device, dtype, corrected):
+    e, _, w = _refit_data(cuda_device, dtype)
+    mu = e @ w
+    before = ais_update.WEIGHTED_LAUNCHES
+    got = ais_update.weighted_refit_chol(e, w, mu, corrected, 1e-8)
+    assert ais_update.WEIGHTED_LAUNCHES == before + 1
+    _ais_close(got, ais_update.weighted_refit_chol_reference(e, w, mu, corrected, 1e-8),
+               "refit", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("update_chol", [True, False])
+def test_cma_kernel_matches_plain_version(cuda_device, dtype, update_chol):
+    n, k = 100, 8192
+    g = torch.Generator(device="cpu").manual_seed(3)
+    a = torch.randn((n, n), generator=g, dtype=torch.float64) * 0.05
+    consts = CMAStrategy.constants(k, n, 0.8)
+    args = [a @ a.T + 0.3 * torch.eye(n, dtype=torch.float64),
+            torch.randn(n, generator=g, dtype=torch.float64) * 0.3,
+            torch.randn(n, generator=g, dtype=torch.float64) * 0.5,
+            torch.randn(n, generator=g, dtype=torch.float64) * 0.1,
+            torch.randn(k, generator=g, dtype=torch.float64),
+            torch.as_tensor(consts["ws"]), torch.tensor(0.8, dtype=torch.float64)]
+    args = [t.to(device=cuda_device, dtype=dtype) for t in args]
+    consts_t = tuple(sorted((name, float(consts[name])) for name in ais_update.CMA_CONSTS))
+    before = ais_update.CMA_LAUNCHES
+    got = ais_update.cma_update_chol(*args, 3.0, consts_t, 1e-8, update_chol=update_chol)
+    assert ais_update.CMA_LAUNCHES == before + 1
+    want = ais_update.cma_update_chol_reference(*args, 3.0, consts_t, 1e-8,
+                                                update_chol=update_chol)
+    for g_, w_ in zip(got, want):
+        _ais_close(g_, w_, "cma", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4, 100, 600])
+def test_cholesky_and_forward_solve_kernels_match_plain_versions(cuda_device, dtype, n):
+    g = torch.Generator(device="cpu").manual_seed(n)
+    a = torch.randn((n, n), generator=g, dtype=torch.float64) * 0.2
+    spd = (a @ a.T + torch.eye(n, dtype=torch.float64)).to(device=cuda_device, dtype=dtype)
+    before = linalg.CHOL_LAUNCHES
+    l = linalg.chol_kernel(spd)
+    assert linalg.CHOL_LAUNCHES == before + 1
+    _ais_close(l, linalg.chol_reference(spd), "refit", dtype)
+    assert bool(torch.all(torch.triu(l, 1) == 0))
+    b = torch.randn((2, n), generator=g, dtype=torch.float64).to(device=cuda_device, dtype=dtype)
+    before = linalg.SOLVE_LAUNCHES
+    y = linalg.fwd_solve_kernel(l, b)
+    assert linalg.SOLVE_LAUNCHES == before + 1
+    _ais_close(y, linalg.fwd_solve_reference(l, b), "solve", dtype)
+
+
+def test_cholesky_kernel_gives_nans_where_not_positive_definite(cuda_device):
+    spd = torch.eye(6, dtype=torch.float64, device=cuda_device)
+    spd[3, 3] = -1.0
+    l = linalg.chol_kernel(spd)
+    assert bool(torch.isnan(l[3:, 3]).all()) and not bool(torch.isnan(l[:, :3]).any())
+
+
+def test_ais_wrappers_reject_bad_inputs(cuda_device):
+    e = torch.zeros((8, 64), device=cuda_device)
+    w = torch.zeros(64, device=cuda_device)
+    mu = torch.zeros(8, device=cuda_device)
+    before = (ais_update.MASKED_LAUNCHES, ais_update.WEIGHTED_LAUNCHES, ais_update.CMA_LAUNCHES,
+              linalg.CHOL_LAUNCHES, linalg.SOLVE_LAUNCHES)
+    with pytest.raises(ValueError, match="dtype"):
+        ais_update.masked_refit_chol(e.half(), w.half(), mu.half(), 4)
+    with pytest.raises(ValueError, match="mu shape"):
+        ais_update.masked_refit_chol(e, w, mu[:4].contiguous(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ais_update.weighted_refit_chol(e.T.contiguous().T, w, mu)
+    with pytest.raises(ValueError, match="want torch.float32"):
+        ais_update.weighted_refit_chol(e, w.double(), mu)
+    with pytest.raises(ValueError, match="on cuda"):
+        ais_update.weighted_refit_chol(e, w.cpu(), mu)
+    with pytest.raises(ValueError, match="unknown sigma_est"):
+        ais_update.masked_refit_chol(e, w, mu, 4, "bogus")
+    sig = torch.eye(8, device=cuda_device)
+    with pytest.raises(ValueError, match="dw shape"):
+        ais_update.cma_update_chol(sig, mu[:3], mu, mu, w, w, torch.tensor(1.0, device=cuda_device),
+                                   1.0, (), 1e-8)
+    with pytest.raises(ValueError, match="shape"):
+        linalg.chol_kernel(torch.zeros((3, 4), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        linalg.chol_kernel(torch.zeros((8, 8), device=cuda_device).T[::2, ::2])
+    with pytest.raises(ValueError, match="b shape"):
+        linalg.fwd_solve_kernel(sig, torch.zeros((2, 7), device=cuda_device))
+    with pytest.raises(ValueError, match="b is"):
+        linalg.fwd_solve_kernel(sig, torch.zeros((2, 8), device=cuda_device, dtype=torch.float64))
+    assert (ais_update.MASKED_LAUNCHES, ais_update.WEIGHTED_LAUNCHES, ais_update.CMA_LAUNCHES,
+            linalg.CHOL_LAUNCHES, linalg.SOLVE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("kind,env_var,counters", [
+    ("cemppi", "MPOPIS_FUSED_UPDATE", ("MASKED_LAUNCHES",)),
+    ("musigmaaismppi", "MPOPIS_FUSED_UPDATE", ("WEIGHTED_LAUNCHES",)),
+    ("pmcmppi", "MPOPIS_FUSED_UPDATE", ("WEIGHTED_LAUNCHES",)),
+    ("cmamppi", "MPOPIS_FUSED_UPDATE", ("CMA_LAUNCHES",)),
+    ("cemppi", "MPOPIS_PALLAS_LINALG", ("CHOL_LAUNCHES", "SOLVE_LAUNCHES")),
+])
+def test_switches_route_the_policy_step_through_the_kernels(cuda_device, monkeypatch, kind,
+                                                            env_var, counters):
+    """With a switch on, a float32 policy step on the card launches the kernel
+    once per AIS iteration: the plain version is not used."""
+    monkeypatch.setenv(env_var, "1")
+    env = CarRacingEnv(device=cuda_device)
+    cfg = PolicyConfig(kind=kind, num_samples=256, horizon=10, lam=10.0, opt_its=3, alpha=0.9,
+                       elite_stop_tol=0.0)
+    pol = make_policy(env, cfg, cov_mat=np.diag([0.0625, 0.1]))
+    mods = [ais_update if hasattr(ais_update, c) else linalg for c in counters]
+    before = [getattr(m, c) for m, c in zip(mods, counters)]
+    _, _, info = pol.step(env.reset(), pol.init_state(1))
+    torch.cuda.synchronize()
+    assert info["ais_its"] == 3
+    assert [getattr(m, c) - b for m, c, b in zip(mods, counters, before)] == [3] * len(counters)

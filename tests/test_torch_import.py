@@ -35,6 +35,12 @@ _PLANAR_MODULES = (
     "mpopis_tpu_torch.models.walker2d_device",
     "mpopis_tpu_torch.kernels.planar_step",
 )
+_AIS_MODULES = (
+    "mpopis_tpu_torch.ops.sampling",
+    "mpopis_tpu_torch.kernels.ais_update",
+    "mpopis_tpu_torch.kernels.linalg",
+    "mpopis_tpu_torch.policies.strategies",
+)
 
 
 def test_port_imports_every_module_without_jax():
@@ -44,8 +50,9 @@ def test_port_imports_every_module_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules, _bad, *names = proc.stdout.split()
-    assert int(n_modules) >= 26  # every subpackage and module was walked
+    assert int(n_modules) >= 28  # every subpackage and module was walked
     assert set(_PLANAR_MODULES) <= set(names)
+    assert set(_AIS_MODULES) <= set(names)
 
 
 def _fields(cls):

@@ -13,7 +13,7 @@ from mpopis_tpu.policies import PolicyConfig as JPolicyConfig
 from mpopis_tpu.policies import make_policy as jmake_policy
 
 from mpopis_tpu_torch.models import CarRacingEnv
-from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+from mpopis_tpu_torch.policies import POLICY_KINDS, PolicyConfig, make_policy
 
 K, H, ITS = 64, 8, 3
 RTOL = 1e-9
@@ -103,8 +103,12 @@ def test_generator_drives_sampling_reproducibly():
     assert not torch.equal(a1, a3)
 
 
-def test_unported_kinds_raise():
-    env = CarRacingEnv(dtype=torch.float64)
-    for kind in ("mppi", "cmamppi", "pmcmppi"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_policy(env, PolicyConfig(kind=kind, num_samples=8, horizon=4))
+@pytest.mark.parametrize("kind", POLICY_KINDS)
+def test_every_kind_builds_and_steps_on_the_cpu(kind):
+    env = CarRacingEnv(dtype=torch.float32)
+    pol = make_policy(env, PolicyConfig(kind=kind, num_samples=8, horizon=4, opt_its=2),
+                      cov_mat=COV)
+    a, ps, info = pol.step(env.reset(), pol.init_state(3))
+    assert a.shape == (2,) and ps.U.shape == (8,) and info["costs"].shape == (8,)
+    assert bool(torch.all(torch.isfinite(a))) and bool(torch.all(torch.isfinite(ps.U)))
+    assert 1 <= info["ais_its"] <= 2
