@@ -26,7 +26,15 @@ per library, all at once) and drives the port's three paths:
   (MPOPIS_FUSED_UPDATE=1, MPOPIS_PALLAS_LINALG=1), `simulate_car_racing`
   at full width for all nine policy kinds (CMAMPPI raced on both paths),
   and the timings of each kernel, its plain version, the library
-  composition it replaces and each kind's control step.
+  composition it replaces and each kind's control step;
+- phases 16-20, the spatial-contact MuJoCo task Ant: the spatial rollout
+  kernel and its control-step entry against their plain versions (f32 at
+  the JAX kernel tests' tolerances from reset and from the grounded start,
+  f64 at 1e-9 relative beside the plain version's own spread under a nudge
+  of its controls), the f64 CEMPPI step through the kernel against the
+  plain path, `simulate_mujoco_on_device("Ant-v4")` at the JAX package's
+  Ant configuration (K=1024, H=10, 2 AIS iterations, `mle`, λ=1) for 100
+  steps, and the timings.
 
 Every kernel's launch count is set to 0 just before each path and read
 just after. Every phase raises on failure; there is no CPU path. The
@@ -68,6 +76,13 @@ NUDGE = {torch.float64: 1e-15, torch.float32: 1e-6}
 # the policy layer at full width: n = cs = 2·H, m_elite = round(0.2·K)
 N_CS, M_ELITE = 2 * H, round(0.2 * K)
 CMA_RACE_STEPS, KIND_STEPS = 1000, 100
+# the spatial-contact path: the JAX package's end-to-end Ant configuration
+# (bench.py:356, :474-476): CEMPPI, K=1024, H=10, 2 AIS iterations, λ=1, Σ=0.25·I₈
+AK, AH, AITS, ALAM = 1024, 10, 2, 1.0
+ANT_STEPS = 100
+# x[2] of the Ant starts (joints at 0): the reset; the torso sphere inside the
+# contact margin at the first substep; the JAX kernel tests' grounded start
+ANT_Z = {"reset": 0.75, "shallow": 0.26, "grounded": 0.75 - 0.45}
 # the H100's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -125,6 +140,8 @@ _COUNTERS = {  # kernel name -> (module, counter)
     "cma_update": ("ais_update", "CMA_LAUNCHES"),
     "cholesky": ("linalg", "CHOL_LAUNCHES"),
     "forward_solve": ("linalg", "SOLVE_LAUNCHES"),
+    "spatial_rollout": ("spatial_step", "LAUNCHES"),
+    "spatial_step_states": ("spatial_step", "STEP_LAUNCHES"),
 }
 
 
@@ -168,6 +185,39 @@ def _env(**values):
                 os.environ[name] = v
 
 
+@contextlib.contextmanager
+def _qp_tally(module, env):
+    """Tally the contact QP's multiply-adds in the plain version's calls of
+    `module.solve_qp`: per sample with at least one valid row, outer × (cg + 6
+    arc trials + 2) applications of J M⁻¹ Jᵀ over its valid rows, 2·R·n + n²
+    each; a sample with none skips its QP. Yields [multiply-adds, valid rows
+    after the joint limits' (the contact rows), summed over calls and samples]."""
+    orig, outer, cg, n = module.solve_qp, env.solver_outer, env.solver_cg, env.MODEL.n_dof
+    first_row = len(env.MODEL.limits)
+    tally = [0.0, 0]
+
+    def counting(jmat, aref, r_reg, active, *args, **kwargs):
+        rows = active.sum(-1).double()
+        tally[0] += float(torch.where(rows > 0, outer * (cg + 8) * (2.0 * rows * n + n * n),
+                                      0.0).sum())
+        tally[1] += int(active[..., first_row:].sum())
+        return orig(jmat, aref, r_reg, active, *args, **kwargs)
+
+    module.solve_qp = counting
+    try:
+        yield tally
+    finally:
+        module.solve_qp = orig
+
+
+def _contact_ops(env, n_forward: int, factorizations: int, solves: int, qp_macs: float) -> float:
+    """Operations of n_forward constrained forward passes: the mass-matrix
+    factorizations (n³/3 each) and solves (2n² each), and the QP's tallied
+    multiply-adds (2 operations each)."""
+    n = env.MODEL.n_dof
+    return n_forward * (factorizations * n**3 / 3.0 + solves * 2.0 * n * n) + 2.0 * qp_macs
+
+
 def _ptxas_lines(log: str):
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -202,6 +252,7 @@ def _planar_path(card: str) -> list:
     from mpopis_tpu_torch.harness.simulate import simulate_mujoco_on_device
     from mpopis_tpu_torch.kernels import build, planar_step
     from mpopis_tpu_torch.models import CheetahDeviceEnv, HopperDeviceEnv, Walker2dDeviceEnv
+    from mpopis_tpu_torch.models import planar_contact
     from mpopis_tpu_torch.models.base import make_state
     from mpopis_tpu_torch.policies import PolicyConfig, make_policy
 
@@ -439,15 +490,26 @@ def _planar_path(card: str) -> list:
 
     cheetah = counts["HalfCheetah-v4"]
     ks_ms, ps_ms = times[("HalfCheetah-v4", "step")]
-    # Operations counted: per substep the two mass-matrix factorizations and
-    # solves of the Euler-implicit step, 2·(n³/3 + 2n²) multiply-adds; the
-    # mass matrix, bias, constraint rows and the contact QP are not counted,
-    # so the bound is loose. Bytes: the controls read and the costs written.
+    # Operations counted (_contact_ops): per Euler-implicit substep two
+    # mass-matrix factorizations and two solves, and the contact QP's
+    # applications of J M⁻¹ Jᵀ over the rows valid in these inputs, tallied
+    # from one more plain run on the timed inputs. The mass matrix, bias and
+    # constraint rows are not counted. Bytes: the controls read and the costs
+    # written.
     env = CheetahDeviceEnv(dtype=torch.float32, device="cuda")
-    nd, fs, na = env.MODEL.n_dof, env.FRAME_SKIP, env.action_dim
-    sub_flops = 2 * 2.0 * (nd**3 / 3 + 2 * nd * nd)
-    roll_bound = _bound(PK * PH * fs * sub_flops, 4.0 * (PH * na * PK + PK))
-    step_bound = _bound(fs * sub_flops, 4.0 * (2 * env.state_dim + na))
+    x = env.reset().x
+    ctrl = _uniform(PK, PH, env.action_dim, 10, torch.float32)
+    xs, act = x[None].contiguous(), torch.zeros((1, env.action_dim), device="cuda")
+    na, n_sub = env.action_dim, PH * PK * env.FRAME_SKIP
+    with _qp_tally(planar_contact, env) as tally:
+        ref(env, x, ctrl)
+    roll_bound = _bound(_contact_ops(env, n_sub, 2, 2, tally[0]), 4.0 * (PH * na * PK + PK))
+    with _qp_tally(planar_contact, env) as tally:
+        env.plain_step(make_state(xs), act)
+    step_bound = _bound(_contact_ops(env, env.FRAME_SKIP, 2, 2, tally[0]),
+                        4.0 * (2 * env.state_dim + na))
+    print(f"phase 10: bounds, HalfCheetah rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), "
+          f"step {step_bound[0]:.3e} ms ({step_bound[1]})")
     return [{
         "name": "planar_rollout",
         "route": "cuda",
@@ -841,6 +903,261 @@ def _ais_path(card: str) -> list:
     return entries
 
 
+def _spatial_path(card: str) -> list:
+    """Phases 16-20: the spatial-contact kernel and the on-device Ant path.
+    Returns the `kernels` entries of spatial_rollout and spatial_step_states."""
+    from mpopis_tpu_torch.harness.simulate import simulate_mujoco_on_device
+    from mpopis_tpu_torch.kernels import build, spatial_step
+    from mpopis_tpu_torch.models import AntDeviceEnv, spatial_contact
+    from mpopis_tpu_torch.models.base import make_state
+    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+
+    kern = spatial_step.spatial_rollout_costs_tak
+    ref = spatial_step.spatial_rollout_costs_tak_reference
+    na = AntDeviceEnv.action_dim
+
+    # -- phase 16: build ---------------------------------------------------
+    t_phase = time.perf_counter()
+    build.load_library("spatial_rollout")
+    info = build.BUILD_INFO["spatial_rollout"]
+    print(f"phase 16: {info['so']} built in {info['seconds']:.1f} s (in parallel with the others)")
+    for line in _ptxas_lines(info["log"]):
+        print("  ptxas:", line)
+
+    def env_x(dtype, start):
+        env = AntDeviceEnv(dtype=dtype, device="cuda")
+        x = env.reset().x.clone()
+        x[2] = ANT_Z[start]
+        return env, x
+
+    # -- phase 17: kernel against its plain version --------------------------
+    for start in ANT_Z:
+        # f32, K=64 T=3: the JAX kernel tests' rtol 2e-4 / atol 2e-3
+        env, x = env_x(torch.float32, start)
+        n_lim, n_con = spatial_step.first_substep_active_rows(env, x)
+        ctrl = _uniform(64, 3, na, 64, torch.float32)
+        got, want = kern(env, x, ctrl), ref(env, x, ctrl)
+        err = float(torch.max(torch.abs(got - want)))
+        ok = bool(torch.all(torch.isfinite(got))) and bool(
+            torch.allclose(got, want, rtol=2e-4, atol=2e-3))
+        print(f"phase 17: Ant f32 K=64 T=3 from {start} (x[2] = {float(x[2]):.2f}): {n_lim} limit "
+              f"and {n_con} contact rows active in the first substep; max|err| {err:.3e} "
+              f"(rtol 2e-4, atol 2e-3) ok={ok}")
+        _require(start != "shallow" or n_con > 0, "Ant: no contact row active at the shallow start")
+        _require(ok, f"Ant: f32 kernel disagrees from {start}")
+
+        # f64, K=64 T=3: 1e-9 relative, beside the plain version's own spread
+        # under controls·(1 + 1e-15)
+        env64, x64 = env_x(torch.float64, start)
+        ctrl64 = _uniform(64, 3, na, 64, torch.float64)
+        want = ref(env64, x64, ctrl64)
+        rel = _rel_err(kern(env64, x64, ctrl64), want)
+        rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want)
+        print(f"phase 17: Ant f64 K=64 T=3 from {start}: rel err max {rel.max():.3e} median "
+              f"{np.median(rel):.3e}; plain vs plain at controls·(1+1e-15): max "
+              f"{rel_pert.max():.3e} median {np.median(rel_pert):.3e}")
+        _hold(f"Ant f64 from {start}: kernel max relative error", float(rel.max()),
+              float(rel_pert.max()), 1e-9)
+
+    # spatial_step_states against the plain step, 256 grounded states
+    step_err = {}
+    for dtype, bound in ((torch.float64, 1e-9), (torch.float32, 2e-4)):
+        env, x = env_x(dtype, "grounded")
+        rng = np.random.default_rng(3)
+        xs = x + torch.as_tensor(rng.uniform(-0.05, 0.05, (256, x.numel())), dtype=dtype,
+                                 device="cuda")
+        acts = torch.as_tensor(rng.uniform(-1, 1, (256, na)), dtype=dtype, device="cuda")
+        got = spatial_step.spatial_step_states(env, xs, acts)
+        want = env.plain_step(make_state(xs), acts).x
+        rel = _rel_state_err(got, want)
+        rel_pert = _rel_state_err(env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x,
+                                  want)
+        name = str(dtype)[6:]
+        step_err[name] = float((got - want).abs().max())
+        print(f"phase 17: Ant spatial_step_states {name} B=256 from the grounded start ±0.05: "
+              f"rel err max {rel.max():.3e} median {np.median(rel):.3e}, "
+              f"{int(np.sum(rel > bound))} beyond {bound:g}; plain vs plain at actions·(1 + "
+              f"{NUDGE[dtype]:g}): max {rel_pert.max():.3e} median {np.median(rel_pert):.3e}")
+        _hold(f"Ant {name} step kernel: median relative error", float(np.median(rel)),
+              float(np.median(rel_pert)), bound)
+    torch.cuda.synchronize()
+    print(f"phase 16-17: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 18: the CEMPPI step in f64, kernel path vs plain path -----------
+    class PlainAnt(AntDeviceEnv):
+        def step(self, state, action):
+            return self.plain_step(state, action)
+
+    t_phase = time.perf_counter()
+    sk, sh = 64, 4
+    z = torch.randn((AITS, na * sh, sk), generator=torch.Generator("cuda").manual_seed(18),
+                    dtype=torch.float64, device="cuda")
+    outs = []
+    for cls, fused, nudge in ((AntDeviceEnv, True, 0.0), (PlainAnt, False, 0.0),
+                              (PlainAnt, False, NUDGE[torch.float64])):
+        env64 = cls(dtype=torch.float64, device="cuda")
+        cfg = PolicyConfig(kind="cemppi", num_samples=sk, horizon=sh, lam=ALAM, opt_its=AITS,
+                           sigma_est="mle", use_fused_rollout=fused)
+        pol = make_policy(env64, cfg, cov_mat=0.25 * np.eye(na))
+        _zero_counts()
+        a, ps, inf = pol.step(env64.reset(), pol.init_state(0), z=z * (1 + nudge))
+        torch.cuda.synchronize()
+        outs.append((a, ps.U, inf["ais_its"], _counts()))
+    (a_k, u_k, its_k, n_k), (a_p, u_p, its_p, n_p), (a_n, u_n, its_n, _) = outs
+    err_a, err_u = _rel_norm(a_k, a_p), _rel_norm(u_k, u_p)
+    own_a, own_u = _rel_norm(a_n, a_p), _rel_norm(u_n, u_p)
+    print(f"phase 18: Ant CEMPPI f64 step K={sk} H={sh} {AITS} its: kernel path {its_k} its, "
+          f"plain path {its_p} its; kernel vs plain, max|Δ| / max|plain|: action {err_a:.3e}, U "
+          f"{err_u:.3e} (bound 1e-8); plain vs plain at z·(1+1e-15): {its_n} its, action "
+          f"{own_a:.3e}, U {own_u:.3e} ({time.perf_counter() - t_phase:.1f} s)")
+    _require(n_k["spatial_rollout"] == its_k and n_k["spatial_step_states"] == 0,
+             "the kernel path did not roll out on the kernel")
+    _require(n_p["spatial_rollout"] == n_p["spatial_step_states"] == 0,
+             "the plain path launched a kernel")
+    _require(its_k == its_p, "kernel and plain paths ran different iteration counts")
+    _hold("Ant CEMPPI step: action, kernel vs plain path", err_a, own_a, 1e-8)
+    _hold("Ant CEMPPI step: U, kernel vs plain path", err_u, own_u, 1e-8)
+
+    # -- phase 19: the main path, simulate_mujoco_on_device at full width -----
+    t_phase = time.perf_counter()
+    _zero_counts()
+    m = simulate_mujoco_on_device(
+        "Ant-v4", num_trials=1, num_steps=ANT_STEPS, num_samples=AK, horizon=AH, lam=ALAM,
+        ais_its=AITS, ce_sigma_est="mle", seed=SEED, device="cuda", dtype=torch.float32,
+    )
+    counts = _counts()
+    its = int(m["ais_iterations"][0])
+    rew, rps = float(m["rewards"][0]), float(m["rewards_per_step"][0])
+    launches = {k: v for k, v in counts.items() if v}
+    print(f"phase 19: Ant-v4 K={AK} H={AH} {AITS} its: reward {rew:.4f} over "
+          f"{int(m['steps'][0])} steps ({rps:.4f} per step), "
+          f"{float(m['control_steps_per_s'][0]):.3f} control steps/s, ais_iterations {its}, "
+          f"kernel launches {json.dumps(launches)} ({time.perf_counter() - t_phase:.1f} s)")
+    _require(counts["spatial_rollout"] == its > 0, "Ant: not every rollout ran on the kernel")
+    _require(counts["spatial_step_states"] > ANT_STEPS,
+             "Ant: the env step did not run on the kernel")
+    _require(set(launches) == {"spatial_rollout", "spatial_step_states"},
+             f"Ant: other kernels launched: {launches}")
+    _require(np.isfinite(rew), "Ant: non-finite reward")
+
+    # -- phase 20: the kernel against its plain version at the main path's K
+    # and T, then timings by CUDA events, plain-kernel-kernel-plain ------------
+    t_phase = time.perf_counter()
+    env, x = env_x(torch.float32, "grounded")
+    ctrl = _uniform(AK, AH, na, 20, torch.float32)
+    # the plain run also tallies the QP's work (for the bound) and the contact
+    # rows active over the compared rollouts
+    with _qp_tally(spatial_contact, env) as tally:
+        want = ref(env, x, ctrl)
+    got = kern(env, x, ctrl)
+    rel32 = _rel_err(got, want)
+    max_abs = float((got - want).abs().max())
+    n_over = int((~torch.isclose(got, want, rtol=2e-4, atol=2e-3)).sum())
+    print(f"phase 20: Ant f32 K={AK} T={AH} from the grounded start: rel err max "
+          f"{rel32.max():.3e} median {np.median(rel32):.3e}, {n_over} of {AK} beyond rtol 2e-4 / "
+          f"atol 2e-3, max|err| {max_abs:.3e}; {tally[1]} contact rows active over the plain "
+          f"rollouts' QP calls")
+    _require(bool(torch.all(torch.isfinite(got))), "Ant: non-finite f32 kernel costs")
+    _require(float(np.median(rel32)) < 2e-4, "Ant: f32 median relative error >= 2e-4")
+    _require(tally[1] > 0, "Ant: no contact row active in the compared rollouts")
+    roll_bound = _bound(_contact_ops(env, AH * AK * env.FRAME_SKIP * 4, 1, 2, tally[0]),
+                        4.0 * (AH * na * AK + AK + env.state_dim))
+    env64, x64 = env_x(torch.float64, "grounded")
+    ctrl64 = ctrl.double()
+    want64 = ref(env64, x64, ctrl64)
+    rel = _rel_err(kern(env64, x64, ctrl64), want64)
+    rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want64)
+    med, med_pert = float(np.median(rel)), float(np.median(rel_pert))
+    print(f"phase 20: Ant f64 K={AK} T={AH} from the grounded start: rel err max {rel.max():.3e} "
+          f"median {med:.3e}, {int(np.sum(rel > 1e-9))} of {AK} beyond 1e-9; plain vs plain at "
+          f"controls·(1+1e-15): max {rel_pert.max():.3e} median {med_pert:.3e}, "
+          f"{int(np.sum(rel_pert > 1e-9))} beyond")
+    _hold("Ant f64 K=1024 T=10: kernel median relative error", med, med_pert, 1e-9)
+
+    xs, act = x[None].contiguous(), torch.zeros((1, na), device="cuda")
+    runs = {
+        "rollout": (lambda: kern(env, x, ctrl), lambda: ref(env, x, ctrl), 5, 1,
+                    f"K={AK} T={AH} from the grounded start"),
+        "step": (lambda: spatial_step.spatial_step_states(env, xs, act),
+                 lambda: env.plain_step(make_state(xs), act), 20, 1, "one grounded state"),
+    }
+    times = {}
+    for name, (run_k, run_p, reps_k, reps_p, shape) in runs.items():
+        if name == "step":  # the rollout's two versions ran just above
+            run_k()
+            run_p()
+        torch.cuda.synchronize()
+        p_a = _time_ms(run_p, reps_p)
+        k_a = _time_ms(run_k, reps_k)
+        k_b = _time_ms(run_k, reps_k)
+        p_b = _time_ms(run_p, reps_p)
+        times[name] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
+        print(f"phase 20: Ant {name} f32 {shape}: kernel {k_a:.4f} / {k_b:.4f} ms, plain "
+              f"{p_a:.3f} / {p_b:.3f} ms (CUDA events, plain-kernel-kernel-plain; {card})")
+
+    # the control step split in the main path's configuration: host clock
+    # around synchronised calls, 20 steps after 3 of warm-up
+    env = AntDeviceEnv(dtype=torch.float32, device="cuda")
+    pol = make_policy(env, PolicyConfig(kind="cemppi", num_samples=AK, horizon=AH, lam=ALAM,
+                                        opt_its=AITS, sigma_est="mle"),
+                      cov_mat=0.25 * np.eye(na))
+    s, pstate = env.reset(), pol.init_state(SEED)
+    split = {"policy": [], "env": []}
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, pstate, _ = pol.step(s, pstate)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, _ = env.step_reward(s, a)
+        torch.cuda.synchronize()
+        if i >= 3:
+            split["policy"].append((t1 - t0) * 1e3)
+            split["env"].append((time.perf_counter() - t1) * 1e3)
+    print(f"phase 20: Ant control step over 20 steps (host clock, synchronised): policy step "
+          f"median {np.median(split['policy']):.3f} ms (range {min(split['policy']):.3f}-"
+          f"{max(split['policy']):.3f}), env step median {np.median(split['env']):.3f} ms "
+          f"(range {min(split['env']):.3f}-{max(split['env']):.3f})")
+
+    # Operations counted as for the planar kernel (_contact_ops): per RK4 stage
+    # one mass-matrix factorization and two solves, and the QP's applications
+    # of J M⁻¹ Jᵀ over the rows valid in these inputs, tallied from a plain
+    # run on the timed inputs (the rollout's above). Bytes: the controls or
+    # states read, the costs or states written.
+    with _qp_tally(spatial_contact, env) as tally:
+        env.plain_step(make_state(xs), act)
+    step_bound = _bound(_contact_ops(env, env.FRAME_SKIP * 4, 1, 2, tally[0]),
+                        4.0 * (2 * env.state_dim + na))
+    print(f"phase 20: bounds, Ant rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), step "
+          f"{step_bound[0]:.3e} ms ({step_bound[1]}) ({time.perf_counter() - t_phase:.1f} s)")
+    return [{
+        "name": "spatial_rollout",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/spatial_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/spatial_step.py:139",
+        "launches": counts["spatial_rollout"],
+        "max_abs_err": max_abs,
+        "ms": times["rollout"][0],
+        "plain_ms": times["rollout"][1],
+        "bound_ms": roll_bound[0],
+        "bound_by": roll_bound[1],
+        "library_ms": None,
+        "median_rel_err_f32": float(np.median(rel32)),
+    }, {
+        "name": "spatial_step_states",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/spatial_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/spatial_step.py:52",
+        "launches": counts["spatial_step_states"],
+        "max_abs_err": step_err["float32"],
+        "ms": times["step"][0],
+        "plain_ms": times["step"][1],
+        "bound_ms": step_bound[0],
+        "bound_by": step_bound[1],
+        "library_ms": None,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -859,7 +1176,7 @@ def main() -> int:
 
     # -- phase 1: build (every library at once, one nvcc each) ---------------
     t0 = time.perf_counter()
-    build.build_all(["car_rollout", "planar_rollout", "ais_update", "linalg"])
+    build.build_all(["car_rollout", "planar_rollout", "ais_update", "linalg", "spatial_rollout"])
     build_s = time.perf_counter() - t0
     build.load_library("car_rollout")
     info = build.BUILD_INFO["car_rollout"]
@@ -1013,6 +1330,7 @@ def main() -> int:
 
     planar = _planar_path(card)
     ais = _ais_path(card)
+    spatial = _spatial_path(card)
 
     # Operations counted per sample and action step: the substeps' arithmetic
     # (~120 operations and ~15 transcendentals each, counted as one operation
@@ -1038,7 +1356,7 @@ def main() -> int:
         "library_ms": None,
         "max_abs_err_f64": max_abs_f64,
         "median_rel_err_f32": float(np.median(rel32)),
-    }, *planar, *ais]}))
+    }, *planar, *ais, *spatial]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,7 +6,8 @@
 
 `car` and `mujoco` take the flags and defaults of the JAX package's
 (`python -m mpopis_tpu ...`), plus `--device` (default `cuda`). `mujoco`
-runs with `--on-device` for HalfCheetah-v4, Hopper-v4 and Walker2d-v4; the
+runs with `--on-device` for Ant-v4, HalfCheetah-v4, Hopper-v4 and
+Walker2d-v4; the
 other on-device tasks, the host engine (no `--on-device`) and the other
 subcommands exit with "not yet ported".
 """
@@ -77,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host engine only (not yet ported)")
     mj.add_argument(
         "--on-device", action="store_true",
-        help="run the dynamics on the card (ported: HalfCheetah-v4, Hopper-v4, Walker2d-v4; "
+        help="run the dynamics on the card (ported: Ant-v4, HalfCheetah-v4, Hopper-v4, "
+        "Walker2d-v4; "
         "without it the host engine is not yet ported)",
     )
     mj.add_argument(

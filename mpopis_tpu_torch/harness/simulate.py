@@ -7,8 +7,8 @@ Counterpart of `mpopis_tpu/harness/simulate.py`:
   per-step telemetry to the host in one transfer; the step counting, lap
   detection and violation accounting follow the JAX harness exactly, and so
   do the printed rows.
-- `simulate_mujoco_on_device` for HalfCheetah, Hopper and Walker2d, through
-  `_simulate_simple` (the chunked loop, the action CSV).
+- `simulate_mujoco_on_device` for HalfCheetah, Hopper, Walker2d and Ant,
+  through `_simulate_simple` (the chunked loop, the action CSV).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from mpopis_tpu_torch.harness.factory import get_policy
 from mpopis_tpu_torch.harness.stats import SUMMARY_ROWS, summary_value
 from mpopis_tpu_torch.models import (
+    AntDeviceEnv,
     CarRacingEnv,
     CheetahDeviceEnv,
     HopperDeviceEnv,
@@ -264,6 +265,7 @@ ON_DEVICE_MUJOCO_TASKS = (
 CONTACT_SOLVER_TASKS = ("Ant-v4", "Humanoid-v4", "HumanoidStandup-v4", "Pusher-v4",
                         "HalfCheetah-v4", "Hopper-v4", "Walker2d-v4")
 PORTED_MUJOCO_TASKS = {
+    "Ant-v4": AntDeviceEnv,
     "HalfCheetah-v4": CheetahDeviceEnv,
     "Hopper-v4": HopperDeviceEnv,
     "Walker2d-v4": Walker2dDeviceEnv,
@@ -272,10 +274,10 @@ PORTED_MUJOCO_TASKS = {
 
 def simulate_mujoco_on_device(task: str, **kwargs):
     """A MuJoCo task with on-device dynamics: the K×T rollouts of each
-    control step run on the card (for the planar-contact family, one kernel
-    launch per AIS iteration). Counterpart of the JAX package's
-    `simulate_mujoco_on_device`; ported for HalfCheetah-v4, Hopper-v4 and
-    Walker2d-v4. `solver_iters=(outer, cg)` sets the contact QP's fixed
+    control step run on the card (for the planar- and spatial-contact
+    families, one kernel launch per AIS iteration). Counterpart of the JAX
+    package's `simulate_mujoco_on_device`; ported for Ant-v4, HalfCheetah-v4,
+    Hopper-v4 and Walker2d-v4. `solver_iters=(outer, cg)` sets the contact QP's fixed
     iteration counts (default (3, 6)); `dtype` and `device` (default cuda)
     place the run. Returns the metrics dict, `ais_iterations` and
     `control_steps_per_s` included."""

@@ -75,7 +75,7 @@ def _kernel_fn(entry: str, dtype: torch.dtype):
     return _FNS[(entry, dtype)]
 
 
-def _imp(item, model):
+def impedance_consts(item, model):
     """(d0 clamped to mjMINIMP, dmax − d0, width, k, b) of a row's solimp."""
     d0, dmax, width = item.solimp
     d0e = max(d0, MIN_IMP)
@@ -122,13 +122,14 @@ def kernel_model(model, frame_skip: int, outer: int, cg: int, healthy: float, ct
         dbl += [b.pos[0] + b.anchor[0], b.pos[1] + b.anchor[1], b.anchor[0], b.anchor[1],
                 b.sign, b.com[0], b.com[1], b.mass, b.iyy]
     for lm in model.limits:
-        dbl += [lm.lo, lm.hi, model.dof_invweight0[lm.dof]] + _imp(lm, model)
+        dbl += [lm.lo, lm.hi, model.dof_invweight0[lm.dof]] + impedance_consts(lm, model)
     for c in model.contacts:
         dbl += [c.local[0], c.local[1], c.radius, c.mu, c.margin, model.body_invweight0[c.body],
-                2.0 * c.mu * c.mu * (1.0 + c.mu * c.mu)] + _imp(c, model)
+                2.0 * c.mu * c.mu * (1.0 + c.mu * c.mu)] + impedance_consts(c, model)
     for p in model.pairs:
         dbl += [*p.a1, *p.b1, p.r1, *p.a2, *p.b2, p.r2, p.margin,
-                model.body_invweight0[p.body1] + model.body_invweight0[p.body2]] + _imp(p, model)
+                model.body_invweight0[p.body1] + model.body_invweight0[p.body2]]
+        dbl += impedance_consts(p, model)
     return (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(dbl))(*dbl)
 
 

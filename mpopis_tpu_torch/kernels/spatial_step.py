@@ -1,0 +1,284 @@
+"""Spatial-contact rollout costs and control steps (Ant): the CUDA kernel
+`csrc/spatial_rollout.cu`, its plain PyTorch version, and the wrappers.
+
+Counterpart of `mpopis_tpu/kernels/spatial_step.py` (the Pallas TPU kernel
+`_make_kernel` with `_spatial_advance`, entry `spatial_rollout_costs_tak`),
+for the `locomotion` reward family with the `q0` track. Two entries share
+the kernel's device code:
+
+- `spatial_rollout_costs_tak(env, state0_x, controls_tak)`: (K,) costs
+  Σ_t −reward_t of clamped controls (T, na, K) from one state
+  (n_q + n_dof + 1,);
+- `spatial_step_states(env, x, actions)`: one control step of a batch of
+  states (..., n_q + n_dof + 1) under actions (..., na) — the env's `step`
+  on the card.
+
+A CPU tensor goes to the plain version (`env.plain_step` / `rollout_batch`
+over `env.plain_step_reward`); a CUDA tensor launches the kernel or raises.
+`LAUNCHES` counts rollout-kernel launches and `STEP_LAUNCHES` step-kernel
+launches, nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mpopis_tpu_torch.kernels.build import load_library
+from mpopis_tpu_torch.kernels.planar_step import impedance_consts
+from mpopis_tpu_torch.models.base import make_state
+from mpopis_tpu_torch.models.rollout import rollout_batch
+from mpopis_tpu_torch.models.spatial_contact import (
+    RK4_STAGES,
+    contact_rows,
+    hinge_k,
+    joint_dofs,
+    quat_matrix,
+)
+
+LAUNCHES = 0
+STEP_LAUNCHES = 0
+# the packing layout and capacities of csrc/spatial_rollout.cu (checked at load)
+LAYOUT = {"int_header": 12, "double_header": 19, "bodies": 16, "joints": 24, "contacts": 32,
+          "limits": 24, "actuators": 24, "rows": 128}
+KERNEL_DOFS = ((14, 15),)  # the (n_dof, n_q) the kernel is instantiated for
+_KINDS = {"free": 0, "hinge": 1}
+
+_LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]  # model, n_dof, n_q, na
+_ROLLOUT_ARGS = _LAUNCH_ARGS + [
+    ctypes.c_void_p,  # state0 (n_q + n_dof + 1,)
+    ctypes.c_void_p,  # controls (T, na, K)
+    ctypes.c_void_p,  # costs (K,)
+    ctypes.c_int,  # K
+    ctypes.c_int,  # T
+    ctypes.c_void_p,  # cudaStream_t
+]
+_STEP_ARGS = _LAUNCH_ARGS + [
+    ctypes.c_void_p,  # x (B, n_q + n_dof + 1)
+    ctypes.c_void_p,  # actions (B, na)
+    ctypes.c_void_p,  # out (B, n_q + n_dof + 1)
+    ctypes.c_int,  # B
+    ctypes.c_void_p,  # cudaStream_t
+]
+_LIB: list = []
+_DEVICE_MODELS: dict = {}
+
+
+def _lib():
+    if not _LIB:
+        lib = load_library("spatial_rollout")
+        layout = (ctypes.c_int * len(LAYOUT))()
+        lib.spatial_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.spatial_layout.restype = None
+        lib.spatial_layout(layout)
+        if list(layout) != list(LAYOUT.values()):
+            raise RuntimeError("spatial_rollout.cu and its wrapper disagree on the interface")
+        lib.spatial_model_bytes.argtypes = [ctypes.c_int]
+        lib.spatial_model_bytes.restype = ctypes.c_int
+        lib.spatial_pack_model.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        lib.spatial_pack_model.restype = ctypes.c_int
+        for suffix in ("f32", "f64"):
+            for name, args in (("spatial_rollout_costs", _ROLLOUT_ARGS),
+                               ("spatial_step_states", _STEP_ARGS)):
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"spatial kernel: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy: float,
+                 fwd_w: float, ctrl_w: float):
+    """The model, solver counts, actuators and reward weights as the kernel's
+    flat int and double arrays (layout: `make_model` in
+    csrc/spatial_dynamics.cuh). Derived constants are computed here in double,
+    as the plain version computes its Python floats. The kernel takes what
+    Ant has: RK4, free and hinge joints, condim-3 floor contacts, no joint
+    springs and no contact pairs (whose counts have their place in the
+    header); it computes the `locomotion` reward with the `q0` track."""
+    n, nb = model.n_dof, len(model.bodies)
+    joints = model.dof_joints
+    _require((n, model.n_q) in KERNEL_DOFS,
+             f"{n} dofs and {model.n_q} qpos (the kernel is built for {KERNEL_DOFS})")
+    _require(model.integrator == "rk4", f"the {model.integrator} substep is not yet ported")
+    _require(not model.pairs and not model.self_pairs, "contact pairs are not yet ported")
+    _require(all(j.kind in _KINDS for _, j in joints), "slide joints are not yet ported")
+    _require(all(c.condim == 3 for c in model.contacts), "condim-1 contacts are not yet ported")
+    _require(not any(model.stiffness), "joint springs are not yet ported")
+    _require(nb <= LAYOUT["bodies"] and len(joints) <= LAYOUT["joints"]
+             and len(model.contacts) <= LAYOUT["contacts"]
+             and len(model.limits) <= LAYOUT["limits"] and len(actuators) <= LAYOUT["actuators"]
+             and model.n_rows <= LAYOUT["rows"], "too many bodies, joints, contacts, limits, "
+             "actuators or rows")
+    _require(all(b.parent < i for i, b in enumerate(model.bodies)), "parents must come first")
+    _require(all(len(b.joints) == 1 for b in model.bodies
+                 if any(j.kind == "free" for j in b.joints)),
+             "a free joint must be alone on its body")
+    qadr = {j.dof: j.qadr for _, j in joints if j.kind != "free"}
+
+    h = model.timestep
+    ints = [n, model.n_q, nb, len(joints), len(model.contacts), len(model.limits),
+            len(actuators), len(model.pairs), len(model.self_pairs), frame_skip, outer, cg]
+    j0 = 0
+    for bi, b in enumerate(model.bodies):
+        dofs = [d for c in model.chains[bi] for j in model.bodies[c].joints for d in joint_dofs(j)]
+        ints += [b.parent, j0, len(b.joints), sum(1 << d for d in set(dofs))]
+        j0 += len(b.joints)
+    for bi, j in joints:
+        ints += [bi, _KINDS[j.kind], j.dof, j.qadr]
+    for c in model.contacts:
+        ints += [c.body, int(c.axis_local is not None)]
+    for lm in model.limits:
+        ints += [lm.dof, qadr[lm.dof]]
+    ints += [dof for dof, _ in actuators]
+
+    dbl = [model.gravity, model.floor_z, h, 0.5 * h, healthy, fwd_w * (1.0 / (h * frame_skip)),
+           ctrl_w]
+    dbl += [c * h for c, _ in RK4_STAGES] + [0.5 * (c * h) for c, _ in RK4_STAGES]
+    dbl += [w for _, w in RK4_STAGES]
+    for d in range(n):
+        dbl += [model.damping[d], model.armature[d]]
+    for b in model.bodies:
+        dbl += [*b.pos, *(v for row in quat_matrix(*b.quat) for v in row), *b.com, b.mass,
+                *b.inertia]
+    zero33 = ((0.0,) * 3,) * 3
+    for _, j in joints:
+        k, k2 = hinge_k(j.axis) if j.kind == "hinge" else (zero33, zero33)
+        dbl += [*j.axis, *j.anchor, *(v for row in k for v in row),
+                *(v for row in k2 for v in row)]
+    for c in model.contacts:
+        dbl += [*c.local, *(c.axis_local or (0.0, 0.0, 0.0)), c.radius, c.mu, c.margin,
+                model.body_invweight0[c.body], 2.0 * c.mu * c.mu * (1.0 + c.mu * c.mu)]
+        dbl += impedance_consts(c, model)
+    for lm in model.limits:
+        dbl += [lm.lo, lm.hi, lm.margin, model.dof_invweight0[lm.dof]]
+        dbl += impedance_consts(lm, model)
+    dbl += [gear for _, gear in actuators]
+    return (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(dbl))(*dbl)
+
+
+def _env_model(env):
+    return kernel_model(env.MODEL, env.FRAME_SKIP, env.solver_outer, env.solver_cg,
+                        tuple(env.ACTUATORS), float(env.HEALTHY), float(env.FWD_W),
+                        float(env.CTRL_W))
+
+
+def _device_model(env, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The kernel's model struct for this env on `device`, built once and kept."""
+    ints, dbl = _env_model(env)
+    key = (id(ints), dtype, device)  # kernel_model's cache keeps `ints` alive
+    if key not in _DEVICE_MODELS:
+        lib = _lib()
+        f64 = int(dtype == torch.float64)
+        nbytes = lib.spatial_model_bytes(f64)
+        buf = ctypes.create_string_buffer(nbytes)
+        rc = lib.spatial_pack_model(f64, ints, len(ints), dbl, len(dbl), buf, nbytes)
+        _require(rc == 0, "the kernel rejects the packed model")
+        host = torch.frombuffer(bytearray(buf.raw), dtype=torch.uint8)
+        _DEVICE_MODELS[key] = host.to(device)
+    return _DEVICE_MODELS[key]
+
+
+def spatial_rollout_costs_tak_reference(env, state0_x, controls_tak):
+    """Plain PyTorch version: `rollout_batch` over the env's plain
+    `step_reward`, controls (T, na, K) → (K, T, na)."""
+    costs, _ = rollout_batch(
+        env, make_state(state0_x), controls_tak.permute(2, 0, 1),
+        step_reward=env.plain_step_reward,
+    )
+    return costs
+
+
+def first_substep_active_rows(env, x):
+    """(joint-limit rows, contact rows) active at the state x: the rows the
+    first substep's QP solves for."""
+    model = env.MODEL
+    active = contact_rows(model, x[: model.n_q], x[model.n_q: model.n_q + model.n_dof])[3]
+    n_lim = len(model.limits)
+    return int(active[:n_lim].sum()), int(active[n_lim:].sum())
+
+
+def _check_cuda(dev, dtype):
+    _require(dev.type == "cuda", f"tensors on {dev} (cpu or cuda only)")
+    _require(dtype in (torch.float32, torch.float64), f"dtype {dtype} (float32/float64 only)")
+
+
+def _launch_args(env, dtype, dev):
+    model = env.MODEL
+    return (_device_model(env, dtype, dev).data_ptr(), model.n_dof, model.n_q, env.action_dim)
+
+
+def spatial_rollout_costs_tak(env, state0_x, controls_tak):
+    """(K,) trajectory costs of controls (T, na, K), already clamped, from
+    the state `state0_x` (n_q + n_dof + 1,)."""
+    global LAUNCHES
+    dev = controls_tak.device
+    if dev.type == "cpu":
+        return spatial_rollout_costs_tak_reference(env, state0_x, controls_tak)
+    dtype = controls_tak.dtype
+    _check_cuda(dev, dtype)
+    na, nx = env.action_dim, env.state_dim
+    _require(controls_tak.dim() == 3 and controls_tak.shape[1] == na,
+             f"controls shape {tuple(controls_tak.shape)}, want (T, {na}, K)")
+    _require(controls_tak.is_contiguous(), "controls must be contiguous")
+    _require(
+        state0_x.device == dev and state0_x.dtype == dtype and state0_x.is_contiguous()
+        and tuple(state0_x.shape) == (nx,),
+        f"state0_x must be a contiguous ({nx},) {dtype} vector on {dev}",
+    )
+    horizon, k = controls_tak.shape[0], controls_tak.shape[2]
+    out = torch.empty(k, dtype=dtype, device=dev)
+    if k == 0:
+        return out
+    args = _launch_args(env, dtype, dev)
+    fn = getattr(_lib(), "spatial_rollout_costs_f64" if dtype == torch.float64
+                 else "spatial_rollout_costs_f32")
+    with torch.cuda.device(dev):
+        rc = fn(*args, state0_x.data_ptr(), controls_tak.data_ptr(), out.data_ptr(), k, horizon,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spatial_rollout kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def spatial_step_states(env, x, actions):
+    """One control step of the states x (..., n_q + n_dof + 1) under actions
+    (..., na) (clamped to [−1, 1] for the torque); returns the new states."""
+    global STEP_LAUNCHES
+    dev = x.device
+    if dev.type == "cpu":
+        return env.plain_step(make_state(x), actions).x
+    dtype = x.dtype
+    _check_cuda(dev, dtype)
+    na, nx = env.action_dim, env.state_dim
+    _require(x.shape[-1] == nx and actions.shape == x.shape[:-1] + (na,),
+             f"states {tuple(x.shape)} and actions {tuple(actions.shape)}, want (..., {nx}) "
+             f"and (..., {na})")
+    _require(actions.device == dev and actions.dtype == dtype,
+             f"actions must be {dtype} on {dev}")
+    xs = x.reshape(-1, nx).contiguous()
+    acts = actions.reshape(-1, na).contiguous()
+    out = torch.empty_like(xs)
+    if xs.shape[0] == 0:
+        return out.reshape(x.shape)
+    args = _launch_args(env, dtype, dev)
+    fn = getattr(_lib(), "spatial_step_states_f64" if dtype == torch.float64
+                 else "spatial_step_states_f32")
+    with torch.cuda.device(dev):
+        rc = fn(*args, xs.data_ptr(), acts.data_ptr(), out.data_ptr(), xs.shape[0],
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spatial_step kernel launch failed: CUDA error {rc}")
+    STEP_LAUNCHES += 1
+    return out.reshape(x.shape)

@@ -1,3 +1,4 @@
+from mpopis_tpu_torch.models.ant_device import AntDeviceEnv
 from mpopis_tpu_torch.models.base import Env, EnvState, make_state
 from mpopis_tpu_torch.models.car_racing import (
     CarParams,
@@ -9,10 +10,12 @@ from mpopis_tpu_torch.models.cheetah_device import CheetahDeviceEnv
 from mpopis_tpu_torch.models.hopper_device import HopperDeviceEnv
 from mpopis_tpu_torch.models.planar_contact import PlanarContactEnv, PlanarContactModel
 from mpopis_tpu_torch.models.rollout import rollout_batch
+from mpopis_tpu_torch.models.spatial_contact import SpatialContactEnv, SpatialContactModel
 from mpopis_tpu_torch.models.track import Track, distance_query
 from mpopis_tpu_torch.models.walker2d_device import Walker2dDeviceEnv
 
 __all__ = [
+    "AntDeviceEnv",
     "Env",
     "EnvState",
     "make_state",
@@ -25,6 +28,8 @@ __all__ = [
     "Walker2dDeviceEnv",
     "PlanarContactEnv",
     "PlanarContactModel",
+    "SpatialContactEnv",
+    "SpatialContactModel",
     "rollout_batch",
     "Track",
     "distance_query",

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -133,6 +134,20 @@ class PlanarContactModel:
         return 1.0 / (dmax * tc) ** 2, 2.0 / (dmax * tc)
 
 
+def solimp_tensors(model, items, t) -> dict:
+    """Per-row impedance and reference constants of rows with `solimp`:
+    d0 clamped to mjMINIMP, dmax − d0, width and the solref stiffness and
+    damping `model.kb(dmax)`, each made a tensor by `t`."""
+    d0e = [max(it.solimp[0], MIN_IMP) for it in items]
+    dmax = [it.solimp[1] for it in items]
+    kb = [model.kb(it.solimp[1]) for it in items]
+    return dict(
+        d0e=t(d0e), dspan=t([m - d for m, d in zip(dmax, d0e)]),
+        width=t([it.solimp[2] for it in items]),
+        kc=t([k for k, _ in kb]), bc=t([b for _, b in kb]),
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def _tables(model: PlanarContactModel, dtype: torch.dtype, device: torch.device):
     """The model's row constants as tensors of one dtype on one device. Each
@@ -151,16 +166,6 @@ def _tables(model: PlanarContactModel, dtype: torch.dtype, device: torch.device)
 
     def t(v, dt=dtype):
         return torch.as_tensor(np.asarray(v), dtype=dt, device=device)
-
-    def solimp_consts(items):
-        d0e = [max(it.solimp[0], MIN_IMP) for it in items]
-        dmax = [it.solimp[1] for it in items]
-        kb = [model.kb(it.solimp[1]) for it in items]
-        return dict(
-            d0e=t(d0e), dspan=t([m - d for m, d in zip(dmax, d0e)]),
-            width=t([it.solimp[2] for it in items]),
-            kc=t([k for k, _ in kb]), bc=t([b for _, b in kb]),
-        )
 
     iyy_ww = []  # per body: I_b·w wᵀ, w the hinge signs of its chain
     for b, chain in zip(model.bodies, chains):
@@ -191,7 +196,7 @@ def _tables(model: PlanarContactModel, dtype: torch.dtype, device: torch.device)
         lim_j=torch.nn.functional.one_hot(
             t([lm.dof for lm in lim], torch.long), n
         ).to(dtype) if lim else None,
-        lim_imp=solimp_consts(lim),
+        lim_imp=solimp_tensors(model, lim, t),
         con_body=t([c.body for c in con], torch.long),
         con_lx=t([c.local[0] for c in con]),
         con_lz=t([c.local[1] for c in con]),
@@ -203,7 +208,7 @@ def _tables(model: PlanarContactModel, dtype: torch.dtype, device: torch.device)
         con_rfac=t([2.0 * c.mu * c.mu * (1.0 + c.mu * c.mu) for c in con]),
         # (contacts, hinge dofs): the hinge's body lies on the contact body's chain
         con_chain=t(in_chain[[c.body for c in con]][:, hinge_body], torch.bool),
-        con_imp=solimp_consts(con),
+        con_imp=solimp_tensors(model, con, t),
         n_pairs=len(prs),
     )
     if prs:
@@ -224,7 +229,7 @@ def _tables(model: PlanarContactModel, dtype: torch.dtype, device: torch.device)
         tab.pair_on = t(coef != 0.0, torch.bool)
         tab.pair_bw = t([model.body_invweight0[p.body1] + model.body_invweight0[p.body2]
                          for p in prs])
-        tab.pair_imp = solimp_consts(prs)
+        tab.pair_imp = solimp_tensors(model, prs, t)
     return tab
 
 
@@ -615,18 +620,17 @@ def build_contact_stepper(model: PlanarContactModel):
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class PlanarContactEnv(Env):
-    """A gymnasium v4 planar-locomotion task with these dynamics.
+class ContactEnv(Env):
+    """What the planar and spatial contact tasks share: the control step on
+    the card or on the CPU, the step reward and the fused rollout costs.
 
-    Subclasses set MODEL, FRAME_SKIP, HEALTHY, CTRL_W, INIT_QPOS, OBS_CLIP
-    and the Env class attributes. State x = [qpos(n), qvel(n)]; actions
-    ∈ [−1, 1] scaled by the gears. reward_t = healthy + (x'−x)/dt −
-    ctrl_w·Σa² (pre-step x, hence `step_reward`). solver_outer/solver_cg
-    are the QP's fixed iteration counts (3, 6: control grade).
-
-    `step` on a CUDA state runs one control step in the kernel
-    (`kernels/planar_step.py::planar_step_states`); on a CPU state it runs
-    `plain_step`, the plain PyTorch version.
+    Subclasses set MODEL, FRAME_SKIP, HEALTHY, CTRL_W, INIT_QPOS, KERNEL and
+    the Env class attributes, and define `plain_step` and `_reward`. KERNEL
+    names the kernels' module `kernels/{KERNEL}_step.py` and its entries
+    `{KERNEL}_step_states` and `{KERNEL}_rollout_costs_tak`. `step` on a
+    CUDA state runs one control step in the step entry; on a CPU state it
+    runs `plain_step`, the plain PyTorch version. solver_outer/solver_cg are
+    the QP's fixed iteration counts (3, 6: control grade).
     """
 
     solver_outer: int = 3
@@ -637,11 +641,54 @@ class PlanarContactEnv(Env):
     HEALTHY = 0.0
     CTRL_W = 0.0
     INIT_QPOS = ()
-    OBS_CLIP = None
+    KERNEL = ""
 
     @property
     def dt(self) -> float:
         return self.MODEL.timestep * self.FRAME_SKIP
+
+    def _kernel(self, entry: str):
+        # imported at the call: the kernel modules import the models
+        module = importlib.import_module(f"mpopis_tpu_torch.kernels.{self.KERNEL}_step")
+        return getattr(module, f"{self.KERNEL}_{entry}")
+
+    def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
+        if state.x.device.type == "cpu":
+            return self.plain_step(state, action)
+        return EnvState(x=self._kernel("step_states")(self, state.x, action), t=state.t + 1,
+                        done=state.done)
+
+    def step_reward(self, state: EnvState, action: torch.Tensor):
+        new = self.step(state, action)
+        return new, self._reward(state.x, new.x, action)
+
+    def plain_step_reward(self, state: EnvState, action: torch.Tensor):
+        new = self.plain_step(state, action)
+        return new, self._reward(state.x, new.x, action)
+
+    def fused_rollout_costs_tak(self, state: EnvState, controls_tak: torch.Tensor):
+        """(K,) trajectory costs of clamped controls (T, na, K), contact QP
+        included: one kernel launch on the card."""
+        return self._kernel("rollout_costs_tak")(self, state.x, controls_tak)
+
+    def fused_rollout_costs(self, state: EnvState, controls: torch.Tensor):
+        """The same with (K, T, na) controls."""
+        return self.fused_rollout_costs_tak(state, controls.permute(1, 2, 0).contiguous())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlanarContactEnv(ContactEnv):
+    """A gymnasium v4 planar-locomotion task with these dynamics.
+
+    Subclasses set MODEL, FRAME_SKIP, HEALTHY, CTRL_W, INIT_QPOS, OBS_CLIP
+    and the Env class attributes. State x = [qpos(n), qvel(n)]; actions
+    ∈ [−1, 1] scaled by the gears. reward_t = healthy + (x'−x)/dt −
+    ctrl_w·Σa² (pre-step x, hence `step_reward`). The kernels are
+    `kernels/planar_step.py`'s.
+    """
+
+    OBS_CLIP = None
+    KERNEL = "planar"
 
     def reset(self) -> EnvState:
         n = self.MODEL.n_dof
@@ -664,25 +711,9 @@ class PlanarContactEnv(Env):
         return EnvState(x=torch.cat([q, qv], dim=-1).to(self.dtype), t=state.t + 1,
                         done=state.done)
 
-    def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
-        if state.x.device.type == "cpu":
-            return self.plain_step(state, action)
-        from mpopis_tpu_torch.kernels.planar_step import planar_step_states
-
-        return EnvState(x=planar_step_states(self, state.x, action), t=state.t + 1,
-                        done=state.done)
-
     def _reward(self, x0, x1, action):
         x_vel = (x1[..., 0] - x0[..., 0]) / self.dt
         return self.HEALTHY + x_vel - self.CTRL_W * torch.sum(action * action, dim=-1)
-
-    def step_reward(self, state: EnvState, action: torch.Tensor):
-        new = self.step(state, action)
-        return new, self._reward(state.x, new.x, action)
-
-    def plain_step_reward(self, state: EnvState, action: torch.Tensor):
-        new = self.plain_step(state, action)
-        return new, self._reward(state.x, new.x, action)
 
     def reward(self, state: EnvState) -> torch.Tensor:
         """Instantaneous healthy + forward velocity (harness accounting)."""
@@ -695,14 +726,3 @@ class PlanarContactEnv(Env):
         if self.OBS_CLIP is not None:
             qv = torch.clamp(qv, -self.OBS_CLIP, self.OBS_CLIP)
         return torch.cat([state.x[..., 1:n], qv], dim=-1)
-
-    def fused_rollout_costs_tak(self, state: EnvState, controls_tak: torch.Tensor):
-        """(K,) trajectory costs of clamped controls (T, na, K), contact QP
-        included: one kernel launch on the card (kernels/planar_step.py)."""
-        from mpopis_tpu_torch.kernels.planar_step import planar_rollout_costs_tak
-
-        return planar_rollout_costs_tak(self, state.x, controls_tak)
-
-    def fused_rollout_costs(self, state: EnvState, controls: torch.Tensor):
-        """The same with (K, T, na) controls."""
-        return self.fused_rollout_costs_tak(state, controls.permute(1, 2, 0).contiguous())

@@ -1,11 +1,11 @@
 """Hand the JAX package's parameters and state to the port.
 
 The system has no learned weights: what carries across is its physical
-parameters, the planar contact models' tables, track geometry, environment
-state, policy mean and sampling covariance, and the AIS state inside a
-control step. Each function takes the JAX package's value as numpy arrays or
-a plain dict (e.g. `dataclasses.asdict(jax_params)`, `np.asarray(state.x)`)
-and returns the port's; nothing here imports jax.
+parameters, the planar and spatial contact models' tables, track geometry,
+environment state, policy mean and sampling covariance, and the AIS state
+inside a control step. Each function takes the JAX package's value as numpy
+arrays or a plain dict (e.g. `dataclasses.asdict(jax_params)`,
+`np.asarray(state.x)`) and returns the port's; nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -23,6 +23,15 @@ from mpopis_tpu_torch.models.planar_contact import (
     PCContact,
     PCLimit,
     PlanarContactModel,
+)
+from mpopis_tpu_torch.models.spatial_contact import (
+    SCBody,
+    SCContact,
+    SCLimit,
+    SCPairCapsule,
+    SCPairCylinder,
+    SJoint,
+    SpatialContactModel,
 )
 from mpopis_tpu_torch.models.track import Track
 from mpopis_tpu_torch.policies.config import PolicyState, init_policy_state
@@ -51,6 +60,20 @@ def planar_model(d: dict) -> PlanarContactModel:
     for name, cls in nested.items():
         d[name] = tuple(_frozen(cls, item) for item in d[name])
     return _frozen(PlanarContactModel, d)
+
+
+def spatial_model(d: dict) -> SpatialContactModel:
+    """SpatialContactModel from `dataclasses.asdict(jax_model)`, its nested
+    body (with their joints), contact, limit and pair tables included."""
+    d = dict(d)
+    d["bodies"] = tuple(
+        _frozen(SCBody, dict(b, joints=tuple(_frozen(SJoint, j) for j in b["joints"])))
+        for b in d["bodies"]
+    )
+    for name, cls in (("contacts", SCContact), ("limits", SCLimit), ("pairs", SCPairCylinder),
+                      ("self_pairs", SCPairCapsule)):
+        d[name] = tuple(_frozen(cls, item) for item in d[name])
+    return _frozen(SpatialContactModel, d)
 
 
 def track(d: dict) -> Track:

@@ -1,6 +1,6 @@
-"""The CUDA kernels (car rollout, planar-contact rollout and control step,
-the AIS-update refits and CMA tail, Cholesky and forward solve) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels (car rollout, planar- and spatial-contact rollouts and
+control steps, the AIS-update refits and CMA tail, Cholesky and forward
+solve) against their plain PyTorch versions, on the card.
 
 Marked `cuda`; without a card every test skips. This file imports neither
 jax nor the JAX package, so it runs on a machine without jax:
@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from mpopis_tpu_torch.kernels import ais_update, car_rollout, linalg, planar_step
+from mpopis_tpu_torch.kernels import ais_update, car_rollout, linalg, planar_step, spatial_step
 from mpopis_tpu_torch.models import (
+    AntDeviceEnv,
     CarRacingEnv,
     CheetahDeviceEnv,
     HopperDeviceEnv,
@@ -143,6 +144,106 @@ def test_planar_wrappers_reject_bad_inputs(cuda_device):
         planar_step.planar_step_states(env, x0[None], torch.zeros((1, 6), device=cuda_device,
                                                                   dtype=torch.float64))
     assert (planar_step.LAUNCHES, planar_step.STEP_LAUNCHES) == before
+
+
+# -- the spatial-contact kernel (Ant) -------------------------------------------
+ANT_STARTS = {"reset": 0.75, "grounded": 0.75 - 0.45}  # x[2], joints at 0
+
+
+def _ant(dtype, device, start):
+    env = AntDeviceEnv(dtype=dtype, device=device)
+    x = env.reset().x.clone()
+    x[2] = ANT_STARTS[start]
+    return env, x
+
+
+@pytest.mark.parametrize("start", sorted(ANT_STARTS))
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 2e-4, 2e-3),  # the JAX kernel tests' float32 tolerance
+    (torch.float64, 1e-9, 0.0),  # measured ≤ 3.7e-10 from the grounded start
+])
+def test_spatial_kernel_matches_plain_version(cuda_device, start, dtype, rtol, atol):
+    env, x0 = _ant(dtype, cuda_device, start)
+    ctrl = torch.as_tensor(np.random.default_rng(64).uniform(-1, 1, (3, 8, 64)), dtype=dtype,
+                           device=cuda_device)
+    before = spatial_step.LAUNCHES
+    got = env.fused_rollout_costs_tak(make_state(x0), ctrl)
+    assert spatial_step.LAUNCHES == before + 1
+    want = spatial_step.spatial_rollout_costs_tak_reference(env, x0, ctrl)
+    assert spatial_step.LAUNCHES == before + 1
+    assert bool(torch.all(torch.isfinite(got)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,start,bound", [
+    (torch.float64, "grounded", 1e-9),
+    (torch.float32, "reset", 2e-4),
+])
+def test_spatial_step_kernel_matches_plain_step(cuda_device, dtype, start, bound):
+    """Per state, max |kernel − plain| ≤ bound × max |plain|."""
+    env, x0 = _ant(dtype, cuda_device, start)
+    rng = np.random.default_rng(3)
+    xs = x0 + torch.as_tensor(rng.uniform(-0.01, 0.01, (32, 30)), dtype=dtype, device=cuda_device)
+    acts = torch.as_tensor(rng.uniform(-1, 1, (32, 8)), dtype=dtype, device=cuda_device)
+    before = spatial_step.STEP_LAUNCHES
+    got = env.step(make_state(xs), acts)
+    assert spatial_step.STEP_LAUNCHES == before + 1 and got.t == 1
+    want = env.plain_step(make_state(xs), acts).x
+    assert spatial_step.STEP_LAUNCHES == before + 1
+    err = (got.x - want).abs().amax(-1) / want.abs().amax(-1)
+    assert float(err.max()) <= bound
+
+
+def test_spatial_policy_step_launches_the_kernels(cuda_device):
+    """A CEMPPI step on the card rolls out once per AIS iteration on the
+    rollout kernel; the env step launches the step kernel once."""
+    env = AntDeviceEnv(device=cuda_device)
+    cfg = PolicyConfig(kind="cemppi", num_samples=64, horizon=4, lam=1.0, opt_its=2,
+                       sigma_est="mle")
+    pol = make_policy(env, cfg, cov_mat=0.25 * np.eye(8))
+    before = (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES)
+    a, _, info = pol.step(env.reset(), pol.init_state(1))
+    torch.cuda.synchronize()
+    assert (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES) == (before[0] + info["ais_its"],
+                                                                   before[1])
+    s, r = env.step_reward(env.reset(), a)
+    assert spatial_step.STEP_LAUNCHES == before[1] + 1
+    assert bool(torch.isfinite(r)) and s.x.device.type == "cuda"
+
+
+def test_spatial_cpu_state_never_reaches_the_kernel(cuda_device):
+    """An env on the card given CPU tensors runs the plain versions."""
+    env = AntDeviceEnv(dtype=torch.float64, device=cuda_device)
+    x0 = env.reset().x.cpu()
+    ctrl = torch.as_tensor(np.random.default_rng(2).uniform(-1, 1, (2, 8, 3)))
+    before = (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES)
+    got = env.fused_rollout_costs_tak(make_state(x0), ctrl)
+    s = env.step(make_state(x0.expand(3, -1)), ctrl[0].T)
+    assert got.device.type == "cpu" and s.x.device.type == "cpu"
+    assert (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES) == before
+
+
+def test_spatial_wrappers_reject_bad_inputs(cuda_device):
+    env = AntDeviceEnv(device=cuda_device)
+    x0 = env.reset().x
+    ctrl = torch.zeros((4, 8, 16), device=cuda_device)
+    before = (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES)
+    with pytest.raises(ValueError, match="controls shape"):
+        spatial_step.spatial_rollout_costs_tak(env, x0, ctrl[:, :6])
+    with pytest.raises(ValueError, match="dtype"):
+        spatial_step.spatial_rollout_costs_tak(env, x0.half(), ctrl.half())
+    with pytest.raises(ValueError, match="state0_x"):
+        spatial_step.spatial_rollout_costs_tak(env, x0[:29].contiguous(), ctrl)
+    with pytest.raises(ValueError, match="state0_x"):
+        spatial_step.spatial_rollout_costs_tak(env, x0.double(), ctrl)
+    with pytest.raises(ValueError, match="contiguous"):
+        spatial_step.spatial_rollout_costs_tak(env, x0, ctrl[:, :, ::2])
+    with pytest.raises(ValueError, match="states"):
+        spatial_step.spatial_step_states(env, x0[None], torch.zeros((1, 6), device=cuda_device))
+    with pytest.raises(ValueError, match="actions"):
+        spatial_step.spatial_step_states(env, x0[None], torch.zeros((1, 8), device=cuda_device,
+                                                                     dtype=torch.float64))
+    assert (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES) == before
 
 
 # -- AIS updates and small linear algebra --------------------------------------

@@ -5,9 +5,12 @@ import os
 import subprocess
 import sys
 
+from mpopis_tpu.models import ant_device as jant
+from mpopis_tpu.models import spatial_contact as jspatial
 from mpopis_tpu.models.car_racing import CarParams as JCarParams
 from mpopis_tpu.policies import config as jconfig
 
+from mpopis_tpu_torch.models import ant_device, spatial_contact
 from mpopis_tpu_torch.models.car_racing import CarParams
 from mpopis_tpu_torch.policies import config
 
@@ -35,6 +38,11 @@ _PLANAR_MODULES = (
     "mpopis_tpu_torch.models.walker2d_device",
     "mpopis_tpu_torch.kernels.planar_step",
 )
+_SPATIAL_MODULES = (
+    "mpopis_tpu_torch.models.spatial_contact",
+    "mpopis_tpu_torch.models.ant_device",
+    "mpopis_tpu_torch.kernels.spatial_step",
+)
 _AIS_MODULES = (
     "mpopis_tpu_torch.ops.sampling",
     "mpopis_tpu_torch.kernels.ais_update",
@@ -53,6 +61,7 @@ def test_port_imports_every_module_without_jax():
     assert int(n_modules) >= 28  # every subpackage and module was walked
     assert set(_PLANAR_MODULES) <= set(names)
     assert set(_AIS_MODULES) <= set(names)
+    assert set(_SPATIAL_MODULES) <= set(names)
 
 
 def _fields(cls):
@@ -71,3 +80,23 @@ def test_policy_config_fields_and_defaults_match_jax():
         assert config.canonical_kind(kind) == jconfig.canonical_kind(kind)
     cfg = config.PolicyConfig(kind="cem", lam=10.0, alpha=0.5)
     assert cfg.kind == "cemppi" and cfg.gamma == jconfig.PolicyConfig(lam=10.0, alpha=0.5).gamma
+
+
+def test_ant_tables_match_jax():
+    """The copied Ant tables, the spatial table classes' fields and defaults,
+    and the env's step constants."""
+    for name in ("SJoint", "SCBody", "SCContact", "SCPairCylinder", "SCPairCapsule", "SCLimit",
+                 "SpatialContactModel"):
+        assert _fields(getattr(spatial_contact, name)) == _fields(getattr(jspatial, name)), name
+    assert dataclasses.asdict(ant_device.MODEL) == dataclasses.asdict(jant.MODEL)
+    for name in ("_H", "_FRAME_SKIP", "_BODIES", "_CONTACTS", "_LIMITS", "_DAMPING", "_ARMATURE",
+                 "_STIFFNESS", "_SPRINGREF", "_DOF_INVWEIGHT0", "_BODY_INVWEIGHT0", "_ACTUATORS"):
+        ours, theirs = getattr(ant_device, name), getattr(jant, name)
+        if name == "_BODIES":  # the joints are each package's own SJoint
+            ours = [b[:3] + (tuple(dataclasses.asdict(j) for j in b[3]),) + b[4:] for b in ours]
+            theirs = [b[:3] + (tuple(dataclasses.asdict(j) for j in b[3]),) + b[4:]
+                      for b in theirs]
+        assert ours == theirs, name
+    env = ant_device.AntDeviceEnv
+    assert (env.FRAME_SKIP, env.ACTUATORS, env.HEALTHY, env.CTRL_W) == (
+        jant._FRAME_SKIP, jant._ACTUATORS, 1.0, 0.5)

@@ -158,7 +158,7 @@ def test_cli_mujoco_on_device_prints_banner_and_table(capsys):
 @pytest.mark.parametrize("argv", [
     ["mujoco"],
     ["mujoco", "--env-name", "Hopper-v4"],
-    ["mujoco", "--on-device", "--env-name", "Ant-v4"],
+    ["mujoco", "--on-device", "--env-name", "Humanoid-v4"],
 ])
 def test_cli_unported_mujoco_paths_exit(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
