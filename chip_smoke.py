@@ -34,7 +34,22 @@ per library, all at once) and drives the port's three paths:
   of its controls), the f64 CEMPPI step through the kernel against the
   plain path, `simulate_mujoco_on_device("Ant-v4")` at the JAX package's
   Ant configuration (K=1024, H=10, 2 AIS iterations, `mle`, λ=1) for 100
-  steps, and the timings.
+  steps, and the timings;
+- phases 21-24, the Swimmer: its rollout kernel (kernel 3) and step entry
+  against their plain versions at K=4096, T=25 from reset and from both
+  motor joints past their limits (f64 by the median relative error beside
+  the plain version's own spread, f32 by the JAX kernel tests' tolerance
+  or its median), the f64 CEMPPI step through the kernel against the plain
+  path, `simulate_mujoco_on_device("Swimmer-v4")` at the JAX bench's
+  configuration (K=4096, H=25, 3 AIS iterations) for 200 steps, the torso's
+  final x from its replayed actions, and the timings;
+- phases 25-28, the Pusher: the spatial kernel's Pusher build (Euler,
+  slide joints, condim-1 floor contacts, capsule–cylinder pairs, the
+  `pusher` reward family) checked the same way at K=1024, T=10 from reset
+  and from the fingertips against the object and the table (the condim-1
+  and pair rows counted), `simulate_mujoco_on_device("Pusher-v4")` at the
+  JAX bench's configuration (K=1024, H=10, 2 AIS iterations) for 100
+  steps, its shaped reward at the end against the reset's, and the timings.
 
 Every kernel's launch count is set to 0 just before each path and read
 just after. Every phase raises on failure; there is no CPU path. The
@@ -63,7 +78,10 @@ SEED = 1
 RACE_STEPS = 1000
 # the planar-contact path: the JAX package's end-to-end contact configuration
 PK, PH, PITS, PLAM = 2048, 15, 3, 0.1
-CHEETAH_STEPS, OTHER_STEPS = 200, 50
+# Hopper and Walker2d run 20 steps and the other kinds' races 30: enough to
+# show each on its kernels, and short enough to leave the time limit to the
+# later paths
+CHEETAH_STEPS, OTHER_STEPS = 200, 20
 # x[1] lowered so that contacts fire at once: HalfCheetah as the JAX contact
 # kernel test, Hopper by 0.1 from its 1.25 (9 contact rows), Walker2d by 0.08
 # (18 contact rows, as at 1.15, where one of the JAX test's 5 f32 samples
@@ -75,7 +93,7 @@ DROP = {"HalfCheetah-v4": -0.35, "Hopper-v4": 1.15, "Walker2d-v4": 1.17}
 NUDGE = {torch.float64: 1e-15, torch.float32: 1e-6}
 # the policy layer at full width: n = cs = 2·H, m_elite = round(0.2·K)
 N_CS, M_ELITE = 2 * H, round(0.2 * K)
-CMA_RACE_STEPS, KIND_STEPS = 1000, 100
+CMA_RACE_STEPS, KIND_STEPS = 1000, 30
 # the spatial-contact path: the JAX package's end-to-end Ant configuration
 # (bench.py:356, :474-476): CEMPPI, K=1024, H=10, 2 AIS iterations, λ=1, Σ=0.25·I₈
 AK, AH, AITS, ALAM = 1024, 10, 2, 1.0
@@ -83,6 +101,21 @@ ANT_STEPS = 100
 # x[2] of the Ant starts (joints at 0): the reset; the torso sphere inside the
 # contact margin at the first substep; the JAX kernel tests' grounded start
 ANT_Z = {"reset": 0.75, "shallow": 0.26, "grounded": 0.75 - 0.45}
+# the Swimmer: the JAX bench's entry (bench.py:355): CEMPPI, K=4096, H=25, 3 AIS
+# iterations, `mle`, λ=0.1, Σ=0.25·I₂; and a start with both motor joints past
+# their ±100° limits
+SK, SH, SITS, SLAM = 4096, 25, 3, 0.1
+SWIMMER_STEPS = 200
+_LIM = float(np.deg2rad(100.0))
+SWIMMER_LIMITS = (0.1, -0.2, 0.3, 1.03 * _LIM, -1.04 * _LIM, 0.5, -0.4, 1.0, 2.0, -1.5)
+# the Pusher: the JAX bench's entry (bench.py:357): CEMPPI, K=1024, H=10, 2 AIS
+# iterations, `mle`, λ=0.1, Σ=0.25·I₇, contact solver (3, 6); and a start with
+# the fingertips pressed into the table against the object's side (the tip
+# capsules' axis at z = −0.307, the cylinder's axis 0.068 along x from the
+# first one's middle)
+UK, UH, UITS, ULAM = 1024, 10, 2, 0.1
+PUSHER_STEPS = 100
+PUSHER_TOUCH = (-0.307, 0.068)
 # the H100's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -142,6 +175,8 @@ _COUNTERS = {  # kernel name -> (module, counter)
     "forward_solve": ("linalg", "SOLVE_LAUNCHES"),
     "spatial_rollout": ("spatial_step", "LAUNCHES"),
     "spatial_step_states": ("spatial_step", "STEP_LAUNCHES"),
+    "swimmer_rollout": ("planar_step", "SWIMMER_LAUNCHES"),
+    "swimmer_step_states": ("planar_step", "SWIMMER_STEP_LAUNCHES"),
 }
 
 
@@ -191,16 +226,20 @@ def _qp_tally(module, env):
     `module.solve_qp`: per sample with at least one valid row, outer × (cg + 6
     arc trials + 2) applications of J M⁻¹ Jᵀ over its valid rows, 2·R·n + n²
     each; a sample with none skips its QP. Yields [multiply-adds, valid rows
-    after the joint limits' (the contact rows), summed over calls and samples]."""
+    after the joint limits' (the contact and pair rows), valid pair rows (the
+    model's last), all valid rows, summed over calls and samples]."""
     orig, outer, cg, n = module.solve_qp, env.solver_outer, env.solver_cg, env.MODEL.n_dof
     first_row = len(env.MODEL.limits)
-    tally = [0.0, 0]
+    first_pair = env.MODEL.n_rows - len(env.MODEL.pairs)
+    tally = [0.0, 0, 0, 0]
 
     def counting(jmat, aref, r_reg, active, *args, **kwargs):
         rows = active.sum(-1).double()
         tally[0] += float(torch.where(rows > 0, outer * (cg + 8) * (2.0 * rows * n + n * n),
                                       0.0).sum())
         tally[1] += int(active[..., first_row:].sum())
+        tally[2] += int(active[..., first_pair:].sum())
+        tally[3] += int(active.sum())
         return orig(jmat, aref, r_reg, active, *args, **kwargs)
 
     module.solve_qp = counting
@@ -1158,6 +1197,407 @@ def _spatial_path(card: str) -> list:
     }]
 
 
+def _kernel_vs_plain(label, kern, ref, make, starts, ctrl64, atol32, tally_module=None):
+    """The rollout kernel against its plain version at the main path's K and
+    T from each start: f64 by the median relative error (1e-9), beside the
+    plain version's own spread under controls·(1 + 1e-15) where the median
+    is beyond 1e-9 (the nudge rule; that plain run is skipped otherwise),
+    f32 within rtol 2e-4 / atol `atol32` or else by its median relative
+    error (< 2e-4) with the samples beyond counted. `make(dtype, start)`
+    gives (env, x). With `tally_module`, the f32 plain run tallies the QP
+    (`_qp_tally`). Returns per start {max_abs_err, median_rel_err_f32,
+    tally}."""
+    k, horizon = ctrl64.shape[2], ctrl64.shape[0]
+    out = {}
+    for start in starts:
+        env64, x64 = make(torch.float64, start)
+        want = ref(env64, x64, ctrl64)
+        rel = _rel_err(kern(env64, x64, ctrl64), want)
+        med, med_pert = float(np.median(rel)), 0.0
+        spread = "the plain version's own spread not needed"
+        if med > 1e-9:
+            rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want)
+            med_pert = float(np.median(rel_pert))
+            spread = (f"plain vs plain at controls·(1+1e-15): max {rel_pert.max():.3e} median "
+                      f"{med_pert:.3e}, {int(np.sum(rel_pert > 1e-9))} beyond")
+        print(f"{label} f64 K={k} T={horizon} from {start}: rel err max {rel.max():.3e} median "
+              f"{med:.3e}, {int(np.sum(rel > 1e-9))} of {k} beyond 1e-9; {spread}")
+        _hold(f"{label} f64 from {start}: kernel median relative error", med, med_pert, 1e-9)
+
+        env, x = make(torch.float32, start)
+        ctrl = ctrl64.float()
+        tally = None
+        if tally_module is None:
+            want = ref(env, x, ctrl)
+        else:
+            with _qp_tally(tally_module, env) as tally:
+                want = ref(env, x, ctrl)
+        got = kern(env, x, ctrl)
+        rel32 = _rel_err(got, want)
+        max_abs = float((got - want).abs().max())
+        n_over = int((~torch.isclose(got, want, rtol=2e-4, atol=atol32)).sum())
+        print(f"{label} f32 K={k} T={horizon} from {start}: rel err max {rel32.max():.3e} median "
+              f"{np.median(rel32):.3e} (quantiles 0.9 / 0.99: {np.quantile(rel32, 0.9):.3e} / "
+              f"{np.quantile(rel32, 0.99):.3e}), {n_over} of {k} beyond rtol 2e-4 / atol "
+              f"{atol32:g}, max|err| {max_abs:.3e}")
+        _require(bool(torch.all(torch.isfinite(got))), f"{label}: non-finite f32 kernel costs")
+        _require(n_over == 0 or float(np.median(rel32)) < 2e-4,
+                 f"{label}: f32 median relative error >= 2e-4 from {start}")
+        out[start] = {"max_abs_err": max_abs, "median_rel_err_f32": float(np.median(rel32)),
+                      "tally": tally}
+    return out
+
+
+def _step_vs_plain(label, step_fn, make, start, jitter, act_hi, na, n_state_jitter):
+    """The step entry against the plain step on 256 states around a start
+    (±jitter on the first `n_state_jitter` entries), f64 at 1e-9 and f32 at
+    2e-4 by the median per-state relative error beside the plain version's
+    own spread under actions·(1 + nudge). Returns max|err| per dtype name."""
+    from mpopis_tpu_torch.models.base import make_state
+
+    errs = {}
+    for dtype, bound in ((torch.float64, 1e-9), (torch.float32, 2e-4)):
+        env, x = make(dtype, start)
+        rng = np.random.default_rng(3)
+        dx = np.zeros((256, x.numel()))
+        dx[:, :n_state_jitter] = rng.uniform(-jitter, jitter, (256, n_state_jitter))
+        xs = x + torch.as_tensor(dx, dtype=dtype, device="cuda")
+        acts = torch.as_tensor(rng.uniform(-act_hi, act_hi, (256, na)), dtype=dtype,
+                               device="cuda")
+        got = step_fn(env, xs, acts)
+        want = env.plain_step(make_state(xs), acts).x
+        rel = _rel_state_err(got, want)
+        rel_pert = _rel_state_err(env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x,
+                                  want)
+        name = str(dtype)[6:]
+        errs[name] = float((got - want).abs().max())
+        print(f"{label} step entry {name} B=256 from {start} ±{jitter:g}: rel err max "
+              f"{rel.max():.3e} median {np.median(rel):.3e}, {int(np.sum(rel > bound))} beyond "
+              f"{bound:g}; plain vs plain at actions·(1 + {NUDGE[dtype]:g}): max "
+              f"{rel_pert.max():.3e} median {np.median(rel_pert):.3e}")
+        _hold(f"{label} {name} step kernel: median relative error", float(np.median(rel)),
+              float(np.median(rel_pert)), bound)
+    return errs
+
+
+def _cemppi_kernel_vs_plain(label, env_cls, k, horizon, its, lam, rollout, step):
+    """The f64 CEMPPI step through the rollout kernel against the plain path
+    (`rollout_batch` over the plain step) with the same normals z, at 1e-8
+    under the nudge rule (the plain path at z·(1 + 1e-15) runs only where
+    the rule needs it); `rollout`/`step` name the kernels' counters."""
+    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+
+    class Plain(env_cls):
+        def step(self, state, action):
+            return self.plain_step(state, action)
+
+    t_phase = time.perf_counter()
+    na = env_cls.action_dim
+    z = torch.randn((its, na * horizon, k), generator=torch.Generator("cuda").manual_seed(23),
+                    dtype=torch.float64, device="cuda")
+
+    def run(cls, fused, nudge):
+        env64 = cls(dtype=torch.float64, device="cuda")
+        cfg = PolicyConfig(kind="cemppi", num_samples=k, horizon=horizon, lam=lam, opt_its=its,
+                           sigma_est="mle", use_fused_rollout=fused)
+        pol = make_policy(env64, cfg, cov_mat=0.25 * np.eye(na))
+        _zero_counts()
+        a, ps, inf = pol.step(env64.reset(), pol.init_state(0), z=z * (1 + nudge))
+        torch.cuda.synchronize()
+        return a, ps.U, inf["ais_its"], _counts()
+
+    a_k, u_k, its_k, n_k = run(env_cls, True, 0.0)
+    a_p, u_p, its_p, n_p = run(Plain, False, 0.0)
+    err_a, err_u = _rel_norm(a_k, a_p), _rel_norm(u_k, u_p)
+    own_a = own_u = 0.0
+    spread = "the plain path's own spread not needed"
+    if max(err_a, err_u) > 1e-8:
+        a_n, u_n, its_n, _ = run(Plain, False, NUDGE[torch.float64])
+        own_a, own_u = _rel_norm(a_n, a_p), _rel_norm(u_n, u_p)
+        spread = f"plain vs plain at z·(1+1e-15): {its_n} its, action {own_a:.3e}, U {own_u:.3e}"
+    print(f"{label} CEMPPI f64 step K={k} H={horizon} {its} its: kernel path {its_k} its, plain "
+          f"path {its_p} its; kernel vs plain, max|Δ| / max|plain|: action {err_a:.3e}, U "
+          f"{err_u:.3e} (bound 1e-8); {spread} ({time.perf_counter() - t_phase:.1f} s)")
+    _require(n_k[rollout] == its_k and n_k[step] == 0,
+             f"{label}: the kernel path did not roll out on the kernel")
+    _require(n_p[rollout] == n_p[step] == 0, f"{label}: the plain path launched a kernel")
+    _require(its_k == its_p, f"{label}: kernel and plain paths ran different iteration counts")
+    _hold(f"{label} CEMPPI step: action, kernel vs plain path", err_a, own_a, 1e-8)
+    _hold(f"{label} CEMPPI step: U, kernel vs plain path", err_u, own_u, 1e-8)
+
+
+def _main_path(label, task, k, horizon, its, lam, steps, rollout, step):
+    """`simulate_mujoco_on_device(task)` on the card, f32, seed 1, every count
+    set to 0 just before and read just after; the executed actions (its CSV)
+    replayed through the env's step entry give the final state. Returns
+    (metrics, the counts, the env, the final state)."""
+    import tempfile
+
+    from mpopis_tpu_torch.harness.simulate import PORTED_MUJOCO_TASKS, simulate_mujoco_on_device
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as acts_dir:
+        _zero_counts()
+        m = simulate_mujoco_on_device(
+            task, num_trials=1, num_steps=steps, num_samples=k, horizon=horizon, lam=lam,
+            ais_its=its, ce_sigma_est="mle", seed=SEED, device="cuda", dtype=torch.float32,
+            output_acts_file=True, acts_dir=acts_dir, print_output=False,
+        )
+        counts = _counts()
+        (csv,) = [os.path.join(acts_dir, f) for f in os.listdir(acts_dir)]
+        acts = np.loadtxt(csv, delimiter=",", ndmin=2)
+    n_its = int(m["ais_iterations"][0])
+    rew, rps = float(m["rewards"][0]), float(m["rewards_per_step"][0])
+    launches = {name: v for name, v in counts.items() if v}
+    print(f"{label} {task} K={k} H={horizon} {its} its: reward {rew:.4f} over "
+          f"{int(m['steps'][0])} steps ({rps:.4f} per step), "
+          f"{float(m['control_steps_per_s'][0]):.3f} control steps/s, ais_iterations {n_its}, "
+          f"kernel launches {json.dumps(launches)} ({time.perf_counter() - t_phase:.1f} s)")
+    _require(counts[rollout] == n_its > 0, f"{task}: not every rollout ran on the kernel")
+    _require(counts[step] > steps, f"{task}: the env step did not run on the kernel")
+    _require(set(launches) == {rollout, step}, f"{task}: other kernels launched: {launches}")
+    _require(np.isfinite(rew), f"{task}: non-finite reward")
+    env = PORTED_MUJOCO_TASKS[task](dtype=torch.float32, device="cuda")
+    s = env.reset()
+    for a in acts:
+        s = env.step(s, torch.as_tensor(a, dtype=torch.float32, device="cuda"))
+    return m, counts, env, s
+
+
+def _timed(label, shape, run_k, run_p, reps_k, reps_p, card):
+    """CUDA-event times, plain-kernel-kernel-plain, after one warm-up of the
+    kernel (the caller has run the plain version on these inputs): (kernel
+    ms, plain ms)."""
+    run_k()
+    torch.cuda.synchronize()
+    p_a = _time_ms(run_p, reps_p)
+    k_a = _time_ms(run_k, reps_k)
+    k_b = _time_ms(run_k, reps_k)
+    p_b = _time_ms(run_p, reps_p)
+    print(f"{label} f32 {shape}: kernel {k_a:.4f} / {k_b:.4f} ms, plain {p_a:.3f} / {p_b:.3f} ms "
+          f"(CUDA events, plain-kernel-kernel-plain; {card})")
+    return (k_a + k_b) / 2, (p_a + p_b) / 2
+
+
+def _swimmer_path(card: str) -> list:
+    """Phases 21-24: kernel 3 (the Swimmer's rollout kernel) and the
+    on-device Swimmer path. Returns the `kernels` entries of swimmer_rollout
+    and swimmer_step_states."""
+    from mpopis_tpu_torch.kernels import build, planar_step
+    from mpopis_tpu_torch.models import SwimmerDeviceEnv, planar_contact
+    from mpopis_tpu_torch.models.base import make_state
+
+    kern = planar_step.swimmer_rollout_costs_tak
+    ref = planar_step.swimmer_rollout_costs_tak_reference
+    na = SwimmerDeviceEnv.action_dim
+
+    def make(dtype, start):
+        env = SwimmerDeviceEnv(dtype=dtype, device="cuda")
+        x = env.reset().x if start == "reset" else env.tensor(SWIMMER_LIMITS)
+        return env, x.contiguous()
+
+    # -- phase 21: build, and kernel 3 against its plain version ---------------
+    t_phase = time.perf_counter()
+    build.load_library("swimmer_rollout")
+    info = build.BUILD_INFO["swimmer_rollout"]
+    print(f"phase 21: {info['so']} built in {info['seconds']:.1f} s (in parallel with the others)")
+    for line in _ptxas_lines(info["log"]):
+        print("  ptxas:", line)
+    env, x = make(torch.float32, "limits")
+    print(f"phase 21: Swimmer limit start: {planar_step.first_substep_active_rows(env, x)[0]} "
+          f"limit rows active in the first substep")
+    ctrl64 = _uniform(SK, SH, na, 21, torch.float64)
+    res = _kernel_vs_plain("phase 21: Swimmer", kern, ref, make, ("reset", "limits"), ctrl64,
+                           2e-5, planar_contact)
+    n_lim_rows = res["limits"]["tally"][3]
+    print(f"phase 21: {res['reset']['tally'][3]} / {n_lim_rows} limit rows active over the plain "
+          f"f32 rollouts' QP calls from reset / from the limit start")
+    _require(n_lim_rows > 0, "Swimmer: the limit start ran no limit QP")
+    step_err = _step_vs_plain("phase 21: Swimmer", planar_step.swimmer_step_states, make,
+                              "limits", 0.05, 1.0, na, 10)
+    torch.cuda.synchronize()
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 22: the CEMPPI step in f64, kernel path vs plain path -----------
+    # (H=10: the plain path's time grows with H, and phase 21 held the kernel
+    # over the main path's 25 steps)
+    _cemppi_kernel_vs_plain("phase 22: Swimmer", SwimmerDeviceEnv, 512, 10, SITS, SLAM,
+                            "swimmer_rollout", "swimmer_step_states")
+
+    # -- phase 23: the main path -----------------------------------------------
+    m, counts, env, s = _main_path("phase 23:", "Swimmer-v4", SK, SH, SITS, SLAM, SWIMMER_STEPS,
+                                   "swimmer_rollout", "swimmer_step_states")
+    x_final = float(s.x[0])
+    print(f"phase 23: the replayed actions leave the torso at x = {x_final:.4f} (from 0)")
+    _require(x_final > 0, "the swimmer did not swim forward")
+
+    # -- phase 24: timings and bounds -------------------------------------------
+    # The rollouts are timed on phase 21's f32 inputs from reset, whose plain
+    # run tallied the QP. Operations counted (_contact_ops): per RK4 stage one
+    # mass-matrix factorization and two solves, and the limit QP's
+    # applications of J M⁻¹ Jᵀ over the rows valid in these inputs; the fluid
+    # force, mass matrix and bias are not counted. Bytes: the controls read
+    # and the costs written.
+    t_phase = time.perf_counter()
+    env, x = make(torch.float32, "reset")
+    ctrl = ctrl64.float()
+    xs, act = x[None].contiguous(), torch.zeros((1, na), device="cuda")
+    n_forward = SH * SK * env.FRAME_SKIP * 4
+    roll_bound = _bound(_contact_ops(env, n_forward, 1, 2, res["reset"]["tally"][0]),
+                        4.0 * (SH * na * SK + SK))
+    with _qp_tally(planar_contact, env) as tally:
+        env.plain_step(make_state(xs), act)
+    step_bound = _bound(_contact_ops(env, env.FRAME_SKIP * 4, 1, 2, tally[0]),
+                        4.0 * (2 * env.state_dim + na))
+    roll = _timed("phase 24: Swimmer rollout", f"K={SK} T={SH} from reset",
+                  lambda: kern(env, x, ctrl), lambda: ref(env, x, ctrl), 10, 1, card)
+    stp = _timed("phase 24: Swimmer step", "one state",
+                 lambda: planar_step.swimmer_step_states(env, xs, act),
+                 lambda: env.plain_step(make_state(xs), act), 50, 2, card)
+    print(f"phase 24: bounds, Swimmer rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), step "
+          f"{step_bound[0]:.3e} ms ({step_bound[1]}) ({time.perf_counter() - t_phase:.1f} s)")
+    return [{
+        "name": "swimmer_rollout",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/swimmer_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/planar_step.py:228",
+        "launches": counts["swimmer_rollout"],
+        "max_abs_err": res["reset"]["max_abs_err"],
+        "ms": roll[0],
+        "plain_ms": roll[1],
+        "bound_ms": roll_bound[0],
+        "bound_by": roll_bound[1],
+        "library_ms": None,
+        "median_rel_err_f32": res["reset"]["median_rel_err_f32"],
+    }, {
+        "name": "swimmer_step_states",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/swimmer_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/planar_step.py:207",
+        "launches": counts["swimmer_step_states"],
+        "max_abs_err": step_err["float32"],
+        "ms": stp[0],
+        "plain_ms": stp[1],
+        "bound_ms": step_bound[0],
+        "bound_by": step_bound[1],
+        "library_ms": None,
+    }]
+
+
+def _pusher_path(card: str) -> list:
+    """Phases 25-28: the Pusher's build of the spatial rollout kernel
+    (kernel 4's Euler, slide-joint, condim-1 and capsule–cylinder branches)
+    and the on-device Pusher path. Returns the `kernels` entries of the
+    Pusher's rollout and step."""
+    from mpopis_tpu_torch.kernels import build, spatial_step
+    from mpopis_tpu_torch.models import PusherDeviceEnv, pusher_device, spatial_contact
+    from mpopis_tpu_torch.models.base import make_state
+
+    kern = spatial_step.spatial_rollout_costs_tak
+    ref = spatial_step.spatial_rollout_costs_tak_reference
+    na = PusherDeviceEnv.action_dim
+
+    def make(dtype, start):
+        env = PusherDeviceEnv(dtype=dtype, device="cuda")
+        if start == "reset":
+            return env, env.reset().x
+        qv = np.random.default_rng(4).uniform(-0.3, 0.3, 11)
+        return env, pusher_device.touching_state(*PUSHER_TOUCH, qv).to("cuda", dtype)
+
+    # -- phase 25: the build, and the kernel against its plain version ---------
+    t_phase = time.perf_counter()
+    build.load_library("spatial_rollout")
+    log = build.BUILD_INFO["spatial_rollout"]["log"].splitlines()
+    for i, line in enumerate(log):  # the Pusher build's entries: (n_dof, n_q) = (11, 11)
+        if "Compiling entry" in line and "Li11ELi11E" in line:
+            for ptx in log[i:i + 6]:
+                if "registers" in ptx or "spill" in ptx or "Compiling entry" in ptx:
+                    print("  ptxas (Pusher build):", ptx.strip())
+    env, x = make(torch.float32, "touch")
+    n_lim, n_con = spatial_step.first_substep_active_rows(env, x)
+    print(f"phase 25: Pusher touching start: {n_lim} limit and {n_con} floor and pair rows "
+          f"active in the first substep")
+    ctrl64 = torch.as_tensor(np.random.default_rng(25).uniform(-2, 2, (UH, na, UK)),
+                             dtype=torch.float64, device="cuda")
+    res = _kernel_vs_plain("phase 25: Pusher", kern, ref, make, ("reset", "touch"), ctrl64,
+                           2e-3, spatial_contact)
+    tally = res["touch"]["tally"]
+    print(f"phase 25: over the plain f32 rollouts' QP calls from the touching start: "
+          f"{tally[1] - tally[2]} condim-1 floor rows and {tally[2]} capsule–cylinder pair rows "
+          f"active (from reset: {res['reset']['tally'][1] - res['reset']['tally'][2]} and "
+          f"{res['reset']['tally'][2]})")
+    _require(tally[1] - tally[2] > 0 and tally[2] > 0,
+             "Pusher: no condim-1 or no pair row active in the compared rollouts")
+    step_err = _step_vs_plain("phase 25: Pusher", spatial_step.spatial_step_states, make,
+                              "touch", 0.01, 2.4, na, 22)
+    torch.cuda.synchronize()
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 26: the CEMPPI step in f64, kernel path vs plain path -----------
+    _cemppi_kernel_vs_plain("phase 26: Pusher", PusherDeviceEnv, 256, UH, UITS, ULAM,
+                            "spatial_rollout", "spatial_step_states")
+
+    # -- phase 27: the main path -----------------------------------------------
+    m, counts, env, s = _main_path("phase 27:", "Pusher-v4", UK, UH, UITS, ULAM, PUSHER_STEPS,
+                                   "spatial_rollout", "spatial_step_states")
+    r0, r1 = float(env.reward(env.reset())), float(env.reward(s))
+    print(f"phase 27: the replayed actions take the shaped reward −|obj − goal| − "
+          f"0.5·|obj − tips| from {r0:.4f} at reset to {r1:.4f}")
+    _require(r1 > r0, "the Pusher's shaped reward did not improve")
+
+    # -- phase 28: timings and bounds -------------------------------------------
+    # The rollouts are timed on phase 25's f32 inputs from reset, whose plain
+    # run tallied the QP. Operations counted as for the planar kernel's Euler
+    # tasks (_contact_ops): per substep two mass-matrix factorizations and two
+    # solves, and the QP's applications of J M⁻¹ Jᵀ over the rows valid in
+    # these inputs; the bisections, mass matrix and bias are not counted.
+    # Bytes: the controls or states read, the costs or states written.
+    t_phase = time.perf_counter()
+    env, x = make(torch.float32, "reset")
+    ctrl = ctrl64.float()
+    xs, act = x[None].contiguous(), torch.zeros((1, na), device="cuda")
+    roll_bound = _bound(_contact_ops(env, UH * UK * env.FRAME_SKIP, 2, 2,
+                                     res["reset"]["tally"][0]),
+                        4.0 * (UH * na * UK + UK + env.state_dim))
+    with _qp_tally(spatial_contact, env) as tally:
+        env.plain_step(make_state(xs), act)
+    step_bound = _bound(_contact_ops(env, env.FRAME_SKIP, 2, 2, tally[0]),
+                        4.0 * (2 * env.state_dim + na))
+    roll = _timed("phase 28: Pusher rollout", f"K={UK} T={UH} from reset",
+                  lambda: kern(env, x, ctrl), lambda: ref(env, x, ctrl), 10, 1, card)
+    stp = _timed("phase 28: Pusher step", "one state",
+                 lambda: spatial_step.spatial_step_states(env, xs, act),
+                 lambda: env.plain_step(make_state(xs), act), 50, 2, card)
+    print(f"phase 28: bounds, Pusher rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), step "
+          f"{step_bound[0]:.3e} ms ({step_bound[1]}) ({time.perf_counter() - t_phase:.1f} s)")
+    return [{
+        "name": "spatial_rollout_pusher",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/spatial_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/spatial_step.py:139",
+        "launches": counts["spatial_rollout"],
+        "max_abs_err": res["touch"]["max_abs_err"],
+        "ms": roll[0],
+        "plain_ms": roll[1],
+        "bound_ms": roll_bound[0],
+        "bound_by": roll_bound[1],
+        "library_ms": None,
+        "median_rel_err_f32": res["touch"]["median_rel_err_f32"],
+    }, {
+        "name": "spatial_step_states_pusher",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/spatial_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/spatial_step.py:52",
+        "launches": counts["spatial_step_states"],
+        "max_abs_err": step_err["float32"],
+        "ms": stp[0],
+        "plain_ms": stp[1],
+        "bound_ms": step_bound[0],
+        "bound_by": step_bound[1],
+        "library_ms": None,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1176,7 +1616,8 @@ def main() -> int:
 
     # -- phase 1: build (every library at once, one nvcc each) ---------------
     t0 = time.perf_counter()
-    build.build_all(["car_rollout", "planar_rollout", "ais_update", "linalg", "spatial_rollout"])
+    build.build_all(["car_rollout", "planar_rollout", "ais_update", "linalg", "spatial_rollout",
+                     "swimmer_rollout"])
     build_s = time.perf_counter() - t0
     build.load_library("car_rollout")
     info = build.BUILD_INFO["car_rollout"]
@@ -1331,6 +1772,8 @@ def main() -> int:
     planar = _planar_path(card)
     ais = _ais_path(card)
     spatial = _spatial_path(card)
+    swimmer = _swimmer_path(card)
+    pusher = _pusher_path(card)
 
     # Operations counted per sample and action step: the substeps' arithmetic
     # (~120 operations and ~15 transcendentals each, counted as one operation
@@ -1356,7 +1799,7 @@ def main() -> int:
         "library_ms": None,
         "max_abs_err_f64": max_abs_f64,
         "median_rel_err_f32": float(np.median(rel32)),
-    }, *planar, *ais, *spatial]}))
+    }, *planar, *ais, *spatial, *swimmer, *pusher]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

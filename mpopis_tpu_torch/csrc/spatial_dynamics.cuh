@@ -1,9 +1,17 @@
 // Spatial (3D) contact dynamics of one sample, for the rollout kernel in
 // spatial_rollout.cu: quaternion forward kinematics, the analytic mass matrix
-// and bias, the joint-limit and floor-contact rows (condim 3 pyramids), the
-// warm-started box QP and the RK4 substep over the quaternion manifold.
-// Free and hinge joints only, no joint springs, no contact pairs: what Ant
-// has (make_model refuses the rest).
+// and bias, the joint-limit and floor-contact rows (condim-3 pyramids or one
+// condim-1 normal row), the capsule-cylinder pair rows, the warm-started box
+// QP, the RK4 substep over the quaternion manifold and the Euler-implicit
+// substep, and the control step with its reward family.
+//
+// What a build takes is fixed at compile time by the feature mask F (kEuler,
+// kSlide, kCondim1, kCylinder, kPusher below): the branches of a feature
+// compile only into the builds that have it, so the Ant build (F = 0: RK4,
+// free and hinge joints, condim-3 contacts, the `locomotion` family) holds
+// none of the Pusher's code (F = all five: Euler, slide joints, condim-1
+// floor contacts, capsule-cylinder pairs, the `pusher` family). No build
+// takes joint springs or self-collision pairs (make_model refuses them).
 //
 // A transcription of the plain PyTorch version
 // (mpopis_tpu_torch/models/spatial_contact.py), which keeps the JAX package's
@@ -32,7 +40,22 @@ constexpr int kMaxLimits = 24;
 constexpr int kMaxAct = 24;
 constexpr int kMaxRows = 128;  // rows of one model (Ant: 108)
 
-enum JointKind { kFree = 0, kHinge = 1 };
+enum JointKind { kFree = 0, kHinge = 1, kSlide = 2 };
+
+// the feature mask of a build
+constexpr int kEuler = 1;     // the Euler-implicit substep (else RK4)
+constexpr int kSlideJoints = 2;  // slide joints
+constexpr int kCondim1 = 4;   // condim-1 floor contacts (one normal row)
+constexpr int kCylinder = 8;  // capsule-cylinder pairs (one row each)
+constexpr int kPusher = 16;   // the `pusher` reward family (else `locomotion`)
+constexpr int kMaxPairs = 4;
+constexpr int kCarryBodies = 3;  // the `pusher` family's xpos bodies
+
+// entries of the state's tail the reward family carries
+template <int F>
+struct Carry {
+  static constexpr int n = (F & kPusher) ? 3 * kCarryBodies : 1;
+};
 
 template <typename T>
 struct Imp {  // solimp impedance and solref stiffness/damping of one row
@@ -59,7 +82,15 @@ struct Contact {
   T local[3], axis[3];  // sphere centre and capsule axis, body frame
   T radius, mu, margin, bw, rfac;
   Imp<T> imp;
-  int body, has_axis;
+  int body, has_axis, condim;
+};
+
+template <typename T>
+struct CylPair {  // capsule (body1) against an upright solid cylinder (body2)
+  T a1[3], b1[3], center2[3];  // capsule axis ends, cylinder centre: own frames
+  T r1, r2, hh2, margin, bw;   // radii, cylinder half height, margin, sum of invweights
+  Imp<T> imp;
+  int body1, body2;
 };
 
 template <typename T>
@@ -75,14 +106,16 @@ struct Model {
   Joint<T> jnt[kMaxJoints];
   Contact<T> con[kMaxContacts];
   Limit<T> lim[kMaxLimits];
-  T damping[kMaxDof], armature[kMaxDof];
+  CylPair<T> cyl[kMaxPairs];
+  T damping[kMaxDof], armature[kMaxDof], h_damping[kMaxDof];
   int dof_rot[kMaxDof];  // rotational dof
   T gear[kMaxAct];
   int act_dof[kMaxAct];
-  T gravity, floor_z, h, half_h, healthy, fwd_inv_dt, ctrl_w;
+  T gravity, floor_z, h, half_h, healthy, fwd_inv_dt, ctrl_w, act_clip;
   T ch[4], half_ch[4], w[4];  // RK4 stage c*h, c*h/2 and weights
-  int n_dof, n_q, nb, nj, n_contacts, n_limits, n_act, n_rows;
-  int frame_skip, outer, cg;
+  int n_dof, n_q, nb, nj, n_contacts, n_limits, n_act, n_cyl, n_rows;
+  int frame_skip, outer, cg, features;
+  int carry_body[kCarryBodies];
 };
 
 __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
@@ -173,7 +206,7 @@ struct Kin {
   T ax[N][3], an[N][3];
 };
 
-template <typename T, int N, int NQ>
+template <typename T, int N, int NQ, int F>
 __device__ void compute_frames(const Model<T>& m, const T (&q)[NQ], Kin<T, N>& kin) {
   for (int b = 0; b < m.nb; ++b) {
     const Body<T>& bd = m.body[b];
@@ -210,6 +243,13 @@ __device__ void compute_frames(const Model<T>& m, const T (&q)[NQ], Kin<T, N>& k
             kin.an[d + i][c] = o[c];
             kin.an[d + 3 + i][c] = o[c];
           }
+        }
+      } else if ((F & kSlideJoints) && J.kind == kSlide) {  // translate along the axis
+        rvec(r, J.axis, kin.ax[d]);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          o[i] = o[i] + q[J.qadr] * kin.ax[d][i];
+          kin.an[d][i] = o[i];
         }
       } else {  // hinge
         T aw[3];
@@ -268,7 +308,7 @@ __device__ __forceinline__ void point_jac(const Model<T>& m, const Kin<T, N>& ki
 // angular velocity and acceleration and its origin's velocity and
 // acceleration, then per body the com Jacobian, m Jv^T Jv + Jw^T Iw Jw and
 // the wrench m (a_com - g), Iw alpha + w x Iw w projected on the columns.
-template <typename T, int N>
+template <typename T, int N, int F>
 __device__ void mass_and_bias(const Model<T>& m, const Kin<T, N>& kin, const T (&qv)[N],
                               T (&M)[N][N], T (&bias)[N]) {
   T om[kMaxBodies][3], al[kMaxBodies][3], vo[kMaxBodies][3], ao[kMaxBodies][3];
@@ -308,6 +348,16 @@ __device__ void mass_and_bias(const Model<T>& m, const Kin<T, N>& kin, const T (
           a_[i] = T(0);  // d/dt(R w_local) = w x w = 0 at w' = 0
         }
         rvec(kin.R[b], wl, w_);  // a free joint is its body's only joint
+      } else if ((F & kSlideJoints) && J.kind == kSlide) {
+        T va[3], t1[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) va[i] = qv[d] * kin.ax[d][i];
+        cross(w_, va, t1);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          v_[i] = v_[i] + va[i];
+          c_[i] = c_[i] + t1[i];
+        }
       } else {  // hinge: to the anchor, add the joint rate, back to the origin
         T dw[3], dd[3], aq[3], t1[3], t2[3], t3[3], vw[3], aw[3];
 #pragma unroll
@@ -455,7 +505,90 @@ struct Rows {
   int nv;
 };
 
-template <typename T, int N, int NQ>
+// Capsule (body1) against an upright solid cylinder (body2): the distance,
+// the normal from body1 to body2 and the contact point, as the plain
+// version's capsule_cylinder. The capsule-axis witness point minimizes the
+// distance to the solid cylinder, convex along the segment: 40 bisections on
+// the sign of its derivative u(p(s)) . d, u the outward unit direction at the
+// point (inside the solid, the max(er, ez) subgradient); then the side, cap
+// or rim region of the point gives the distance and the normal.
+template <typename T, bool WITNESS>
+__device__ __forceinline__ void cylinder_unit(T px, T py, T pz, T r2, T hh, T& ux, T& uy, T& uz,
+                                              T& er, T& ez, bool& inside, T& d_out, T& dr) {
+  const T q2 = px * px + py * py;
+  dr = d_sqrt(q2 < T(1e-24) ? T(1e-24) : q2);
+  er = dr - r2;
+  ez = d_abs(pz) - hh;
+  inside = er < T(0) && ez < T(0);
+  const T erp = er < T(0) ? T(0) : er;
+  const T ezp = ez < T(0) ? T(0) : ez;
+  const T o2 = erp * erp + ezp * ezp;
+  d_out = d_sqrt(o2 < T(1e-24) ? T(1e-24) : o2);
+  const T zsign = pz >= T(0) ? T(1) : T(-1);
+  const bool radial = er > ez;
+  if (inside) {
+    ux = radial ? px / dr : T(0);
+    uy = radial ? py / dr : T(0);
+    uz = radial ? T(0) : zsign;
+  } else if (WITNESS) {  // the plain version's two association orders
+    ux = erp * (px / dr) / d_out;
+    uy = erp * (py / dr) / d_out;
+    uz = ezp * zsign / d_out;
+  } else {
+    ux = erp * px / (dr * d_out);
+    uy = erp * py / (dr * d_out);
+    uz = ezp * zsign / d_out;
+  }
+}
+
+template <typename T, int N>
+__device__ void capsule_cylinder(const Kin<T, N>& kin, const CylPair<T>& pr, T& dist, T (&nvec)[3],
+                                 T (&cp)[3]) {
+  T a[3], b[3], c[3], d1[3], t[3];
+  rvec(kin.R[pr.body1], pr.a1, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) a[i] = kin.o[pr.body1][i] + t[i];
+  rvec(kin.R[pr.body1], pr.b1, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) b[i] = kin.o[pr.body1][i] + t[i];
+  rvec(kin.R[pr.body2], pr.center2, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    c[i] = kin.o[pr.body2][i] + t[i];
+    d1[i] = b[i] - a[i];
+  }
+  T lo = T(0), hi = T(1), ux, uy, uz, er, ez, d_out, dr;
+  bool inside;
+#pragma unroll 1
+  for (int it = 0; it < 40; ++it) {
+    const T mid = T(0.5) * (lo + hi);
+    cylinder_unit<T, false>(a[0] + mid * d1[0] - c[0], a[1] + mid * d1[1] - c[1],
+                  a[2] + mid * d1[2] - c[2], pr.r2, pr.hh2, ux, uy, uz, er, ez, inside, d_out,
+                  dr);
+    const bool going_down = ux * d1[0] + uy * d1[1] + uz * d1[2] < T(0);
+    lo = going_down ? mid : lo;
+    hi = going_down ? hi : mid;
+  }
+  const T s1 = T(0.5) * (lo + hi);
+  T p1[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) p1[i] = a[i] + s1 * d1[i];
+  // the normal from the cylinder surface toward p1: radial on the side wall,
+  // vertical on the caps, mixed on the rim
+  cylinder_unit<T, true>(p1[0] - c[0], p1[1] - c[1], p1[2] - c[2], pr.r2, pr.hh2, ux, uy, uz, er, ez,
+                inside, d_out, dr);
+  const T d_pt = inside ? (er > ez ? er : ez) : d_out;
+  dist = d_pt - pr.r1;
+  // MuJoCo's frame: the normal points geom1 (capsule) -> geom2 (cylinder)
+  nvec[0] = -ux;
+  nvec[1] = -uy;
+  nvec[2] = -uz;
+  const T reach = pr.r1 + T(0.5) * dist;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) cp[i] = p1[i] + nvec[i] * reach;
+}
+
+template <typename T, int N, int NQ, int F>
 __device__ void contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[N],
                              const Kin<T, N>& kin, Rows<T, N>& rows) {
   int nv = 0, r = 0;
@@ -483,8 +616,9 @@ __device__ void contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[
 #pragma unroll
     for (int i = 0; i < 3; ++i) p[i] = kin.o[ct.body][i] + p[i];
     const T dist = (p[2] - m.floor_z) - ct.radius;
+    const bool normal_only = (F & kCondim1) && ct.condim == 1;
     if (!(dist < ct.margin)) {
-      r += 4;
+      r += normal_only ? 1 : 4;
       continue;
     }
     const T cp[3] = {p[0], p[1], m.floor_z + T(0.5) * dist};
@@ -498,6 +632,16 @@ __device__ void contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[
     const T jv_n = dot_row(jn, qv);
     const T base = (-ct.imp.kc) * imp * pos_m;
     const T nbc = -ct.imp.bc;
+    if (normal_only) {  // frictionless: the normal row, no pyramid factor in R
+#pragma unroll
+      for (int d = 0; d < N; ++d) rows.J[nv][d] = jn[d];
+      rows.aref[nv] = nbc * jv_n + base;
+      rows.reg[nv] = (T(1) - imp) / imp * ct.bw;
+      rows.idx[nv] = r;
+      ++nv;
+      ++r;
+      continue;
+    }
     // tangents: t1 = normalized xy-projection of the world capsule axis,
     // (0, 1, 0) for a sphere; t2 = n x t1 = (-t1y, t1x, 0)
     T t1x = T(0), t1y = T(1);
@@ -532,6 +676,26 @@ __device__ void contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[
       ++nv;
     }
     r += 4;
+  }
+  if (F & kCylinder) {
+    for (int pi = 0; pi < m.n_cyl; ++pi, ++r) {
+      const CylPair<T>& pr = m.cyl[pi];
+      T dist, nvec[3], cp[3];
+      capsule_cylinder(kin, pr, dist, nvec, cp);
+      if (!(dist < pr.margin)) continue;
+      // J = n . (v2(cp) - v1(cp)) over both bodies' dof columns
+      T jv1[N][3], jv2[N][3];
+      point_jac(m, kin, pr.body1, cp, jv1, static_cast<T(*)[3]>(nullptr));
+      point_jac(m, kin, pr.body2, cp, jv2, static_cast<T(*)[3]>(nullptr));
+#pragma unroll
+      for (int d = 0; d < N; ++d) rows.J[nv][d] = -dot3(jv1[d], nvec) + dot3(jv2[d], nvec);
+      const T pos_m = dist - pr.margin;
+      const T imp = impedance(pos_m, pr.imp);
+      rows.aref[nv] = (-pr.imp.bc) * dot_row(rows.J[nv], qv) - pr.imp.kc * imp * pos_m;
+      rows.reg[nv] = (T(1) - imp) / imp * pr.bw;
+      rows.idx[nv] = r;
+      ++nv;
+    }
   }
   rows.nv = nv;
 }
@@ -652,24 +816,31 @@ __device__ void solve_qp(const Model<T>& m, const Rows<T, N>& rows, const T (&L)
 }
 
 // One constrained forward pass (mj_forward) at (q, qv): the acceleration;
-// lam_full warm-starts the QP and returns its solution. Kept out of line:
-// RK4 calls it 4 times per substep.
-template <typename T, int N, int NQ>
+// lam_full warm-starts the QP and returns its solution. With kEuler the QP
+// sees the undamped M and the acceleration solves (M + h diag(damping)) acc =
+// smooth + qfrc (the implicit damping of mj_Euler). Kept out of line: RK4
+// calls it 4 times per substep.
+template <typename T, int N, int NQ, int F>
 __device__ __noinline__ void forward_acc(const Model<T>& m, const T (&q)[NQ], const T (&qv)[N],
                                          const T (&tau)[N], T* lam_full, Rows<T, N>& rows,
                                          T (&acc)[N]) {
   Kin<T, N> kin;
-  compute_frames(m, q, kin);
+  compute_frames<T, N, NQ, F>(m, q, kin);
   T M[N][N], L[N][N], bias[N], smooth[N], a_smooth[N], qfrc[N];
-  mass_and_bias(m, kin, qv, M, bias);
+  mass_and_bias<T, N, F>(m, kin, qv, M, bias);
   cholesky(M, L);
 #pragma unroll
   for (int d = 0; d < N; ++d) smooth[d] = tau[d] - bias[d] - m.damping[d] * qv[d];
   chol_solve(L, smooth, a_smooth);
-  contact_rows(m, q, qv, kin, rows);
+  contact_rows<T, N, NQ, F>(m, q, qv, kin, rows);
   solve_qp(m, rows, L, a_smooth, lam_full, qfrc);
 #pragma unroll
   for (int d = 0; d < N; ++d) smooth[d] = smooth[d] + qfrc[d];
+  if (F & kEuler) {
+#pragma unroll
+    for (int d = 0; d < N; ++d) M[d][d] = M[d][d] + m.h_damping[d];
+    cholesky(M, L);
+  }
   chol_solve(L, smooth, acc);
 }
 
@@ -707,12 +878,9 @@ __device__ void integrate_pos(const Model<T>& m, const T (&q)[NQ], const T (&v)[
   }
 }
 
-// One RK4 substep: positions of each stage from the normalized q0 by the
-// previous stage's velocity, the weighted velocities accumulated stage by
-// stage, lambda chained through the stages; q4 gets the last stage's qpos.
-template <typename T, int N, int NQ>
-__device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (&tau)[N],
-                            T* lam_full, Rows<T, N>& rows, T (&q4)[NQ]) {
+// Every free joint's quaternion normalized
+template <typename T, int NQ>
+__device__ void normalize_quats(const Model<T>& m, T (&q)[NQ]) {
   for (int jj = 0; jj < m.nj; ++jj) {
     const Joint<T>& J = m.jnt[jj];
     if (J.kind != kFree) continue;
@@ -722,6 +890,16 @@ __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (
 #pragma unroll
     for (int i = 0; i < 4; ++i) q[a + i] = q[a + i] * inv;
   }
+}
+
+// One RK4 substep: positions of each stage from the normalized q0 by the
+// previous stage's velocity, the weighted velocities accumulated stage by
+// stage, lambda chained through the stages; q_snap gets the last stage's
+// qpos (what mj_step leaves in data.xpos).
+template <typename T, int N, int NQ, int F>
+__device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (&tau)[N],
+                            T* lam_full, Rows<T, N>& rows, T (&q_snap)[NQ]) {
+  normalize_quats(m, q);
   T kq[N], kv[N], accq[N], accv[N], vs[N], acc[N];
 #pragma unroll
   for (int d = 0; d < N; ++d) {
@@ -730,10 +908,10 @@ __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (
   }
 #pragma unroll 1
   for (int s = 0; s < 4; ++s) {
-    integrate_pos(m, q, kq, m.ch[s], m.half_ch[s], q4);
+    integrate_pos(m, q, kq, m.ch[s], m.half_ch[s], q_snap);
 #pragma unroll
     for (int d = 0; d < N; ++d) vs[d] = qv[d] + m.ch[s] * kv[d];
-    forward_acc(m, q4, vs, tau, lam_full, rows, acc);
+    forward_acc<T, N, NQ, F>(m, q_snap, vs, tau, lam_full, rows, acc);
 #pragma unroll
     for (int d = 0; d < N; ++d) {
       accq[d] = accq[d] + m.w[s] * vs[d];
@@ -750,17 +928,35 @@ __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (
   for (int d = 0; d < N; ++d) qv[d] = qv[d] + m.h * accv[d];
 }
 
-constexpr int kIntHeader = 12;
-constexpr int kDoubleHeader = 19;
-constexpr int kIntsPerBody = 4, kIntsPerJoint = 4, kIntsPerContact = 2, kIntsPerLimit = 2;
-constexpr int kDoublesPerDof = 2, kDoublesPerBody = 22, kDoublesPerJoint = 24;
-constexpr int kDoublesPerContact = 16, kDoublesPerLimit = 9;
+// One Euler-implicit substep: the velocity by the implicitly damped
+// acceleration, then the positions by the new velocity; q_snap gets the
+// pre-integration (normalized) qpos, which mj_step leaves in data.xpos.
+template <typename T, int N, int NQ, int F>
+__device__ void euler_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (&tau)[N],
+                              T* lam_full, Rows<T, N>& rows, T (&q_snap)[NQ]) {
+  normalize_quats(m, q);
+  T acc[N];
+  forward_acc<T, N, NQ, F>(m, q, qv, tau, lam_full, rows, acc);
+#pragma unroll
+  for (int d = 0; d < N; ++d) qv[d] = qv[d] + m.h * acc[d];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) q_snap[i] = q[i];
+  integrate_pos(m, q_snap, qv, m.h, m.half_h, q);
+}
 
-// One control step from the state (q, qv, track) under the actions a
-// (clamped for the torque). Returns the new track value; reward reads a as given.
-template <typename T, int N, int NQ>
-__device__ T control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T* a, T* lam_full,
-                          Rows<T, N>& rows) {
+constexpr int kIntHeader = 16;
+constexpr int kDoubleHeader = 20;
+constexpr int kIntsPerBody = 4, kIntsPerJoint = 4, kIntsPerContact = 3, kIntsPerLimit = 2;
+constexpr int kIntsPerPair = 2;
+constexpr int kDoublesPerDof = 3, kDoublesPerBody = 22, kDoublesPerJoint = 24;
+constexpr int kDoublesPerContact = 16, kDoublesPerLimit = 9, kDoublesPerPair = 19;
+
+// One control step from the state (q, qv) under the actions a (clamped to
+// +-act_clip for the torque): frame_skip substeps from lambda = 0, lambda
+// chained; q_snap gets the snapshot of the last substep.
+template <typename T, int N, int NQ, int F>
+__device__ void control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T* a, T* lam_full,
+                             Rows<T, N>& rows, T (&q_snap)[NQ]) {
   T tau[N];
 #pragma unroll
   for (int d = 0; d < N; ++d) tau[d] = T(0);
@@ -768,30 +964,103 @@ __device__ T control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T* a,
     const int dof = m.act_dof[i];
 #pragma unroll
     for (int d = 0; d < N; ++d)
-      if (d == dof) tau[d] = m.gear[i] * clip(a[i], T(-1), T(1));
+      if (d == dof) tau[d] = m.gear[i] * clip(a[i], -m.act_clip, m.act_clip);
   }
   for (int r = 0; r < m.n_rows; ++r) lam_full[r] = T(0);
-  T q4[NQ];
 #pragma unroll
-  for (int i = 0; i < NQ; ++i) q4[i] = q[i];
-  for (int s = 0; s < m.frame_skip; ++s) rk4_substep(m, q, qv, tau, lam_full, rows, q4);
-  return q4[0];  // the `q0` track: the root's x
+  for (int i = 0; i < NQ; ++i) q_snap[i] = q[i];
+  for (int s = 0; s < m.frame_skip; ++s) {
+    if (F & kEuler)
+      euler_substep<T, N, NQ, F>(m, q, qv, tau, lam_full, rows, q_snap);
+    else
+      rk4_substep<T, N, NQ, F>(m, q, qv, tau, lam_full, rows, q_snap);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T dist3(const T* x, int i, int j) {
+  const T d0 = x[i] - x[j], d1 = x[i + 1] - x[j + 1], d2 = x[i + 2] - x[j + 2];
+  const T s = d0 * d0 + d1 * d1 + d2 * d2;
+  return d_sqrt(s < T(1e-30) ? T(1e-30) : s);
+}
+
+// What one thread of the kernel does for sample k: from x0 + k * x_stride
+// (qpos, qvel, the family's carry) it applies `horizon` control steps; action
+// i of step t is controls[t * c_t + i * c_i + k * c_k]. Per step the family
+// reads the snapshot into the new carry and rewards:
+//   locomotion: carry = the snapshot's root x (the `q0` track);
+//     reward = healthy + (carry' - carry) fwd_w / dt - ctrl_w sum a^2;
+//   pusher: carry = the frame origins of the tips, object and goal bodies
+//     (their data.xpos); reward = -|obj - goal| - ctrl_w sum a^2
+//     - 0.5 |obj - tips| of the previous carry (the pre-step data.xpos).
+// The reward reads the action as given. Writes costs[k] (the rollout entry)
+// or the state to x_out (the step entry, horizon 1) where not null.
+template <typename T, int N, int NQ, int F>
+__device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_stride,
+                           const T* controls, long long c_t, long long c_i, long long c_k,
+                           int horizon, T* costs, T* x_out, T* lam_full, Rows<T, N>& rows) {
+  constexpr int NC = Carry<F>::n;
+  T a[kMaxAct], q[NQ], qv[N], carry[NC], q_snap[NQ];
+  const T* xk = x0 + k * x_stride;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) q[i] = xk[i];
+#pragma unroll
+  for (int d = 0; d < N; ++d) qv[d] = xk[NQ + d];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) carry[i] = xk[NQ + N + i];
+  T cost = T(0);
+  for (int t = 0; t < horizon; ++t) {
+    for (int i = 0; i < m.n_act; ++i) a[i] = controls[t * c_t + i * c_i + k * c_k];
+    control_step<T, N, NQ, F>(m, q, qv, a, lam_full, rows, q_snap);
+    T ssq = T(0);
+    for (int i = 0; i < m.n_act; ++i) ssq = ssq + a[i] * a[i];
+    T rew;
+    if (F & kPusher) {
+      rew = -dist3(carry, 3, 6) - m.ctrl_w * ssq - T(0.5) * dist3(carry, 3, 0);
+      Kin<T, N> kin;
+      compute_frames<T, N, NQ, F>(m, q_snap, kin);
+#pragma unroll
+      for (int b = 0; b < kCarryBodies; ++b) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) carry[3 * b + i] = kin.o[m.carry_body[b]][i];
+      }
+    } else {
+      rew = m.healthy + (q_snap[0] - carry[0]) * m.fwd_inv_dt;
+      for (int i = 0; i < m.n_act; ++i) rew = rew - m.ctrl_w * (a[i] * a[i]);
+      carry[0] = q_snap[0];
+    }
+    cost = cost - rew;
+  }
+  if (costs) costs[k] = cost;
+  if (x_out) {
+    T* xo = x_out + static_cast<long long>(k) * (NQ + N + NC);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) xo[i] = q[i];
+#pragma unroll
+    for (int d = 0; d < N; ++d) xo[NQ + d] = qv[d];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) xo[NQ + N + i] = carry[i];
+  }
 }
 
 // Reads the flat arrays packed by the wrapper into the device struct; returns
-// false if their layout or counts do not fit what the kernel takes.
+// false if their layout or counts do not fit, or if the model has what the
+// feature mask it declares does not take.
 //   ints: header (n_dof, n_q, bodies, joints, contacts, limits, actuators,
-//     cylinder pairs, self pairs, frame_skip, outer, cg); per body parent,
+//     cylinder pairs, self pairs, frame_skip, outer, cg, the feature mask,
+//     the 3 carry bodies of the `pusher` family or -1); per body parent,
 //     first joint, joint count, chain dof mask; per joint body, kind, dof,
-//     qadr; per contact body, has_axis; per limit dof, qadr; per actuator dof.
+//     qadr; per contact body, has_axis, condim; per limit dof, qadr; per
+//     actuator dof; per cylinder pair body1, body2.
 //   doubles: header (gravity, floor_z, h, h/2, healthy, fwd_w/dt, ctrl_w, the
-//     4 stage c*h, the 4 stage c*h/2, the 4 stage weights); per dof damping,
-//     armature; per body pos, rotation (9), com, mass, inertia (6); per joint
-//     axis, anchor, K (9), K^2 (9); per contact local, axis, radius, mu,
-//     margin, body invweight, pyramid factor, impedance (5); per limit lo, hi,
-//     margin, dof invweight, impedance (5); per actuator its gear.
-// The pair counts must be 0: a model with pairs is refused until their rows
-// are taken, and their tables will follow the actuators'.
+//     action clip, the 4 stage c*h, the 4 stage c*h/2, the 4 stage weights);
+//     per dof damping, armature, h*damping; per body pos, rotation (9), com,
+//     mass, inertia (6); per joint axis, anchor, K (9), K^2 (9); per contact
+//     local, axis, radius, mu, margin, body invweight, pyramid factor,
+//     impedance (5); per limit lo, hi, margin, dof invweight, impedance (5);
+//     per actuator its gear; per cylinder pair a1, b1, centre (3 each), r1,
+//     r2, half height, margin, the bodies' summed invweight, impedance (5).
+// Self pairs are refused.
 template <typename T>
 bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<T>* out) {
   if (n_int < kIntHeader || n_double < kDoubleHeader) return false;
@@ -806,18 +1075,27 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
   m.n_contacts = nc;
   m.n_limits = nl;
   m.n_act = na;
+  m.n_cyl = n_cyl;
   m.frame_skip = ip[9];
   m.outer = ip[10];
   m.cg = ip[11];
+  m.features = ip[12];
+  const int fx = m.features;
   if (nd < 1 || nd > kMaxDof || nq < nd || nb < 1 || nb > kMaxBodies || nj < 0 ||
       nj > kMaxJoints || nc < 0 || nc > kMaxContacts || nl < 0 || nl > kMaxLimits || na < 0 ||
-      na > kMaxAct || n_cyl != 0 || n_self != 0 || m.frame_skip < 0 || m.outer < 0 || m.cg < 0)
+      na > kMaxAct || n_cyl < 0 || n_cyl > kMaxPairs || (n_cyl > 0 && !(fx & kCylinder)) ||
+      n_self != 0 || m.frame_skip < 0 || m.outer < 0 || m.cg < 0)
     return false;
+  for (int b = 0; b < kCarryBodies; ++b) {
+    m.carry_body[b] = ip[13 + b];
+    if ((fx & kPusher) && (m.carry_body[b] < 0 || m.carry_body[b] >= nb)) return false;
+  }
   if (n_int != kIntHeader + kIntsPerBody * nb + kIntsPerJoint * nj + kIntsPerContact * nc +
-                   kIntsPerLimit * nl + na)
+                   kIntsPerLimit * nl + na + kIntsPerPair * n_cyl)
     return false;
   if (n_double != kDoubleHeader + kDoublesPerDof * nd + kDoublesPerBody * nb +
-                      kDoublesPerJoint * nj + kDoublesPerContact * nc + kDoublesPerLimit * nl + na)
+                      kDoublesPerJoint * nj + kDoublesPerContact * nc + kDoublesPerLimit * nl +
+                      na + kDoublesPerPair * n_cyl)
     return false;
   const int* ic = ip + kIntHeader;
   const double* dc = dp;
@@ -828,15 +1106,17 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
   m.healthy = T(dc[4]);
   m.fwd_inv_dt = T(dc[5]);
   m.ctrl_w = T(dc[6]);
+  m.act_clip = T(dc[7]);
   for (int s = 0; s < 4; ++s) {
-    m.ch[s] = T(dc[7 + s]);
-    m.half_ch[s] = T(dc[11 + s]);
-    m.w[s] = T(dc[15 + s]);
+    m.ch[s] = T(dc[8 + s]);
+    m.half_ch[s] = T(dc[12 + s]);
+    m.w[s] = T(dc[16 + s]);
   }
   dc += kDoubleHeader;
   for (int d = 0; d < nd; ++d, dc += kDoublesPerDof) {
     m.damping[d] = T(dc[0]);
     m.armature[d] = T(dc[1]);
+    m.h_damping[d] = T(dc[2]);
     m.dof_rot[d] = 0;
   }
   for (int b = 0; b < nb; ++b, dc += kDoublesPerBody, ic += kIntsPerBody) {
@@ -870,14 +1150,16 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
     J.kind = ic[1];
     J.dof = ic[2];
     J.qadr = ic[3];
-    if (J.body < 0 || J.body >= nb || J.kind < kFree || J.kind > kHinge) return false;
+    if (J.body < 0 || J.body >= nb || J.kind < kFree || J.kind > kSlide ||
+        (J.kind == kSlide && !(fx & kSlideJoints)))
+      return false;
     const int ndj = J.kind == kFree ? 6 : 1, nqj = J.kind == kFree ? 7 : 1;
     if (J.dof < 0 || J.dof + ndj > nd || J.qadr < 0 || J.qadr + nqj > nq) return false;
     // a free joint is alone on its body (the bias reads its rotation there)
     if (J.kind == kFree && m.body[J.body].nj != 1) return false;
     if (J.kind == kFree) {
       for (int i = 3; i < 6; ++i) m.dof_rot[J.dof + i] = 1;
-    } else {
+    } else if (J.kind == kHinge) {
       m.dof_rot[J.dof] = 1;
     }
   }
@@ -898,7 +1180,11 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
     ct.imp = imp(dc + 11);
     ct.body = ic[0];
     ct.has_axis = ic[1];
-    if (ct.body < 0 || ct.body >= nb) return false;
+    ct.condim = ic[2];
+    if (ct.body < 0 || ct.body >= nb || (ct.condim != 3 && ct.condim != 1) ||
+        (ct.condim == 1 && !(fx & kCondim1)))
+      return false;
+    m.n_rows += ct.condim == 3 ? 4 : 1;
   }
   for (int l = 0; l < nl; ++l, dc += kDoublesPerLimit, ic += kIntsPerLimit) {
     Limit<T>& lm = m.lim[l];
@@ -916,7 +1202,28 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
     m.act_dof[i] = ic[i];
     if (ic[i] < 0 || ic[i] >= nd) return false;
   }
-  m.n_rows = nl + 4 * nc;  // each contact a condim-3 pyramid
+  dc += na;
+  ic += na;
+  for (int p = 0; p < n_cyl; ++p, dc += kDoublesPerPair, ic += kIntsPerPair) {
+    CylPair<T>& pr = m.cyl[p];
+    for (int i = 0; i < 3; ++i) {
+      pr.a1[i] = T(dc[i]);
+      pr.b1[i] = T(dc[3 + i]);
+      pr.center2[i] = T(dc[6 + i]);
+    }
+    pr.r1 = T(dc[9]);
+    pr.r2 = T(dc[10]);
+    pr.hh2 = T(dc[11]);
+    pr.margin = T(dc[12]);
+    pr.bw = T(dc[13]);
+    pr.imp = imp(dc + 14);
+    pr.body1 = ic[0];
+    pr.body2 = ic[1];
+    if (pr.body1 < 0 || pr.body1 >= nb || pr.body2 < 0 || pr.body2 >= nb) return false;
+  }
+  // the rows: limits, then 4 per condim-3 contact or 1 per condim-1 one
+  // (counted above), then one per cylinder pair
+  m.n_rows += nl + n_cyl;
   return m.n_rows <= kMaxRows;
 }
 

@@ -1,15 +1,19 @@
-// Spatial-contact MuJoCo rollout costs (Ant), one thread per sample, and the
-// same control step applied to a batch of states.
+// Spatial-contact MuJoCo rollout costs (Ant, Pusher), one thread per sample,
+// and the same control step applied to a batch of states.
 //
 // Replaces the Pallas TPU kernel mpopis_tpu/kernels/spatial_step.py::_make_kernel
 // with _spatial_advance (launched at spatial_step.py:311, entry
-// spatial_rollout_costs_tak), for the `locomotion` reward family with the `q0`
-// track. For each of K candidate control sequences it integrates T control
-// steps of frame_skip RK4 substeps and accumulates
-//   cost = sum_t -(healthy + (x4' - x4) * fwd_w / dt - ctrl_w * sum a^2),
-// x4 the torso x of the last RK stage's positions, carried across control
-// steps from the state's tail entry. Each RK stage is a full constrained
-// forward pass (spatial_dynamics.cuh): quaternion frames, mass matrix and its
+// spatial_rollout_costs_tak) for two of its builds: Ant's (the `locomotion`
+// reward family with the `q0` track, RK4) and the Pusher's (the `pusher`
+// family, Euler-implicit, slide joints, condim-1 floor contacts and
+// capsule-cylinder pairs). For each of K candidate control sequences it
+// integrates T control steps of frame_skip substeps and accumulates
+//   cost = sum_t -reward_t
+// with the family's reward (run_sample in spatial_dynamics.cuh), whose carry
+// (Ant: the torso x of the last RK stage's positions; Pusher: the 9 stale
+// xpos entries of the last substep's pre-integration positions) crosses the
+// control steps in the state's tail. Each RK stage or Euler substep is a full
+// constrained forward pass (spatial_dynamics.cuh): frames, mass matrix and its
 // Cholesky, bias, the valid constraint rows, the warm-started box QP (lambda
 // chained through the stages and substeps, reset to 0 at every control step).
 //
@@ -22,12 +26,14 @@
 //   (spatial_dynamics.cuh): the work follows the contacts that are live, and
 //   a sample with none skips its QP.
 // - q, qv and the per-dof vectors are register arrays (the dof count is a
-//   template parameter, 14 for Ant); the compacted rows (up to 128 x 14), the
+//   template parameter, 14 for Ant, 11 for the Pusher); the compacted rows (up to 128 x 14), the
 //   QP vectors, the frames and the mass matrix and its factor live in local
 //   memory, i.e. L1/L2.
 // - Blocks are as small as fill the card: 1 thread per block up to ~8 blocks
 //   per SM, then wider, so that K = 1024 samples spread over all SMs with 8
 //   independent warps on each instead of 32 packed lanes on 32 SMs.
+// - What a build runs is fixed at compile time by its feature mask, so the
+//   Ant build holds none of the Pusher's branches.
 // - The model (spatial::Model, built on the host from the flat arrays the
 //   wrapper packs, in double, rounded once) lives in device memory the
 //   wrapper owns; every thread reads it at the same addresses.
@@ -51,45 +57,27 @@ namespace {
 
 using namespace spatial;
 
-// The one kernel behind both entries. Thread k starts from x0 + k * x_stride
-// (qpos, qvel, track) and applies `horizon` control steps; action i of step t
-// is controls[t * c_t + i * c_i + k * c_k]. The rollout entry writes costs[k];
-// the step entry (horizon 1) writes the state to x_out.
-template <typename T, int N, int NQ>
+// The one kernel behind both entries: thread k runs sample k (run_sample in
+// spatial_dynamics.cuh) with the build's feature mask F.
+template <typename T, int N, int NQ, int F>
 __global__ void __launch_bounds__(32)
 spatial_kernel(const Model<T>* __restrict__ model, const T* __restrict__ x0, long long x_stride,
                const T* __restrict__ controls, long long c_t, long long c_i, long long c_k,
                int num_k, int horizon, T* __restrict__ costs, T* __restrict__ x_out) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= num_k) return;
-  const Model<T>& m = *model;
   Rows<T, N> rows;
-  T lam_full[kMaxRows], a[kMaxAct];
-  T q[NQ], qv[N];
-  const T* xk = x0 + k * x_stride;
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) q[i] = xk[i];
-#pragma unroll
-  for (int d = 0; d < N; ++d) qv[d] = xk[NQ + d];
-  T track = xk[NQ + N];
-  T cost = T(0);
-  for (int t = 0; t < horizon; ++t) {
-    for (int i = 0; i < m.n_act; ++i) a[i] = controls[t * c_t + i * c_i + k * c_k];
-    const T snap = control_step(m, q, qv, a, lam_full, rows);
-    T rew = m.healthy + (snap - track) * m.fwd_inv_dt;
-    for (int i = 0; i < m.n_act; ++i) rew = rew - m.ctrl_w * (a[i] * a[i]);
-    cost = cost - rew;
-    track = snap;
-  }
-  if (costs) costs[k] = cost;
-  if (x_out) {
-    T* xo = x_out + static_cast<long long>(k) * (NQ + N + 1);
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) xo[i] = q[i];
-#pragma unroll
-    for (int d = 0; d < N; ++d) xo[NQ + d] = qv[d];
-    xo[NQ + N] = track;
-  }
+  T lam_full[kMaxRows];
+  run_sample<T, N, NQ, F>(*model, k, x0, x_stride, controls, c_t, c_i, c_k, horizon, costs, x_out,
+                          lam_full, rows);
+}
+
+// The builds: (n_dof, n_q, feature mask) of Ant and of the Pusher
+constexpr int kAntFeatures = 0;
+constexpr int kPusherFeatures = kEuler | kSlideJoints | kCondim1 | kCylinder | kPusher;
+
+int carry_of(int features) {
+  return (features & kPusher) ? Carry<kPusher>::n : Carry<0>::n;
 }
 
 int sm_count() {
@@ -105,9 +93,9 @@ int sm_count() {
 }
 
 template <typename T>
-int launch(const void* model, int n_dof, int n_q, const void* x0, long long x_stride,
-           const void* controls, long long c_t, long long c_i, long long c_k, int num_k,
-           int horizon, void* costs, void* x_out, void* stream) {
+int launch(const void* model, int n_dof, int n_q, int features, const void* x0,
+           long long x_stride, const void* controls, long long c_t, long long c_i, long long c_k,
+           int num_k, int horizon, void* costs, void* x_out, void* stream) {
   if (num_k < 1 || horizon < 0 || model == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   // 1 thread a block while that leaves at most ~8 blocks an SM, then wider
   int threads = 1;
@@ -119,9 +107,12 @@ int launch(const void* model, int n_dof, int n_q, const void* x0, long long x_st
   const T* ctrl = static_cast<const T*>(controls);
   T* c = static_cast<T*>(costs);
   T* xo = static_cast<T*>(x_out);
-  if (n_dof == 14 && n_q == 15)
-    spatial_kernel<T, 14, 15><<<grid, threads, 0, s>>>(m, xs, x_stride, ctrl, c_t, c_i, c_k,
-                                                        num_k, horizon, c, xo);
+  if (n_dof == 14 && n_q == 15 && features == kAntFeatures)
+    spatial_kernel<T, 14, 15, kAntFeatures><<<grid, threads, 0, s>>>(
+        m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k, horizon, c, xo);
+  else if (n_dof == 11 && n_q == 11 && features == kPusherFeatures)
+    spatial_kernel<T, 11, 11, kPusherFeatures><<<grid, threads, 0, s>>>(
+        m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k, horizon, c, xo);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -134,8 +125,8 @@ extern "C" {
 // The interface constants the wrapper checks against its own.
 void spatial_layout(int* out) {
   const int v[] = {kIntHeader, kDoubleHeader, kMaxBodies, kMaxJoints, kMaxContacts,
-                   kMaxLimits, kMaxAct, kMaxRows};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+                   kMaxLimits, kMaxAct, kMaxPairs, kMaxRows, kAntFeatures, kPusherFeatures};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
 }
 
 int spatial_model_bytes(int f64) {
@@ -153,33 +144,37 @@ int spatial_pack_model(int f64, const int* ip, int n_int, const double* dp, int 
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// (T, na, K) controls from one state (n_q + n_dof + 1,) -> costs (K,)
-int spatial_rollout_costs_f32(const void* model, int n_dof, int n_q, int na, const void* state0,
-                              const void* controls, void* costs, int num_k, int horizon,
-                              void* stream) {
-  return launch<float>(model, n_dof, n_q, state0, 0, controls, static_cast<long long>(na) * num_k,
-                       num_k, 1, num_k, horizon, costs, nullptr, stream);
+// (T, na, K) controls from one state (n_q + n_dof + carry,) -> costs (K,)
+int spatial_rollout_costs_f32(const void* model, int n_dof, int n_q, int features, int na,
+                              const void* state0, const void* controls, void* costs, int num_k,
+                              int horizon, void* stream) {
+  return launch<float>(model, n_dof, n_q, features, state0, 0, controls,
+                       static_cast<long long>(na) * num_k, num_k, 1, num_k, horizon, costs,
+                       nullptr, stream);
 }
 
-int spatial_rollout_costs_f64(const void* model, int n_dof, int n_q, int na, const void* state0,
-                              const void* controls, void* costs, int num_k, int horizon,
-                              void* stream) {
-  return launch<double>(model, n_dof, n_q, state0, 0, controls,
+int spatial_rollout_costs_f64(const void* model, int n_dof, int n_q, int features, int na,
+                              const void* state0, const void* controls, void* costs, int num_k,
+                              int horizon, void* stream) {
+  return launch<double>(model, n_dof, n_q, features, state0, 0, controls,
                         static_cast<long long>(na) * num_k, num_k, 1, num_k, horizon, costs,
                         nullptr, stream);
 }
 
-// states (B, n_q + n_dof + 1) and actions (B, na) -> states after one control step
-int spatial_step_states_f32(const void* model, int n_dof, int n_q, int na, const void* x,
-                            const void* actions, void* out, int batch, void* stream) {
-  return launch<float>(model, n_dof, n_q, x, n_q + n_dof + 1, actions, 0, 1, na, batch, 1,
-                       nullptr, out, stream);
+// states (B, n_q + n_dof + carry) and actions (B, na) -> states after one
+// control step
+int spatial_step_states_f32(const void* model, int n_dof, int n_q, int features, int na,
+                            const void* x, const void* actions, void* out, int batch,
+                            void* stream) {
+  return launch<float>(model, n_dof, n_q, features, x, n_q + n_dof + carry_of(features), actions,
+                       0, 1, na, batch, 1, nullptr, out, stream);
 }
 
-int spatial_step_states_f64(const void* model, int n_dof, int n_q, int na, const void* x,
-                            const void* actions, void* out, int batch, void* stream) {
-  return launch<double>(model, n_dof, n_q, x, n_q + n_dof + 1, actions, 0, 1, na, batch, 1,
-                        nullptr, out, stream);
+int spatial_step_states_f64(const void* model, int n_dof, int n_q, int features, int na,
+                            const void* x, const void* actions, void* out, int batch,
+                            void* stream) {
+  return launch<double>(model, n_dof, n_q, features, x, n_q + n_dof + carry_of(features), actions,
+                        0, 1, na, batch, 1, nullptr, out, stream);
 }
 
 }  // extern "C"

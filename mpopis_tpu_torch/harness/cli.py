@@ -6,9 +6,8 @@
 
 `car` and `mujoco` take the flags and defaults of the JAX package's
 (`python -m mpopis_tpu ...`), plus `--device` (default `cuda`). `mujoco`
-runs with `--on-device` for Ant-v4, HalfCheetah-v4, Hopper-v4 and
-Walker2d-v4; the
-other on-device tasks, the host engine (no `--on-device`) and the other
+runs with `--on-device` for Ant-v4, HalfCheetah-v4, Hopper-v4, Pusher-v4,
+Swimmer-v4 and Walker2d-v4; the other on-device tasks, the host engine (no `--on-device`) and the other
 subcommands exit with "not yet ported".
 """
 

@@ -1,20 +1,24 @@
-"""Planar-contact rollout costs and control steps (HalfCheetah, Hopper,
-Walker2d): the CUDA kernel `csrc/planar_rollout.cu`, its plain PyTorch
-version, and the wrappers.
+"""Planar rollout costs and control steps (HalfCheetah, Hopper, Walker2d,
+and the Swimmer): the CUDA kernels `csrc/planar_rollout.cu` and
+`csrc/swimmer_rollout.cu` (their device code shared in
+`csrc/planar_dynamics.cuh`), their plain PyTorch versions, and the wrappers.
 
-Counterpart of `mpopis_tpu/kernels/planar_step.py` (the Pallas TPU kernel
-`_make_kernel` with `_contact_advance`, entry `planar_rollout_costs_tak`).
-Two entries share the kernel's device code:
+Counterpart of `mpopis_tpu/kernels/planar_step.py`: the Pallas TPU kernel
+`_make_kernel` with `_contact_advance` (entry `planar_rollout_costs_tak`)
+and its Swimmer instance `_swimmer_rollout_impl` (entry
+`swimmer_rollout_costs_tak`). Each kernel has two entries:
 
-- `planar_rollout_costs_tak(env, state0_x, controls_tak)`: (K,) costs
-  Σ_t −reward_t of clamped controls (T, na, K) from one state (2n,);
-- `planar_step_states(env, x, actions)`: one control step of a batch of
-  states (..., 2n) under actions (..., na) — the env's `step` on the card.
+- `{planar,swimmer}_rollout_costs_tak(env, state0_x, controls_tak)`: (K,)
+  costs Σ_t −reward_t of clamped controls (T, na, K) from one state (2n,);
+- `{planar,swimmer}_step_states(env, x, actions)`: one control step of a
+  batch of states (..., 2n) under actions (..., na) — the env's `step` on
+  the card.
 
 A CPU tensor goes to the plain version (`env.plain_step` / `rollout_batch`
 over `env.plain_step_reward`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts rollout-kernel launches and `STEP_LAUNCHES` step-kernel
-launches, nothing else.
+`LAUNCHES` / `STEP_LAUNCHES` count the planar kernel's rollout and step
+launches, `SWIMMER_LAUNCHES` / `SWIMMER_STEP_LAUNCHES` the Swimmer's, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from mpopis_tpu_torch.models.rollout import rollout_batch
 
 LAUNCHES = 0
 STEP_LAUNCHES = 0
-MAX_BODIES, MAX_CONTACTS, MAX_LIMITS, MAX_PAIRS = 7, 16, 6, 3  # of csrc/planar_rollout.cu
+SWIMMER_LAUNCHES = 0
+SWIMMER_STEP_LAUNCHES = 0
+MAX_BODIES, MAX_CONTACTS, MAX_LIMITS, MAX_PAIRS = 7, 16, 6, 3  # of csrc/planar_dynamics.cuh
 MAX_ROWS = MAX_LIMITS + 3 * MAX_CONTACTS + MAX_PAIRS
 
 _MODEL_ARGS = [  # the packed model: ints and their count, doubles and their count
@@ -53,26 +59,28 @@ _STEP_ARGS = _MODEL_ARGS + [
     ctypes.c_int,  # B
     ctypes.c_void_p,  # cudaStream_t
 ]
-_FNS: dict[tuple[str, torch.dtype], object] = {}
+_FNS: dict[tuple[str, str, torch.dtype], object] = {}
 
 
-def _kernel_fn(entry: str, dtype: torch.dtype):
-    if (entry, dtype) not in _FNS:
-        lib = load_library("planar_rollout")
-        lib.planar_max_rows.restype = ctypes.c_int
-        if lib.planar_max_rows() != MAX_ROWS:
-            raise RuntimeError("planar_rollout.cu and its wrapper disagree on the interface")
+def _kernel_fn(kernel: str, entry: str, dtype: torch.dtype):
+    """The C entry of `csrc/{kernel}_rollout.cu` (kernel: planar or swimmer)."""
+    if (kernel, entry, dtype) not in _FNS:
+        lib = load_library(f"{kernel}_rollout")
+        max_rows = getattr(lib, f"{kernel}_max_rows")
+        max_rows.restype = ctypes.c_int
+        if max_rows() != MAX_ROWS:
+            raise RuntimeError(f"{kernel}_rollout.cu and its wrapper disagree on the interface")
         for name, args in (("rollout", _ROLLOUT_ARGS), ("step", _STEP_ARGS)):
             for suffix, dt in (("f32", torch.float32), ("f64", torch.float64)):
                 c_name = (
-                    f"planar_rollout_costs_{suffix}" if name == "rollout"
-                    else f"planar_step_states_{suffix}"
+                    f"{kernel}_rollout_costs_{suffix}" if name == "rollout"
+                    else f"{kernel}_step_states_{suffix}"
                 )
                 fn = getattr(lib, c_name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-                _FNS[(name, dt)] = fn
-    return _FNS[(entry, dtype)]
+                _FNS[(kernel, name, dt)] = fn
+    return _FNS[(kernel, entry, dtype)]
 
 
 def impedance_consts(item, model):
@@ -84,14 +92,19 @@ def impedance_consts(item, model):
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_model(model, frame_skip: int, outer: int, cg: int, healthy: float, ctrl_w: float):
+def kernel_model(model, frame_skip: int, outer: int, cg: int, healthy: float, ctrl_w: float,
+                 fluid: tuple = ()):
     """The model, solver counts and reward weights as the kernel's flat int and
-    double arrays (layout: `make_model` in csrc/planar_rollout.cu). Derived
-    constants are computed here in double, as the plain version computes its
-    Python floats."""
+    double arrays (layout: `make_model` in csrc/planar_dynamics.cuh), the
+    Swimmer's 5 fluid coefficients `fluid` last. Derived constants are
+    computed here in double, as the plain version computes its Python floats."""
     n, nb = model.n_dof, len(model.bodies)
     na = len(model.gear)
-    _require(n in (6, 9), f"{n} dofs (the kernel is built for 6 and 9)")
+    if fluid:
+        _require(n == 5 and len(fluid) == 5, f"{n} dofs and {len(fluid)} fluid coefficients "
+                 "(the fluid kernel is built for the Swimmer's 5 and 5)")
+    else:
+        _require(n in (6, 9), f"{n} dofs (the kernel is built for 6 and 9)")
     _require(nb == n - 2 and na == n - 3, "the kernel needs n_dof − 2 bodies and n_dof − 3 gears")
     _require(all(b.dof == i + 2 for i, b in enumerate(model.bodies)),
              "the kernel needs body i to own hinge dof i + 2")
@@ -130,12 +143,13 @@ def kernel_model(model, frame_skip: int, outer: int, cg: int, healthy: float, ct
         dbl += [*p.a1, *p.b1, p.r1, *p.a2, *p.b2, p.r2, p.margin,
                 model.body_invweight0[p.body1] + model.body_invweight0[p.body2]]
         dbl += impedance_consts(p, model)
+    dbl += [float(c) for c in fluid]
     return (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(dbl))(*dbl)
 
 
 def _env_model(env):
     return kernel_model(env.MODEL, env.FRAME_SKIP, env.solver_outer, env.solver_cg,
-                        float(env.HEALTHY), float(env.CTRL_W))
+                        float(env.HEALTHY), float(env.CTRL_W), tuple(getattr(env, "FLUID", ())))
 
 
 def _require(cond: bool, msg: str):
@@ -167,15 +181,13 @@ def first_substep_active_rows(env, x):
     return int(active[:n_lim].sum()), int(active[n_lim:].sum())
 
 
-def planar_rollout_costs_tak(env, state0_x, controls_tak):
-    """(K,) trajectory costs of controls (T, na, K), already clamped, from
-    the state `state0_x` (2n,)."""
-    global LAUNCHES
+def _rollout(kernel, env, state0_x, controls_tak):
+    """Launch `kernel`'s rollout entry on CUDA tensors: (costs (K,), launched)."""
     dev = controls_tak.device
-    if dev.type == "cpu":
-        return planar_rollout_costs_tak_reference(env, state0_x, controls_tak)
     dtype = controls_tak.dtype
     _check_cuda(dev, dtype)
+    _require(bool(getattr(env, "FLUID", ())) == (kernel == "swimmer"),
+             f"{type(env).__name__} does not run on the {kernel} kernel")
     n, na = env.MODEL.n_dof, env.action_dim
     _require(controls_tak.dim() == 3 and controls_tak.shape[1] == na,
              f"controls shape {tuple(controls_tak.shape)}, want (T, {na}, K)")
@@ -188,27 +200,24 @@ def planar_rollout_costs_tak(env, state0_x, controls_tak):
     horizon, k = controls_tak.shape[0], controls_tak.shape[2]
     out = torch.empty(k, dtype=dtype, device=dev)
     if k == 0:
-        return out
+        return out, False
     ints, dbl = _env_model(env)
-    fn = _kernel_fn("rollout", dtype)
+    fn = _kernel_fn(kernel, "rollout", dtype)
     with torch.cuda.device(dev):
         rc = fn(ints, len(ints), dbl, len(dbl), state0_x.data_ptr(), controls_tak.data_ptr(),
                 out.data_ptr(), k, horizon, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"planar_rollout kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return out
+        raise RuntimeError(f"{kernel}_rollout kernel launch failed: CUDA error {rc}")
+    return out, True
 
 
-def planar_step_states(env, x, actions):
-    """One control step of the states x (..., 2n) under actions (..., na)
-    (clamped to [−1, 1] here); returns the new states (..., 2n)."""
-    global STEP_LAUNCHES
+def _step(kernel, env, x, actions):
+    """Launch `kernel`'s step entry on CUDA tensors: (states, launched)."""
     dev = x.device
-    if dev.type == "cpu":
-        return env.plain_step(make_state(x), actions).x
     dtype = x.dtype
     _check_cuda(dev, dtype)
+    _require(bool(getattr(env, "FLUID", ())) == (kernel == "swimmer"),
+             f"{type(env).__name__} does not run on the {kernel} kernel")
     n, na = env.MODEL.n_dof, env.action_dim
     _require(x.shape[-1] == 2 * n and actions.shape == x.shape[:-1] + (na,),
              f"states {tuple(x.shape)} and actions {tuple(actions.shape)}, want (..., {2 * n}) "
@@ -219,13 +228,64 @@ def planar_step_states(env, x, actions):
     acts = actions.reshape(-1, na).contiguous()
     out = torch.empty_like(xs)
     if xs.shape[0] == 0:
-        return out.reshape(x.shape)
+        return out.reshape(x.shape), False
     ints, dbl = _env_model(env)
-    fn = _kernel_fn("step", dtype)
+    fn = _kernel_fn(kernel, "step", dtype)
     with torch.cuda.device(dev):
         rc = fn(ints, len(ints), dbl, len(dbl), xs.data_ptr(), acts.data_ptr(), out.data_ptr(),
                 xs.shape[0], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"planar_step kernel launch failed: CUDA error {rc}")
-    STEP_LAUNCHES += 1
-    return out.reshape(x.shape)
+        raise RuntimeError(f"{kernel}_step kernel launch failed: CUDA error {rc}")
+    return out.reshape(x.shape), True
+
+
+def planar_rollout_costs_tak(env, state0_x, controls_tak):
+    """(K,) trajectory costs of controls (T, na, K), already clamped, from
+    the state `state0_x` (2n,)."""
+    global LAUNCHES
+    if controls_tak.device.type == "cpu":
+        return planar_rollout_costs_tak_reference(env, state0_x, controls_tak)
+    out, launched = _rollout("planar", env, state0_x, controls_tak)
+    if launched:
+        LAUNCHES += 1
+    return out
+
+
+def planar_step_states(env, x, actions):
+    """One control step of the states x (..., 2n) under actions (..., na)
+    (clamped to [−1, 1] here); returns the new states (..., 2n)."""
+    global STEP_LAUNCHES
+    if x.device.type == "cpu":
+        return env.plain_step(make_state(x), actions).x
+    out, launched = _step("planar", env, x, actions)
+    if launched:
+        STEP_LAUNCHES += 1
+    return out
+
+
+# the Swimmer's plain version is the planar one: rollout_batch over its step
+swimmer_rollout_costs_tak_reference = planar_rollout_costs_tak_reference
+
+
+def swimmer_rollout_costs_tak(env, state0_x, controls_tak):
+    """(K,) Swimmer trajectory costs of controls (T, 2, K), already clamped,
+    from the state `state0_x` (10,): the kernel in csrc/swimmer_rollout.cu."""
+    global SWIMMER_LAUNCHES
+    if controls_tak.device.type == "cpu":
+        return swimmer_rollout_costs_tak_reference(env, state0_x, controls_tak)
+    out, launched = _rollout("swimmer", env, state0_x, controls_tak)
+    if launched:
+        SWIMMER_LAUNCHES += 1
+    return out
+
+
+def swimmer_step_states(env, x, actions):
+    """One Swimmer control step of the states x (..., 10) under actions
+    (..., 2) (clamped to [−1, 1] here); returns the new states (..., 10)."""
+    global SWIMMER_STEP_LAUNCHES
+    if x.device.type == "cpu":
+        return env.plain_step(make_state(x), actions).x
+    out, launched = _step("swimmer", env, x, actions)
+    if launched:
+        SWIMMER_STEP_LAUNCHES += 1
+    return out

@@ -1,17 +1,18 @@
-"""Spatial-contact rollout costs and control steps (Ant): the CUDA kernel
-`csrc/spatial_rollout.cu`, its plain PyTorch version, and the wrappers.
+"""Spatial-contact rollout costs and control steps (Ant, Pusher): the CUDA
+kernel `csrc/spatial_rollout.cu`, its plain PyTorch version, and the
+wrappers.
 
 Counterpart of `mpopis_tpu/kernels/spatial_step.py` (the Pallas TPU kernel
 `_make_kernel` with `_spatial_advance`, entry `spatial_rollout_costs_tak`),
-for the `locomotion` reward family with the `q0` track. Two entries share
-the kernel's device code:
+for the `locomotion` reward family with the `q0` track (Ant) and the
+`pusher` family (Pusher). Two entries share the kernel's device code:
 
 - `spatial_rollout_costs_tak(env, state0_x, controls_tak)`: (K,) costs
   Σ_t −reward_t of clamped controls (T, na, K) from one state
-  (n_q + n_dof + 1,);
+  (n_q + n_dof + carry,);
 - `spatial_step_states(env, x, actions)`: one control step of a batch of
-  states (..., n_q + n_dof + 1) under actions (..., na) — the env's `step`
-  on the card.
+  states (..., n_q + n_dof + carry) under actions (..., na) — the env's
+  `step` on the card.
 
 A CPU tensor goes to the plain version (`env.plain_step` / `rollout_batch`
 over `env.plain_step_reward`); a CUDA tensor launches the kernel or raises.
@@ -40,15 +41,24 @@ from mpopis_tpu_torch.models.spatial_contact import (
 
 LAUNCHES = 0
 STEP_LAUNCHES = 0
+# what a build of the kernel takes (the feature mask of csrc/spatial_dynamics.cuh)
+EULER, SLIDE, CONDIM1, CYLINDER, PUSHER = 1, 2, 4, 8, 16
+FEATURE_NAMES = {EULER: "the euler_implicit substep", SLIDE: "slide joints",
+                 CONDIM1: "condim-1 contacts", CYLINDER: "capsule–cylinder pairs",
+                 PUSHER: "the pusher reward family"}
+# the builds: (n_dof, n_q) -> feature mask (Ant, the Pusher)
+KERNEL_DOFS = {(14, 15): 0, (11, 11): EULER | SLIDE | CONDIM1 | CYLINDER | PUSHER}
 # the packing layout and capacities of csrc/spatial_rollout.cu (checked at load)
-LAYOUT = {"int_header": 12, "double_header": 19, "bodies": 16, "joints": 24, "contacts": 32,
-          "limits": 24, "actuators": 24, "rows": 128}
-KERNEL_DOFS = ((14, 15),)  # the (n_dof, n_q) the kernel is instantiated for
-_KINDS = {"free": 0, "hinge": 1}
+LAYOUT = {"int_header": 16, "double_header": 20, "bodies": 16, "joints": 24, "contacts": 32,
+          "limits": 24, "actuators": 24, "pairs": 4, "rows": 128,
+          "ant_features": KERNEL_DOFS[(14, 15)], "pusher_features": KERNEL_DOFS[(11, 11)]}
+_KINDS = {"free": 0, "hinge": 1, "slide": 2}
+_FAMILIES = {"locomotion": 0, "pusher": PUSHER}
 
-_LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]  # model, n_dof, n_q, na
+# model, n_dof, n_q, feature mask, na
+_LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _ROLLOUT_ARGS = _LAUNCH_ARGS + [
-    ctypes.c_void_p,  # state0 (n_q + n_dof + 1,)
+    ctypes.c_void_p,  # state0 (n_q + n_dof + carry,)
     ctypes.c_void_p,  # controls (T, na, K)
     ctypes.c_void_p,  # costs (K,)
     ctypes.c_int,  # K
@@ -56,9 +66,9 @@ _ROLLOUT_ARGS = _LAUNCH_ARGS + [
     ctypes.c_void_p,  # cudaStream_t
 ]
 _STEP_ARGS = _LAUNCH_ARGS + [
-    ctypes.c_void_p,  # x (B, n_q + n_dof + 1)
+    ctypes.c_void_p,  # x (B, n_q + n_dof + carry)
     ctypes.c_void_p,  # actions (B, na)
-    ctypes.c_void_p,  # out (B, n_q + n_dof + 1)
+    ctypes.c_void_p,  # out (B, n_q + n_dof + carry)
     ctypes.c_int,  # B
     ctypes.c_void_p,  # cudaStream_t
 ]
@@ -96,30 +106,48 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"spatial kernel: {msg}")
 
 
+def model_features(model, family: str) -> int:
+    """The feature mask a model and reward family need of a build."""
+    kinds = {j.kind for _, j in model.dof_joints}
+    return ((EULER if model.integrator == "euler_implicit" else 0)
+            | (SLIDE if "slide" in kinds else 0)
+            | (CONDIM1 if any(c.condim == 1 for c in model.contacts) else 0)
+            | (CYLINDER if model.pairs else 0)
+            | _FAMILIES[family])
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy: float,
-                 fwd_w: float, ctrl_w: float):
-    """The model, solver counts, actuators and reward weights as the kernel's
-    flat int and double arrays (layout: `make_model` in
-    csrc/spatial_dynamics.cuh). Derived constants are computed here in double,
-    as the plain version computes its Python floats. The kernel takes what
-    Ant has: RK4, free and hinge joints, condim-3 floor contacts, no joint
-    springs and no contact pairs (whose counts have their place in the
-    header); it computes the `locomotion` reward with the `q0` track."""
+                 fwd_w: float, ctrl_w: float, family: str = "locomotion", act_clip: float = 1.0,
+                 carry_bodies: tuple = (-1, -1, -1)):
+    """The model, solver counts, actuators, reward family and weights as the
+    kernel's flat int and double arrays (layout: `make_model` in
+    csrc/spatial_dynamics.cuh). Derived constants are computed here in
+    double, as the plain version computes its Python floats. The kernel has
+    two builds, KERNEL_DOFS: Ant's (RK4, free and hinge joints, condim-3
+    floor contacts, the `locomotion` family) and the Pusher's (Euler-implicit,
+    hinge and slide joints, condim-1 floor contacts, capsule–cylinder pairs,
+    the `pusher` family). Neither takes joint springs or self pairs."""
     n, nb = model.n_dof, len(model.bodies)
     joints = model.dof_joints
+    _require(family in _FAMILIES, f"the {family} reward family is not yet ported")
     _require((n, model.n_q) in KERNEL_DOFS,
-             f"{n} dofs and {model.n_q} qpos (the kernel is built for {KERNEL_DOFS})")
-    _require(model.integrator == "rk4", f"the {model.integrator} substep is not yet ported")
-    _require(not model.pairs and not model.self_pairs, "contact pairs are not yet ported")
-    _require(all(j.kind in _KINDS for _, j in joints), "slide joints are not yet ported")
-    _require(all(c.condim == 3 for c in model.contacts), "condim-1 contacts are not yet ported")
+             f"{n} dofs and {model.n_q} qpos (the kernel is built for {tuple(KERNEL_DOFS)})")
+    build = KERNEL_DOFS[(n, model.n_q)]
+    need = model_features(model, family)
+    missing = [name for bit, name in FEATURE_NAMES.items() if need & bit and not build & bit]
+    _require(not missing, f"{', '.join(missing)} not in the {(n, model.n_q)} build")
+    _require((need & PUSHER) == (build & PUSHER),
+             f"the {(n, model.n_q)} build rewards another family than {family}")
+    _require(not model.self_pairs, "self-collision pairs are not yet ported")
     _require(not any(model.stiffness), "joint springs are not yet ported")
+    _require(all(c.condim in (1, 3) for c in model.contacts), "condim must be 1 or 3")
     _require(nb <= LAYOUT["bodies"] and len(joints) <= LAYOUT["joints"]
              and len(model.contacts) <= LAYOUT["contacts"]
              and len(model.limits) <= LAYOUT["limits"] and len(actuators) <= LAYOUT["actuators"]
+             and len(model.pairs) <= LAYOUT["pairs"]
              and model.n_rows <= LAYOUT["rows"], "too many bodies, joints, contacts, limits, "
-             "actuators or rows")
+             "actuators, pairs or rows")
     _require(all(b.parent < i for i, b in enumerate(model.bodies)), "parents must come first")
     _require(all(len(b.joints) == 1 for b in model.bodies
                  if any(j.kind == "free" for j in b.joints)),
@@ -128,7 +156,8 @@ def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy
 
     h = model.timestep
     ints = [n, model.n_q, nb, len(joints), len(model.contacts), len(model.limits),
-            len(actuators), len(model.pairs), len(model.self_pairs), frame_skip, outer, cg]
+            len(actuators), len(model.pairs), len(model.self_pairs), frame_skip, outer, cg,
+            build, *carry_bodies]
     j0 = 0
     for bi, b in enumerate(model.bodies):
         dofs = [d for c in model.chains[bi] for j in model.bodies[c].joints for d in joint_dofs(j)]
@@ -137,17 +166,19 @@ def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy
     for bi, j in joints:
         ints += [bi, _KINDS[j.kind], j.dof, j.qadr]
     for c in model.contacts:
-        ints += [c.body, int(c.axis_local is not None)]
+        ints += [c.body, int(c.axis_local is not None), c.condim]
     for lm in model.limits:
         ints += [lm.dof, qadr[lm.dof]]
     ints += [dof for dof, _ in actuators]
+    for p in model.pairs:
+        ints += [p.body1, p.body2]
 
     dbl = [model.gravity, model.floor_z, h, 0.5 * h, healthy, fwd_w * (1.0 / (h * frame_skip)),
-           ctrl_w]
+           ctrl_w, act_clip]
     dbl += [c * h for c, _ in RK4_STAGES] + [0.5 * (c * h) for c, _ in RK4_STAGES]
     dbl += [w for _, w in RK4_STAGES]
     for d in range(n):
-        dbl += [model.damping[d], model.armature[d]]
+        dbl += [model.damping[d], model.armature[d], h * model.damping[d]]
     for b in model.bodies:
         dbl += [*b.pos, *(v for row in quat_matrix(*b.quat) for v in row), *b.com, b.mass,
                 *b.inertia]
@@ -164,13 +195,18 @@ def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy
         dbl += [lm.lo, lm.hi, lm.margin, model.dof_invweight0[lm.dof]]
         dbl += impedance_consts(lm, model)
     dbl += [gear for _, gear in actuators]
+    for p in model.pairs:
+        dbl += [*p.a1, *p.b1, *p.center2, p.r1, p.r2, p.hh2, p.margin,
+                model.body_invweight0[p.body1] + model.body_invweight0[p.body2]]
+        dbl += impedance_consts(p, model)
     return (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(dbl))(*dbl)
 
 
 def _env_model(env):
     return kernel_model(env.MODEL, env.FRAME_SKIP, env.solver_outer, env.solver_cg,
                         tuple(env.ACTUATORS), float(env.HEALTHY), float(env.FWD_W),
-                        float(env.CTRL_W))
+                        float(env.CTRL_W), env.FAMILY, float(env.ACTION_CLIP),
+                        tuple(getattr(env, "CARRY_BODIES", (-1, -1, -1))))
 
 
 def _device_model(env, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -200,8 +236,8 @@ def spatial_rollout_costs_tak_reference(env, state0_x, controls_tak):
 
 
 def first_substep_active_rows(env, x):
-    """(joint-limit rows, contact rows) active at the state x: the rows the
-    first substep's QP solves for."""
+    """(joint-limit rows, floor-contact and pair rows) active at the state x:
+    the rows the first substep's QP solves for."""
     model = env.MODEL
     active = contact_rows(model, x[: model.n_q], x[model.n_q: model.n_q + model.n_dof])[3]
     n_lim = len(model.limits)
@@ -215,12 +251,13 @@ def _check_cuda(dev, dtype):
 
 def _launch_args(env, dtype, dev):
     model = env.MODEL
-    return (_device_model(env, dtype, dev).data_ptr(), model.n_dof, model.n_q, env.action_dim)
+    return (_device_model(env, dtype, dev).data_ptr(), model.n_dof, model.n_q,
+            KERNEL_DOFS[(model.n_dof, model.n_q)], env.action_dim)
 
 
 def spatial_rollout_costs_tak(env, state0_x, controls_tak):
     """(K,) trajectory costs of controls (T, na, K), already clamped, from
-    the state `state0_x` (n_q + n_dof + 1,)."""
+    the state `state0_x` (n_q + n_dof + carry,)."""
     global LAUNCHES
     dev = controls_tak.device
     if dev.type == "cpu":
@@ -253,8 +290,9 @@ def spatial_rollout_costs_tak(env, state0_x, controls_tak):
 
 
 def spatial_step_states(env, x, actions):
-    """One control step of the states x (..., n_q + n_dof + 1) under actions
-    (..., na) (clamped to [−1, 1] for the torque); returns the new states."""
+    """One control step of the states x (..., n_q + n_dof + carry) under
+    actions (..., na) (clamped to ±ACTION_CLIP for the torque); returns the
+    new states."""
     global STEP_LAUNCHES
     dev = x.device
     if dev.type == "cpu":

@@ -9,8 +9,10 @@ from mpopis_tpu_torch.models.car_racing import (
 from mpopis_tpu_torch.models.cheetah_device import CheetahDeviceEnv
 from mpopis_tpu_torch.models.hopper_device import HopperDeviceEnv
 from mpopis_tpu_torch.models.planar_contact import PlanarContactEnv, PlanarContactModel
+from mpopis_tpu_torch.models.pusher_device import PusherDeviceEnv
 from mpopis_tpu_torch.models.rollout import rollout_batch
 from mpopis_tpu_torch.models.spatial_contact import SpatialContactEnv, SpatialContactModel
+from mpopis_tpu_torch.models.swimmer_device import SwimmerDeviceEnv
 from mpopis_tpu_torch.models.track import Track, distance_query
 from mpopis_tpu_torch.models.walker2d_device import Walker2dDeviceEnv
 
@@ -28,8 +30,10 @@ __all__ = [
     "Walker2dDeviceEnv",
     "PlanarContactEnv",
     "PlanarContactModel",
+    "PusherDeviceEnv",
     "SpatialContactEnv",
     "SpatialContactModel",
+    "SwimmerDeviceEnv",
     "rollout_batch",
     "Track",
     "distance_query",

@@ -33,14 +33,15 @@ def make_state(x, t: int = 0, done: bool = False) -> EnvState:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Env:
     """Base environment. Subclasses define physics params as dataclass
-    fields and implement `reset`, `step`, `reward`.
+    fields and implement `reset`, `step`, `reward`. An environment lives on
+    the card unless the caller asks for the CPU (`device="cpu"`).
 
     Required class-level attributes on subclasses: state_dim, action_dim,
     action_low, action_high ((action_dim,) numpy arrays).
     """
 
     dtype: torch.dtype = torch.float32
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
 
     def reset(self) -> EnvState:
         raise NotImplementedError

@@ -548,74 +548,80 @@ def _qp_iterate(ar_apply, rhs, valid, lam0, outer: int, cg: int):
     return torch.where(torch.any(valid, dim=-1, keepdim=True), lam, 0.0)
 
 
-def qfrc_smooth(model: PlanarContactModel, q, qv, tau, bias=None):
-    """Actuation + passive (springs, explicit damping) − bias, (..., n)."""
+def qfrc_smooth(model: PlanarContactModel, q, qv, tau, bias=None, extra_force=None):
+    """Actuation + passive (springs, explicit damping) − bias, (..., n), plus
+    `extra_force(q, qv)` (..., n) where given: a state-dependent applied force
+    such as the Swimmer's fluid force, evaluated anew at every stage."""
     tab = _tab(model, q)
     b = bias_analytic(model, q, qv) if bias is None else bias
-    return tau - b - tab.damping * qv - tab.stiffness * q
+    out = tau - b - tab.damping * qv - tab.stiffness * q
+    return out if extra_force is None else out + extra_force(q, qv)
 
 
-def _forward(model, q, qv, tau, outer, cg, lam0):
+def _forward(model, q, qv, tau, outer, cg, lam0, extra_force=None):
     """One constrained forward pass: (M, L, smooth, qfrc_constraint, λ)."""
     fr = frames(model, q)
     jac = _com_jacobians(model, q, fr)
     m = mass_entries_analytic(model, q, fr, jac)
     l = chol_unrolled(m)
-    smooth = qfrc_smooth(model, q, qv, tau, bias_analytic(model, q, qv, fr, jac))
+    smooth = qfrc_smooth(model, q, qv, tau, bias_analytic(model, q, qv, fr, jac), extra_force)
     a_smooth = chol_solve(l, smooth)
     jmat, aref, r_reg, active = contact_rows(model, q, qv, fr)
     qfrc_c, lam = solve_qp(jmat, aref, r_reg, active, l, a_smooth, outer, cg, lam0)
     return m, l, smooth, qfrc_c, lam
 
 
-def qacc_warm(model, q, qv, tau, outer: int, cg: int, lam0=None):
+def qacc_warm(model, q, qv, tau, outer: int, cg: int, lam0=None, extra_force=None):
     """Full constrained forward dynamics (one mj_forward), warm-startable:
     (qacc (..., n), λ)."""
-    _, l, smooth, qfrc_c, lam = _forward(model, q, qv, tau, outer, cg, lam0)
+    _, l, smooth, qfrc_c, lam = _forward(model, q, qv, tau, outer, cg, lam0, extra_force)
     return chol_solve(l, smooth + qfrc_c), lam
 
 
-def euler_implicit_substep(model, q, qv, tau, outer: int, cg: int, lam0=None):
+def euler_implicit_substep(model, q, qv, tau, outer: int, cg: int, lam0=None, extra_force=None):
     """λ solved against the undamped M, then (M + h·D) Δv/h = smooth + qfrc_c."""
     h = model.timestep
-    m, _, smooth, qfrc_c, lam = _forward(model, q, qv, tau, outer, cg, lam0)
+    m, _, smooth, qfrc_c, lam = _forward(model, q, qv, tau, outer, cg, lam0, extra_force)
     ld = chol_unrolled(m + _tab(model, q).h_damping_diag)
     acc = chol_solve(ld, smooth + qfrc_c)
     qv2 = qv + h * acc
     return q + h * qv2, qv2, lam
 
 
-def rk4_substep(model, q, qv, tau, outer: int, cg: int, lam0=None):
+def rk4_substep(model, q, qv, tau, outer: int, cg: int, lam0=None, extra_force=None):
     """mj_RungeKutta: the constrained dynamics (contact QP included) at each
     of the 4 stages, λ warm starts chained through the stages."""
     h = model.timestep
-    k1v, lam = qacc_warm(model, q, qv, tau, outer, cg, lam0)
+    k1v, lam = qacc_warm(model, q, qv, tau, outer, cg, lam0, extra_force)
     k1q = qv
     q2, v2 = q + 0.5 * h * k1q, qv + 0.5 * h * k1v
-    k2v, lam = qacc_warm(model, q2, v2, tau, outer, cg, lam)
+    k2v, lam = qacc_warm(model, q2, v2, tau, outer, cg, lam, extra_force)
     k2q = v2
     q3, v3 = q + 0.5 * h * k2q, qv + 0.5 * h * k2v
-    k3v, lam = qacc_warm(model, q3, v3, tau, outer, cg, lam)
+    k3v, lam = qacc_warm(model, q3, v3, tau, outer, cg, lam, extra_force)
     k3q = v3
     q4, v4 = q + h * k3q, qv + h * k3v
-    k4v, lam = qacc_warm(model, q4, v4, tau, outer, cg, lam)
+    k4v, lam = qacc_warm(model, q4, v4, tau, outer, cg, lam, extra_force)
     k4q = v4
     qn = q + (h / 6.0) * (k1q + 2.0 * k2q + 2.0 * k3q + k4q)
     vn = qv + (h / 6.0) * (k1v + 2.0 * k2v + 2.0 * k3v + k4v)
     return qn, vn, lam
 
 
-def build_contact_stepper(model: PlanarContactModel):
+def build_contact_stepper(model: PlanarContactModel, extra_force=None):
     """(substep, mass_entries, bias, qfrc_smooth, qacc_constrained) for the
     model, as the JAX package's builder returns them; substep(q, qv, tau,
-    outer, cg, lam0=None) -> (q', qv', λ) with the model's integrator."""
+    outer, cg, lam0=None) -> (q', qv', λ) with the model's integrator.
+    `extra_force(q, qv)` (..., n), if given, joins the smooth force at every
+    stage."""
     integrate = euler_implicit_substep if model.integrator == "euler_implicit" else rk4_substep
     return (
-        functools.partial(integrate, model),
+        functools.partial(integrate, model, extra_force=extra_force),
         functools.partial(mass_entries_analytic, model),
         functools.partial(bias_analytic, model),
-        functools.partial(qfrc_smooth, model),
-        lambda q, qv, tau, outer, cg: qacc_warm(model, q, qv, tau, outer, cg)[0],
+        functools.partial(qfrc_smooth, model, extra_force=extra_force),
+        lambda q, qv, tau, outer, cg: qacc_warm(model, q, qv, tau, outer, cg,
+                                                extra_force=extra_force)[0],
     )
 
 
@@ -626,15 +632,13 @@ class ContactEnv(Env):
 
     Subclasses set MODEL, FRAME_SKIP, HEALTHY, CTRL_W, INIT_QPOS, KERNEL and
     the Env class attributes, and define `plain_step` and `_reward`. KERNEL
-    names the kernels' module `kernels/{KERNEL}_step.py` and its entries
-    `{KERNEL}_step_states` and `{KERNEL}_rollout_costs_tak`. `step` on a
-    CUDA state runs one control step in the step entry; on a CPU state it
-    runs `plain_step`, the plain PyTorch version. solver_outer/solver_cg are
-    the QP's fixed iteration counts (3, 6: control grade).
+    names the kernels' entries `{KERNEL}_step_states` and
+    `{KERNEL}_rollout_costs_tak`, in the module `kernels/{KERNEL_MODULE}.py`
+    (default `{KERNEL}_step`). `step` on a CUDA state runs one control step
+    in the step entry; on a CPU state it runs `plain_step`, the plain PyTorch
+    version. The tasks with a contact QP give it fixed iteration counts as
+    the fields solver_outer/solver_cg (3, 6: control grade).
     """
-
-    solver_outer: int = 3
-    solver_cg: int = 6
 
     MODEL = None
     FRAME_SKIP = 1
@@ -642,6 +646,7 @@ class ContactEnv(Env):
     CTRL_W = 0.0
     INIT_QPOS = ()
     KERNEL = ""
+    KERNEL_MODULE = ""
 
     @property
     def dt(self) -> float:
@@ -649,7 +654,8 @@ class ContactEnv(Env):
 
     def _kernel(self, entry: str):
         # imported at the call: the kernel modules import the models
-        module = importlib.import_module(f"mpopis_tpu_torch.kernels.{self.KERNEL}_step")
+        name = self.KERNEL_MODULE or f"{self.KERNEL}_step"
+        module = importlib.import_module(f"mpopis_tpu_torch.kernels.{name}")
         return getattr(module, f"{self.KERNEL}_{entry}")
 
     def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
@@ -686,6 +692,9 @@ class PlanarContactEnv(ContactEnv):
     ctrl_w·Σa² (pre-step x, hence `step_reward`). The kernels are
     `kernels/planar_step.py`'s.
     """
+
+    solver_outer: int = 3
+    solver_cg: int = 6
 
     OBS_CLIP = None
     KERNEL = "planar"

@@ -1,7 +1,7 @@
-"""Spatial (3D) MuJoCo dynamics with contacts (Ant): the model tables,
-quaternion forward kinematics, the analytic mass matrix and bias, the
-constraint rows, the box-QP contact solve and the RK4 substep over the
-quaternion manifold.
+"""Spatial (3D) MuJoCo dynamics with contacts (Ant, Pusher): the model
+tables, quaternion forward kinematics, the analytic mass matrix and bias,
+the constraint rows, the box-QP contact solve, and the RK4 substep over the
+quaternion manifold and the Euler-implicit substep.
 
 Counterpart of `mpopis_tpu/models/spatial_contact.py`, where every probed
 convention is documented (free-joint qvel = world linear velocity then the
@@ -10,8 +10,11 @@ are the root rotation's columns crossed with (p − root); α_root = 0 in the
 bias; floor contacts as sphere / capsule-end centres against the z = floor
 plane with the contact point at z = dist/2 and pyramidal condim-3 rows
 n ± μt1, n ± μt2, t1 the normalized xy-projection of the capsule axis or
-(0, 1, 0) for a sphere; mj_RungeKutta with stage positions integrated from
-q₀ and the stage-4 positions left in data.xpos). The tables are copies of
+(0, 1, 0) for a sphere, condim-1 contacts as one normal row with no pyramid
+factor in R; the capsule–cylinder pairs' witness point by bisection;
+mj_RungeKutta with stage positions integrated from q₀ and the stage-4
+positions left in data.xpos; Euler with the QP against the undamped M and
+the pre-integration positions left in data.xpos). The tables are copies of
 the JAX package's dataclasses (`utils/convert.py::spatial_model` rebuilds
 one from the other and the tests pin them field by field).
 
@@ -24,10 +27,9 @@ planar family's dense stacked-row solve (`planar_contact.solve_qp`). This
 is the plain version the CUDA kernel `csrc/spatial_rollout.cu` is held
 against.
 
-Not ported yet (the Pusher, Humanoid and HumanoidStandup slices): the
-Euler-implicit substep, the capsule–cylinder and capsule–capsule pair rows
-and `contact_force_ssq`. `SCPairCylinder` and `SCPairCapsule` are here as
-tables only; a model with pairs raises in `contact_rows`.
+Not ported yet (the Humanoid and HumanoidStandup slices): the
+capsule–capsule self pairs and `contact_force_ssq`. `SCPairCapsule` is here
+as a table only; a model with self pairs raises in `contact_rows`.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ class SCContact:
 @dataclasses.dataclass(frozen=True)
 class SCPairCylinder:
     """Capsule (body1) against an upright cylinder (body2): the Pusher's
-    arm–object pair. A table only in this slice."""
+    arm–object pair, one frictionless row (condim 1)."""
 
     body1: int
     a1: tuple[float, float, float]
@@ -263,7 +265,8 @@ def _tables(model: SpatialContactModel, dtype: torch.dtype, device: torch.device
         xx, xy, xz, yy, yz, zz = i6
         return ((xx, xy, xz), (xy, yy, yz), (xz, yz, zz))
 
-    lim, con = model.limits, model.contacts
+    lim, con, prs = model.limits, model.contacts, model.pairs
+    assert all(p.condim == 1 for p in prs)
     # rows per contact: 4 pyramid rows (condim 3) or 1 normal row (condim 1),
     # gathered from [the C×4 pyramid rows, the C normal rows] in model order
     order = []
@@ -311,6 +314,19 @@ def _tables(model: SpatialContactModel, dtype: torch.dtype, device: torch.device
         con_pyramid=t([c.condim == 3 for c in con], torch.bool),
         con_order=t(order, torch.long),
         con_imp=solimp_tensors(model, con, t),
+        h_damping_diag=torch.diag(t([model.timestep * d for d in model.damping])),
+        pair_b1=t([p.body1 for p in prs], torch.long),
+        pair_b2=t([p.body2 for p in prs], torch.long),
+        pair_a1=t([p.a1 for p in prs]).reshape(-1, 3),
+        pair_b1_end=t([p.b1 for p in prs]).reshape(-1, 3),
+        pair_center2=t([p.center2 for p in prs]).reshape(-1, 3),
+        pair_r1=t([p.r1 for p in prs]),
+        pair_r2=t([p.r2 for p in prs]),
+        pair_hh2=t([p.hh2 for p in prs]),
+        pair_margin=t([p.margin for p in prs]),
+        pair_bw=t([model.body_invweight0[p.body1] + model.body_invweight0[p.body2]
+                   for p in prs]),
+        pair_imp=solimp_tensors(model, prs, t),
     )
 
 
@@ -557,9 +573,9 @@ def contact_rows(model: SpatialContactModel, q: torch.Tensor, qv: torch.Tensor, 
     """Constraint rows in the dense stacked form: (J (..., R, n), aref (..., R),
     R (..., R), active (..., R) bool), rows ordered as in the JAX package:
     limits, then per contact n + μt1, n − μt1, n + μt2, n − μt2 (condim 3) or
-    the normal row (condim 1)."""
-    if model.pairs or model.self_pairs:
-        raise NotImplementedError("spatial contact pairs are not yet ported")
+    the normal row (condim 1), then one row per capsule–cylinder pair."""
+    if model.self_pairs:
+        raise NotImplementedError("spatial self-collision pairs are not yet ported")
     tab = _tab(model, q)
     fr = frames(model, q) if fr is None else fr
     js, arefs, regs, acts = [], [], [], []
@@ -623,8 +639,95 @@ def contact_rows(model: SpatialContactModel, q: torch.Tensor, qv: torch.Tensor, 
         regs.append(all_reg[..., tab.con_order])
         acts.append(all_act[..., tab.con_order])
 
+    if model.pairs:
+        dist, nvec, cp = capsule_cylinder(model, fr)
+        # J = n · (v₂(cp) − v₁(cp)) over both bodies' dof columns (a dof on
+        # both chains cancels)
+        jv1, _ = point_jacobians(model, fr, tab.pair_b1, cp)  # (..., P, n, 3)
+        jv2, _ = point_jacobians(model, fr, tab.pair_b2, cp)
+        nv = nvec.unsqueeze(-2)
+        j = -_dot3(jv1, nv) + _dot3(jv2, nv)
+        pimp = tab.pair_imp
+        pos_m = dist - tab.pair_margin
+        imp = _impedance_rows(pos_m, pimp)
+        js.append(j)
+        arefs.append(-pimp["bc"] * _seqdot(j, qv.unsqueeze(-2)) - pimp["kc"] * imp * pos_m)
+        regs.append((1.0 - imp) / imp * tab.pair_bw)
+        acts.append(dist < tab.pair_margin)
+
     return (torch.cat(js, dim=-2), torch.cat(arefs, dim=-1), torch.cat(regs, dim=-1),
             torch.cat(acts, dim=-1))
+
+
+def capsule_cylinder(model: SpatialContactModel, fr: Frames, halvings: int = 40):
+    """Capsule (body1) against upright solid cylinder (body2), per pair:
+    (dist (..., P), normal body1 → body2 (..., P, 3), contact point
+    (..., P, 3)). The capsule-axis witness point minimizes the distance to the
+    solid cylinder, a convex function along the segment: `halvings`
+    bisections on the sign of its derivative; then the side, cap or rim
+    region of the point against the cylinder gives the distance and normal.
+    Valid while the segment stays outside the solid cylinder."""
+    tab = _tab(model, fr.axis)
+    org = torch.stack(fr.origin, dim=-2)
+    rot = torch.stack(fr.rot, dim=-3)
+    o1, r1m = org[..., tab.pair_b1, :], rot[..., tab.pair_b1, :, :]
+    a = o1 + _rvec(r1m, tab.pair_a1)
+    b = o1 + _rvec(r1m, tab.pair_b1_end)
+    c = org[..., tab.pair_b2, :] + _rvec(rot[..., tab.pair_b2, :, :], tab.pair_center2)
+    hh, r2 = tab.pair_hh2, tab.pair_r2
+    d1 = b - a
+
+    def region(px, py, pz):
+        """(er, ez, inside, erp, ezp, d_out, dr, zsign, use_radial) of a point
+        relative to the cylinder's centre."""
+        dr = torch.sqrt(torch.clamp(px * px + py * py, min=1e-24))
+        er = dr - r2
+        ez = torch.abs(pz) - hh
+        inside = (er < 0.0) & (ez < 0.0)
+        erp = torch.clamp(er, min=0.0)
+        ezp = torch.clamp(ez, min=0.0)
+        d_out = torch.sqrt(torch.clamp(erp * erp + ezp * ezp, min=1e-24))
+        zsign = torch.where(pz >= 0.0, 1.0, -1.0).to(pz.dtype)
+        return er, ez, inside, erp, ezp, d_out, dr, zsign, er > ez
+
+    def unit(px, py, pz):
+        """The outward unit direction at the witness point (inside the solid,
+        the max(er, ez) subgradient)."""
+        _er, _ez, inside, erp, ezp, d_out, dr, zsign, use_radial = region(px, py, pz)
+        ux = torch.where(inside, torch.where(use_radial, px / dr, 0.0), erp * px / (dr * d_out))
+        uy = torch.where(inside, torch.where(use_radial, py / dr, 0.0), erp * py / (dr * d_out))
+        uz = torch.where(inside, torch.where(use_radial, 0.0, zsign), ezp * zsign / d_out)
+        return ux, uy, uz
+
+    def dderiv(s_):
+        ux, uy, uz = unit(a[..., 0] + s_ * d1[..., 0] - c[..., 0],
+                          a[..., 1] + s_ * d1[..., 1] - c[..., 1],
+                          a[..., 2] + s_ * d1[..., 2] - c[..., 2])
+        return ux * d1[..., 0] + uy * d1[..., 1] + uz * d1[..., 2]
+
+    lo = torch.zeros_like(a[..., 0])
+    hi = torch.ones_like(a[..., 0])
+    for _ in range(halvings):
+        mid = 0.5 * (lo + hi)
+        going_down = dderiv(mid) < 0.0
+        lo = torch.where(going_down, mid, lo)
+        hi = torch.where(going_down, hi, mid)
+    s1 = 0.5 * (lo + hi)
+    p1 = a + s1.unsqueeze(-1) * d1  # the witness point on the capsule axis
+    dx, dy, dzs = p1[..., 0] - c[..., 0], p1[..., 1] - c[..., 1], p1[..., 2] - c[..., 2]
+    er, ez, inside, erp, ezp, d_out, dr, zsign, use_radial = region(dx, dy, dzs)
+    d_pt = torch.where(inside, torch.maximum(er, ez), d_out)
+    # the normal from the cylinder surface toward p1: radial on the side wall,
+    # vertical on the caps, mixed on the rim
+    rad_x, rad_y = dx / dr, dy / dr
+    nx = torch.where(inside, torch.where(use_radial, rad_x, 0.0), erp * rad_x / d_out)
+    ny = torch.where(inside, torch.where(use_radial, rad_y, 0.0), erp * rad_y / d_out)
+    nz = torch.where(inside, torch.where(use_radial, 0.0, zsign), ezp * zsign / d_out)
+    dist = d_pt - tab.pair_r1
+    # MuJoCo's frame: the normal points geom1 (capsule) → geom2 (cylinder)
+    nvec = torch.stack([-nx, -ny, -nz], dim=-1)
+    cp = p1 + nvec * (tab.pair_r1 + 0.5 * dist).unsqueeze(-1)
+    return dist, nvec, cp
 
 
 def qfrc_smooth(model: SpatialContactModel, q, qv, tau, bias=None):
@@ -637,9 +740,8 @@ def qfrc_smooth(model: SpatialContactModel, q, qv, tau, bias=None):
     return s
 
 
-def qacc_warm(model: SpatialContactModel, q, qv, tau, outer: int, cg: int, lam0=None):
-    """Full constrained forward dynamics (one mj_forward), warm-startable:
-    (qacc (..., n), λ)."""
+def _forward(model: SpatialContactModel, q, qv, tau, outer: int, cg: int, lam0):
+    """One constrained forward pass: (M, L, smooth, qfrc_constraint, λ)."""
     fr = frames(model, q)
     jac = _com_jacobians(model, fr)
     m = mass_entries_analytic(model, q, fr, jac)
@@ -648,6 +750,13 @@ def qacc_warm(model: SpatialContactModel, q, qv, tau, outer: int, cg: int, lam0=
     a_smooth = chol_solve(l, smooth)
     jmat, aref, r_reg, active = contact_rows(model, q, qv, fr)
     qfrc_c, lam = solve_qp(jmat, aref, r_reg, active, l, a_smooth, outer, cg, lam0)
+    return m, l, smooth, qfrc_c, lam
+
+
+def qacc_warm(model: SpatialContactModel, q, qv, tau, outer: int, cg: int, lam0=None):
+    """Full constrained forward dynamics (one mj_forward), warm-startable:
+    (qacc (..., n), λ)."""
+    _, l, smooth, qfrc_c, lam = _forward(model, q, qv, tau, outer, cg, lam0)
     return chol_solve(l, smooth + qfrc_c), lam
 
 
@@ -705,21 +814,46 @@ def rk4_substep(model: SpatialContactModel, q, qv, tau, outer: int, cg: int, lam
     return integrate_pos(model, q, accq, h), qv + h * accv, lam, q_s
 
 
+def euler_implicit_substep(model: SpatialContactModel, q, qv, tau, outer: int, cg: int,
+                           lam0=None):
+    """mj_Euler with implicit joint damping, one physics timestep: λ solved
+    against the undamped M, then (M + h·D) Δv/h = smooth + qfrc_c and the
+    positions integrated by the new velocity. Returns (q', q̇', λ, q): Euler
+    runs no forward pass after integrating, so data.xpos holds the
+    kinematics of the pre-integration (normalized) q."""
+    h = model.timestep
+    q = normalize_quat(model, q)
+    m, _, smooth, qfrc_c, lam = _forward(model, q, qv, tau, outer, cg, lam0)
+    ld = chol_unrolled(m + _tab(model, q).h_damping_diag)
+    qv2 = qv + h * chol_solve(ld, smooth + qfrc_c)
+    return integrate_pos(model, q, qv2, h), qv2, lam, q
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class SpatialContactEnv(ContactEnv):
-    """A gymnasium v4 spatial-locomotion task with these dynamics.
+    """A gymnasium v4 task with these dynamics.
 
     Subclasses set MODEL, FRAME_SKIP, ACTUATORS ((dof, gear) per action, XML
-    order), HEALTHY, FWD_W, CTRL_W, INIT_QPOS and the Env class attributes.
-    State x = [qpos(n_q), qvel(n), track] where `track` is the root's x in
-    the last RK stage's positions of the last control step (the JAX
-    package's `q0` track); reward_t = healthy + fwd_w·(track' − track)/dt −
-    ctrl_w·Σa², with the action as given (the torque reads it clipped). The
+    order), ACTION_CLIP (the torque reads the action clipped to ±it),
+    HEALTHY, FWD_W, CTRL_W, INIT_QPOS and the Env class attributes. State
+    x = [qpos(n_q), qvel(n), carry] where `carry` is what the reward family
+    reads of the kinematics mj_step leaves in data.xpos: the last RK stage's
+    positions for RK4, the last substep's pre-integration positions for
+    Euler. The `locomotion` family (this class) carries the root's x there
+    (the JAX package's `q0` track) and rewards healthy + fwd_w·(track' −
+    track)/dt − ctrl_w·Σa², with the action as given; a task of another
+    family overrides FAMILY, N_CARRY, `_carry`, `_reward` and `reset`. The
     kernels are `kernels/spatial_step.py`'s.
     """
 
+    solver_outer: int = 3
+    solver_cg: int = 6
+
     ACTUATORS = ()
+    ACTION_CLIP = 1.0
     FWD_W = 1.0
+    FAMILY = "locomotion"
+    N_CARRY = 1
     KERNEL = "spatial"
 
     def reset(self) -> EnvState:
@@ -733,23 +867,27 @@ class SpatialContactEnv(ContactEnv):
         tau[..., dofs] = gear * a
         return tau
 
+    def _carry(self, q_snap: torch.Tensor) -> torch.Tensor:
+        """The family's snapshot (..., N_CARRY) of the positions mj_step
+        leaves in data.xpos: here the root's x."""
+        return q_snap[..., :1]
+
     def plain_step(self, state: EnvState, action: torch.Tensor) -> EnvState:
-        """One control step: FRAME_SKIP RK4 substeps, λ warm starts chained
-        across them and reset at the control-step boundary."""
+        """One control step: FRAME_SKIP substeps of the model's integrator, λ
+        warm starts chained across them and reset at the control-step
+        boundary, then the carry of the last substep's snapshot."""
         model = self.MODEL
-        if model.integrator != "rk4":
-            raise NotImplementedError(f"{model.integrator} substeps are not yet ported")
+        substep = euler_implicit_substep if model.integrator == "euler_implicit" else rk4_substep
         nq, n = model.n_q, model.n_dof
         x = state.x
-        tau = self._tau(torch.clamp(action, -1.0, 1.0))
+        tau = self._tau(torch.clamp(action, -self.ACTION_CLIP, self.ACTION_CLIP))
         q, qv = x[..., :nq], x[..., nq:nq + n]
         lam = x.new_zeros(x.shape[:-1] + (model.n_rows,))
-        q4 = q
+        q_snap = q
         for _ in range(self.FRAME_SKIP):
-            q, qv, lam, q4 = rk4_substep(model, q, qv, tau, self.solver_outer, self.solver_cg,
-                                         lam)
-        return EnvState(x=torch.cat([q, qv, q4[..., :1]], dim=-1).to(self.dtype), t=state.t + 1,
-                        done=state.done)
+            q, qv, lam, q_snap = substep(model, q, qv, tau, self.solver_outer, self.solver_cg, lam)
+        return EnvState(x=torch.cat([q, qv, self._carry(q_snap)], dim=-1).to(self.dtype),
+                        t=state.t + 1, done=state.done)
 
     def _reward(self, x0, x1, action):
         k = self.MODEL.n_q + self.MODEL.n_dof

@@ -1,13 +1,15 @@
 // Host build of the spatial kernel's device code (mpopis_tpu_torch/csrc/
-// spatial_dynamics.cuh) for tests/test_torch_spatial_kernel.py: runs the
-// kernel's per-sample loop on the CPU, so that its arithmetic is held against
-// the plain PyTorch version where there is no card.
+// spatial_dynamics.cuh) for tests/test_torch_spatial_kernel.py (Ant's build)
+// and tests/test_torch_pusher_kernel.py (the Pusher's): runs the kernel's
+// per-sample function on the CPU, so that its arithmetic is held against the
+// plain PyTorch version where there is no card.
 //
 // Input file: int f64, n_int, n_double; the packed ints and doubles; int mode
 // (0 rollout, 1 step), K, T, na; the states as doubles (one state for a
 // rollout, K for a step) and the actions as doubles ((T, na, K) for a rollout,
-// (K, na) for a step). Output: one line per sample, its cost (rollout) or its
-// new state (step).
+// (K, na) for a step). The build follows the packed (n_dof, n_q) and feature
+// mask, as the kernel's launch does. Output: one line per sample, its cost
+// (rollout) or its new state (step).
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
@@ -24,6 +26,8 @@ inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 
 using namespace spatial;
 
+constexpr int kPusherFeatures = kEuler | kSlideJoints | kCondim1 | kCylinder | kPusher;
+
 template <typename V>
 static std::vector<V> read(FILE* f, int n) {
   std::vector<V> v(n);
@@ -31,42 +35,46 @@ static std::vector<V> read(FILE* f, int n) {
   return v;
 }
 
-template <typename T>
-static int run(FILE* f, int n_int, int n_double) {
-  constexpr int N = 14, NQ = 15, NX = NQ + N + 1;
-  const std::vector<int> ip = read<int>(f, n_int);
-  const std::vector<double> dp = read<double>(f, n_double);
+template <typename T, int N, int NQ, int F>
+static int run(FILE* f, const std::vector<int>& ip, const std::vector<double>& dp) {
+  constexpr int NX = NQ + N + Carry<F>::n;
   const std::vector<int> hdr = read<int>(f, 4);
   const int mode = hdr[0], num_k = hdr[1], horizon = hdr[2], na = hdr[3];
   static Model<T> m;
-  if (!make_model<T>(ip.data(), n_int, dp.data(), n_double, &m)) return 2;
+  if (!make_model<T>(ip.data(), static_cast<int>(ip.size()), dp.data(),
+                     static_cast<int>(dp.size()), &m) || m.features != F)
+    return 2;
   const std::vector<double> x0 = read<double>(f, mode == 0 ? NX : NX * num_k);
   const std::vector<double> ctrl = read<double>(f, (mode == 0 ? horizon : 1) * na * num_k);
+  std::vector<T> xs(x0.begin(), x0.end()), cs(ctrl.begin(), ctrl.end());
+  std::vector<T> costs(num_k), out(static_cast<size_t>(NX) * num_k);
   static Rows<T, N> rows;
+  T lam_full[kMaxRows];
   for (int k = 0; k < num_k; ++k) {
-    T lam_full[kMaxRows], a[kMaxAct], q[NQ], qv[N];
-    const double* xk = x0.data() + (mode == 0 ? 0 : k * NX);
-    for (int i = 0; i < NQ; ++i) q[i] = T(xk[i]);
-    for (int d = 0; d < N; ++d) qv[d] = T(xk[NQ + d]);
-    T track = T(xk[NQ + N]), cost = T(0);
-    for (int t = 0; t < horizon; ++t) {
-      for (int i = 0; i < na; ++i)
-        a[i] = T(mode == 0 ? ctrl[(t * na + i) * num_k + k] : ctrl[k * na + i]);
-      const T snap = control_step<T, N, NQ>(m, q, qv, a, lam_full, rows);
-      T rew = m.healthy + (snap - track) * m.fwd_inv_dt;
-      for (int i = 0; i < na; ++i) rew = rew - m.ctrl_w * (a[i] * a[i]);
-      cost = cost - rew;
-      track = snap;
-    }
-    if (mode == 0) {
-      printf("%.17g\n", static_cast<double>(cost));
-    } else {
-      for (int i = 0; i < NQ; ++i) printf("%.17g ", static_cast<double>(q[i]));
-      for (int d = 0; d < N; ++d) printf("%.17g ", static_cast<double>(qv[d]));
-      printf("%.17g\n", static_cast<double>(track));
+    if (mode == 0) {  // the rollout entry's strides: controls (T, na, K)
+      run_sample<T, N, NQ, F>(m, k, xs.data(), 0, cs.data(), static_cast<long long>(na) * num_k,
+                              num_k, 1, horizon, costs.data(), static_cast<T*>(nullptr), lam_full,
+                              rows);
+      printf("%.17g\n", static_cast<double>(costs[k]));
+    } else {  // the step entry's: states (K, NX), actions (K, na)
+      run_sample<T, N, NQ, F>(m, k, xs.data(), NX, cs.data(), 0, 1, na, 1,
+                              static_cast<T*>(nullptr), out.data(), lam_full, rows);
+      for (int i = 0; i < NX; ++i) printf("%.17g ", static_cast<double>(out[k * NX + i]));
+      printf("\n");
     }
   }
   return 0;
+}
+
+template <typename T>
+static int dispatch(FILE* f, int n_int, int n_double) {
+  const std::vector<int> ip = read<int>(f, n_int);
+  const std::vector<double> dp = read<double>(f, n_double);
+  if (n_int < kIntHeader) return 2;
+  if (ip[0] == 14 && ip[1] == 15 && ip[12] == 0) return run<T, 14, 15, 0>(f, ip, dp);
+  if (ip[0] == 11 && ip[1] == 11 && ip[12] == kPusherFeatures)
+    return run<T, 11, 11, kPusherFeatures>(f, ip, dp);
+  return 2;
 }
 
 int main(int argc, char** argv) {
@@ -74,5 +82,5 @@ int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   if (!f) return 1;
   const std::vector<int> h = read<int>(f, 3);
-  return h[0] ? run<double>(f, h[1], h[2]) : run<float>(f, h[1], h[2]);
+  return h[0] ? dispatch<double>(f, h[1], h[2]) : dispatch<float>(f, h[1], h[2]);
 }

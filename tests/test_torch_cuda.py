@@ -1,6 +1,6 @@
-"""The CUDA kernels (car rollout, planar- and spatial-contact rollouts and
-control steps, the AIS-update refits and CMA tail, Cholesky and forward
-solve) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (car rollout, planar-contact, Swimmer and spatial-contact
+rollouts and control steps, the AIS-update refits and CMA tail, Cholesky and
+forward solve) against their plain PyTorch versions, on the card.
 
 Marked `cuda`; without a card every test skips. This file imports neither
 jax nor the JAX package, so it runs on a machine without jax:
@@ -18,8 +18,11 @@ from mpopis_tpu_torch.models import (
     CarRacingEnv,
     CheetahDeviceEnv,
     HopperDeviceEnv,
+    PusherDeviceEnv,
+    SwimmerDeviceEnv,
     Walker2dDeviceEnv,
     make_state,
+    pusher_device,
 )
 from mpopis_tpu_torch.policies import PolicyConfig, make_policy
 from mpopis_tpu_torch.policies.strategies import CMAStrategy
@@ -243,6 +246,142 @@ def test_spatial_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="actions"):
         spatial_step.spatial_step_states(env, x0[None], torch.zeros((1, 8), device=cuda_device,
                                                                      dtype=torch.float64))
+    assert (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES) == before
+
+
+# -- the Swimmer's kernel ---------------------------------------------------------
+LIM = float(np.deg2rad(100.0))
+SWIMMER_STARTS = {"reset": [0.0] * 10,  # and both motor joints past their ±100° limits
+                  "limits": [0.1, -0.2, 0.3, 1.03 * LIM, -1.04 * LIM, 0.5, -0.4, 1.0, 2.0, -1.5]}
+
+
+@pytest.mark.parametrize("start", sorted(SWIMMER_STARTS))
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 2e-4, 2e-3),  # the JAX kernel tests' float32 tolerance
+    (torch.float64, 1e-9, 0.0),  # the algebra agrees (2 limit rows, no contact switch)
+])
+def test_swimmer_kernel_matches_plain_version(cuda_device, start, dtype, rtol, atol):
+    env = SwimmerDeviceEnv(dtype=dtype, device=cuda_device)
+    x0 = torch.tensor(SWIMMER_STARTS[start], dtype=dtype, device=cuda_device)
+    ctrl = torch.as_tensor(np.random.default_rng(64).uniform(-1, 1, (5, 2, 64)), dtype=dtype,
+                           device=cuda_device)
+    before = planar_step.SWIMMER_LAUNCHES
+    got = env.fused_rollout_costs_tak(make_state(x0), ctrl)
+    assert planar_step.SWIMMER_LAUNCHES == before + 1
+    want = planar_step.swimmer_rollout_costs_tak_reference(env, x0, ctrl)
+    assert planar_step.SWIMMER_LAUNCHES == before + 1
+    assert bool(torch.all(torch.isfinite(got)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9), (torch.float32, 2e-4)])
+def test_swimmer_step_kernel_matches_plain_step(cuda_device, dtype, bound):
+    """Per state, max |kernel − plain| ≤ bound × max |plain|."""
+    env = SwimmerDeviceEnv(dtype=dtype, device=cuda_device)
+    rng = np.random.default_rng(3)
+    x0 = torch.tensor(SWIMMER_STARTS["limits"], dtype=dtype, device=cuda_device)
+    xs = x0 + torch.as_tensor(rng.uniform(-0.05, 0.05, (32, 10)), dtype=dtype, device=cuda_device)
+    acts = torch.as_tensor(rng.uniform(-1.2, 1.2, (32, 2)), dtype=dtype, device=cuda_device)
+    before = planar_step.SWIMMER_STEP_LAUNCHES
+    got = env.step(make_state(xs), acts)
+    assert planar_step.SWIMMER_STEP_LAUNCHES == before + 1 and got.t == 1
+    want = env.plain_step(make_state(xs), acts).x
+    err = (got.x - want).abs().amax(-1) / want.abs().amax(-1)
+    assert float(err.max()) <= bound
+
+
+def test_swimmer_wrappers_reject_bad_inputs(cuda_device):
+    env = SwimmerDeviceEnv(device=cuda_device)
+    x0 = env.reset().x
+    ctrl = torch.zeros((4, 2, 8), device=cuda_device)
+    before = (planar_step.SWIMMER_LAUNCHES, planar_step.SWIMMER_STEP_LAUNCHES,
+              planar_step.LAUNCHES, planar_step.STEP_LAUNCHES)
+    with pytest.raises(ValueError, match="controls shape"):
+        planar_step.swimmer_rollout_costs_tak(env, x0, torch.zeros((4, 3, 8), device=cuda_device))
+    with pytest.raises(ValueError, match="state0_x"):
+        planar_step.swimmer_rollout_costs_tak(env, x0[:9].contiguous(), ctrl)
+    with pytest.raises(ValueError, match="states"):
+        planar_step.swimmer_step_states(env, x0[None], torch.zeros((1, 3), device=cuda_device))
+    with pytest.raises(ValueError, match="does not run on the planar kernel"):
+        planar_step.planar_rollout_costs_tak(env, x0, ctrl)
+    cheetah = CheetahDeviceEnv(device=cuda_device)
+    with pytest.raises(ValueError, match="does not run on the swimmer kernel"):
+        planar_step.swimmer_rollout_costs_tak(cheetah, cheetah.reset().x,
+                                              torch.zeros((4, 6, 8), device=cuda_device))
+    assert (planar_step.SWIMMER_LAUNCHES, planar_step.SWIMMER_STEP_LAUNCHES,
+            planar_step.LAUNCHES, planar_step.STEP_LAUNCHES) == before
+
+
+# -- the spatial-contact kernel's Pusher build ------------------------------------
+PUSHER_STARTS = {"reset": None, "side": (-0.275, 0.069), "floor": (-0.307, 0.068)}
+
+
+def _pusher(dtype, device, start):
+    env = PusherDeviceEnv(dtype=dtype, device=device)
+    if PUSHER_STARTS[start] is None:
+        return env, env.reset().x
+    qv = np.random.default_rng(4).uniform(-0.3, 0.3, 11)
+    return env, pusher_device.touching_state(*PUSHER_STARTS[start], qv).to(device, dtype)
+
+
+@pytest.mark.parametrize("start", sorted(PUSHER_STARTS))
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 2e-4, 2e-3),  # the JAX kernel tests' float32 tolerance
+    (torch.float64, 1e-9, 0.0),
+])
+def test_pusher_kernel_matches_plain_version(cuda_device, start, dtype, rtol, atol):
+    env, x0 = _pusher(dtype, cuda_device, start)
+    ctrl = torch.as_tensor(np.random.default_rng(64).uniform(-2, 2, (3, 7, 64)), dtype=dtype,
+                           device=cuda_device)
+    before = spatial_step.LAUNCHES
+    got = env.fused_rollout_costs_tak(make_state(x0), ctrl)
+    assert spatial_step.LAUNCHES == before + 1
+    want = spatial_step.spatial_rollout_costs_tak_reference(env, x0, ctrl)
+    assert bool(torch.all(torch.isfinite(got)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9), (torch.float32, 2e-4)])
+def test_pusher_step_kernel_matches_plain_step(cuda_device, dtype, bound):
+    """Per state, max |kernel − plain| ≤ bound × max |plain|, the xpos carry
+    included."""
+    env, x0 = _pusher(dtype, cuda_device, "side")
+    rng = np.random.default_rng(3)
+    dx = np.concatenate([rng.uniform(-0.01, 0.01, (32, 22)), np.zeros((32, 9))], axis=1)
+    xs = x0 + torch.as_tensor(dx, dtype=dtype, device=cuda_device)
+    acts = torch.as_tensor(rng.uniform(-2.4, 2.4, (32, 7)), dtype=dtype, device=cuda_device)
+    before = spatial_step.STEP_LAUNCHES
+    got = env.step(make_state(xs), acts)
+    assert spatial_step.STEP_LAUNCHES == before + 1 and got.t == 1
+    want = env.plain_step(make_state(xs), acts).x
+    err = (got.x - want).abs().amax(-1) / want.abs().amax(-1)
+    assert float(err.max()) <= bound
+
+
+def test_spatial_wrappers_refuse_what_no_build_takes(cuda_device):
+    """Self pairs and joint springs: refused before any launch."""
+    import dataclasses
+
+    from mpopis_tpu_torch.models import spatial_contact as sc
+
+    class SpringyPusher(PusherDeviceEnv):
+        MODEL = dataclasses.replace(PusherDeviceEnv.MODEL, stiffness=(1.0,) + (0.0,) * 10)
+
+    pair = sc.SCPairCapsule(8, (0.0,) * 3, (0.1, 0.0, 0.0), 0.02, 4, (0.0,) * 3,
+                            (0.1, 0.0, 0.0), 0.02, 0.0, (0.9, 0.95, 0.001))
+
+    class SelfPairAnt(AntDeviceEnv):
+        MODEL = dataclasses.replace(AntDeviceEnv.MODEL, self_pairs=(pair,))
+
+    before = (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES)
+    for cls, match in ((SpringyPusher, "springs"), (SelfPairAnt, "self-collision")):
+        env = cls(device=cuda_device)
+        x0 = torch.zeros(env.state_dim, device=cuda_device)
+        ctrl = torch.zeros((2, env.action_dim, 8), device=cuda_device)
+        with pytest.raises(ValueError, match=match):
+            spatial_step.spatial_rollout_costs_tak(env, x0, ctrl)
+        with pytest.raises(ValueError, match=match):
+            spatial_step.spatial_step_states(env, x0[None], ctrl[0, :, :1].T.contiguous())
     assert (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES) == before
 
 

@@ -26,6 +26,12 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpopis_tpu") and sys.modules[m])
+from mpopis_tpu_torch.kernels import planar_step, spatial_step
+entries = ("swimmer_rollout_costs_tak", "swimmer_rollout_costs_tak_reference",
+           "swimmer_step_states", "planar_rollout_costs_tak", "planar_step_states")
+assert all(callable(getattr(planar_step, e)) for e in entries)
+assert all(callable(getattr(spatial_step, e)) for e in ("spatial_rollout_costs_tak",
+                                                        "spatial_step_states", "model_features"))
 print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
@@ -36,11 +42,13 @@ _PLANAR_MODULES = (
     "mpopis_tpu_torch.models.cheetah_device",
     "mpopis_tpu_torch.models.hopper_device",
     "mpopis_tpu_torch.models.walker2d_device",
+    "mpopis_tpu_torch.models.swimmer_device",
     "mpopis_tpu_torch.kernels.planar_step",
 )
 _SPATIAL_MODULES = (
     "mpopis_tpu_torch.models.spatial_contact",
     "mpopis_tpu_torch.models.ant_device",
+    "mpopis_tpu_torch.models.pusher_device",
     "mpopis_tpu_torch.kernels.spatial_step",
 )
 _AIS_MODULES = (

@@ -37,7 +37,7 @@ def test_plain_version_matches_jax_kernel_f32(k, t):
     want = jcr.car_rollout_costs_tak(
         jenv, jenv.reset().x, jnp.asarray(ctrl), t, interpret=True
     )
-    env = CarRacingEnv(dtype=torch.float32)
+    env = CarRacingEnv(dtype=torch.float32, device="cpu")
     got = car_rollout.car_rollout_costs_tak_reference(
         env, env.reset().x, torch.as_tensor(ctrl), t
     )
@@ -52,7 +52,7 @@ def test_plain_version_three_cars_matches_jax_kernel_f32():
     jenv = JMultiCarRacingEnv(num_cars=3, dtype=jnp.float32)
     x0 = jenv.reset().x
     want = jcr.car_rollout_costs_tak(jenv, x0, jnp.asarray(ctrl), 6, interpret=True)
-    env = _ThreeCars(dtype=torch.float32)
+    env = _ThreeCars(dtype=torch.float32, device="cpu")
     got = car_rollout.car_rollout_costs_tak_reference(
         env, torch.as_tensor(np.array(x0)), torch.as_tensor(ctrl), 6
     )
@@ -63,7 +63,7 @@ def test_plain_version_matches_jax_rollout_f64():
     ctrl = _controls(3, 64, 12, dtype=np.float64)
     jenv = JCarRacingEnv(dtype=jnp.float64)
     want, _ = jrollout_batch(jenv, jenv.reset(), jnp.asarray(ctrl.transpose(2, 0, 1)))
-    env = CarRacingEnv(dtype=torch.float64)
+    env = CarRacingEnv(dtype=torch.float64, device="cpu")
     got = car_rollout.car_rollout_costs_tak_reference(
         env, env.reset().x, torch.as_tensor(ctrl), 12
     )
@@ -78,7 +78,7 @@ def test_plain_version_matches_jax_rollout_f64():
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
     before = car_rollout.LAUNCHES
-    env = CarRacingEnv(dtype=torch.float64)
+    env = CarRacingEnv(dtype=torch.float64, device="cpu")
     ctrl = torch.as_tensor(_controls(4, 33, 4, dtype=np.float64))
     got = car_rollout.car_rollout_costs_tak(env, env.reset().x, ctrl, 4)
     want = car_rollout.car_rollout_costs_tak_reference(env, env.reset().x, ctrl, 4)
@@ -89,7 +89,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
 
 
 def test_kernel_params_follow_the_struct_order():
-    env = CarRacingEnv()
+    env = CarRacingEnv(device="cpu")
     vals = list(car_rollout._kernel_params(env))
     p = env.params
     assert len(vals) == 27

@@ -14,7 +14,19 @@ import torch
 from mpopis_tpu.models import car_racing as jcar
 from mpopis_tpu.models import track as jtrack
 
-from mpopis_tpu_torch.models import CarRacingEnv, car_reward, distance_query, step_car_state
+from mpopis_tpu_torch.models import (
+    AntDeviceEnv,
+    CarRacingEnv,
+    CheetahDeviceEnv,
+    Env,
+    HopperDeviceEnv,
+    PusherDeviceEnv,
+    SwimmerDeviceEnv,
+    Walker2dDeviceEnv,
+    car_reward,
+    distance_query,
+    step_car_state,
+)
 from mpopis_tpu_torch.models.track import Track
 from mpopis_tpu_torch.utils import convert
 
@@ -82,14 +94,14 @@ def test_car_reward_matches_vmap():
     jp = jcar.CarParams()
     pts_j, w_j = jtrack.Track.load("curve").query_arrays(jnp.float64)
     want = jax.vmap(lambda si: jcar.car_reward(jp, pts_j, w_j, si))(jnp.asarray(s))
-    env = CarRacingEnv(dtype=F64)
+    env = CarRacingEnv(dtype=F64, device="cpu")
     got = car_reward(_params(), env.pts, env.widths, torch.as_tensor(s))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=1e-12)
 
 
 def test_env_reset_step_reward_match_jax():
     jenv = jcar.CarRacingEnv(dtype=jnp.float64)
-    env = CarRacingEnv(dtype=F64)
+    env = CarRacingEnv(dtype=F64, device="cpu")
     js, s = jenv.reset(), env.reset()
     np.testing.assert_array_equal(s.x.numpy(), np.asarray(js.x))
     act = np.array([0.3, 0.7])
@@ -113,3 +125,16 @@ def test_convert_state_and_policy_state():
     assert torch.equal(draw, torch.randn(4, generator=again.generator, dtype=F64))
     u0, sigma = convert.u0_and_sigma(np.zeros(4), np.eye(4), dtype=F64)
     assert u0.shape == (4,) and torch.equal(sigma, torch.eye(4, dtype=F64))
+
+
+def test_envs_live_on_the_card_unless_asked_for_the_cpu():
+    """Every env class, and so `make_policy` on it, runs on the card by
+    default. The MuJoCo envs allocate nothing when built; the car env places
+    its track on its device when built, so its field default is read."""
+    for cls in (AntDeviceEnv, CheetahDeviceEnv, HopperDeviceEnv, Walker2dDeviceEnv,
+                SwimmerDeviceEnv, PusherDeviceEnv):
+        assert cls().device == "cuda", cls.__name__
+        assert cls(device="cpu").device == "cpu"
+    for cls in (Env, CarRacingEnv):
+        (field,) = [f for f in dataclasses.fields(cls) if f.name == "device"]
+        assert field.default == "cuda", cls.__name__

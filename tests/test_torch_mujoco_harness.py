@@ -49,7 +49,7 @@ def test_cemppi_step_on_cheetah_matches_jax():
     side), the env step between them."""
     kw = dict(kind="cemppi", num_samples=K, horizon=H, lam=0.1, opt_its=ITS, sigma_est="mle")
     jenv = JCheetahDeviceEnv(dtype=jnp.float64)
-    env = CheetahDeviceEnv(dtype=torch.float64)
+    env = CheetahDeviceEnv(dtype=torch.float64, device="cpu")
     jpol = jmake_policy(jenv, JPolicyConfig(**kw), cov_mat=COV)
     pol = make_policy(env, PolicyConfig(**kw), cov_mat=COV)
     rng = np.random.default_rng(13)
@@ -116,7 +116,8 @@ def test_action_csv_replays_to_the_trial_reward_in_jax(trial):
 @pytest.mark.parametrize("task,kw,exc,match", [
     ("Cheetah-v9", {}, ValueError, "no on-device dynamics"),
     ("Reacher-v4", {"solver_iters": (3, 6)}, ValueError, "no contact solver"),
-    ("Swimmer-v4", {}, NotImplementedError, "not yet ported"),
+    ("Reacher-v4", {}, NotImplementedError, "not yet ported"),
+    ("Swimmer-v4", {"solver_iters": (3, 6)}, ValueError, "no contact solver"),
     ("HalfCheetah-v4", {"save_gif": True}, NotImplementedError, "not yet ported"),
     ("HalfCheetah-v4", {"plot_traj": True}, NotImplementedError, "not yet ported"),
 ])

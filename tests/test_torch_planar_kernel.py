@@ -43,7 +43,7 @@ def _one_torch_thread():
 def _start(name, seed):
     """(x0, controls (K, T, na)): joints ±0.2 and velocities ±0.5 from a numpy
     seed, the root lowered so that contacts and joint limits are active."""
-    env = ENVS[name](dtype=torch.float64)
+    env = ENVS[name](dtype=torch.float64, device="cpu")
     n = env.MODEL.n_dof
     rng = np.random.default_rng(seed)
     q = np.asarray(env.INIT_QPOS) + rng.uniform(-0.2, 0.2, n)
@@ -70,7 +70,7 @@ def test_control_steps_match_jax(jax_rollout):
     """`step_reward` over 3 control steps from a contact state: rtol 1e-10,
     with an absolute floor of 1e-10 × the largest state entry."""
     name, x0, controls, _, states = jax_rollout
-    env = ENVS[name](dtype=torch.float64)
+    env = ENVS[name](dtype=torch.float64, device="cpu")
     n = env.MODEL.n_dof
     assert bool(planar_step.first_substep_active_rows(env, torch.as_tensor(x0))[1] > 0)
     s = make_state(torch.as_tensor(x0).expand(K, -1))
@@ -90,7 +90,7 @@ def test_control_steps_match_jax(jax_rollout):
 
 def test_plain_rollout_costs_match_jax(jax_rollout):
     name, x0, controls, costs, _ = jax_rollout
-    env = ENVS[name](dtype=torch.float64)
+    env = ENVS[name](dtype=torch.float64, device="cpu")
     got = planar_step.planar_rollout_costs_tak_reference(
         env, torch.as_tensor(x0), torch.as_tensor(controls.transpose(1, 2, 0)))
     assert got.shape == (K,) and got.dtype == torch.float64
@@ -99,7 +99,7 @@ def test_plain_rollout_costs_match_jax(jax_rollout):
 
 @pytest.mark.parametrize("name", sorted(ENVS))
 def test_wrappers_on_cpu_run_the_plain_versions_without_launching(name):
-    env = ENVS[name](dtype=torch.float64)
+    env = ENVS[name](dtype=torch.float64, device="cpu")
     x0 = env.reset().x
     # beyond ±1, so that both paths clamp the torques
     ctrl_tak = torch.as_tensor(np.random.default_rng(5).uniform(-1.2, 1.2, (T, env.action_dim, K)))
@@ -157,7 +157,7 @@ def test_kernel_model_rejects_what_the_kernel_cannot_take():
 
 
 def test_first_substep_active_rows_counts_limits_and_contacts():
-    env = CheetahDeviceEnv(dtype=torch.float64)
+    env = CheetahDeviceEnv(dtype=torch.float64, device="cpu")
     x = env.reset().x.clone()
     assert planar_step.first_substep_active_rows(env, x) == (0, 0)
     x[1] = -0.35

@@ -117,7 +117,7 @@ def test_model_tables_match_jax_field_by_field(name):
     assert mod.MODEL.n_rows == jm.n_rows and mod.MODEL.chains == jm.chains
     for dmax in {lm.solimp[1] for lm in jm.limits} | {c.solimp[1] for c in jm.contacts}:
         assert mod.MODEL.kb(dmax) == jm.kb(dmax)
-    env = env_cls()
+    env = env_cls(device="cpu")
     assert env.FRAME_SKIP == jmod._FRAME_SKIP
     jenv = getattr(jmod, env_cls.__name__)(dtype=jnp.float64)
     assert env.dt == jenv.dt

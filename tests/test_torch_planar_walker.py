@@ -57,7 +57,7 @@ def walker_rollout():
 
 def test_walker_control_steps_match_jax(walker_rollout):
     x0, controls, _, states = walker_rollout
-    env = Walker2dDeviceEnv(dtype=torch.float64)
+    env = Walker2dDeviceEnv(dtype=torch.float64, device="cpu")
     s = make_state(torch.as_tensor(x0).expand(controls.shape[0], -1))
     for t in range(controls.shape[1]):
         s, r = env.step_reward(s, torch.as_tensor(controls[:, t]))
@@ -72,7 +72,7 @@ def test_walker_control_steps_match_jax(walker_rollout):
 
 def test_walker_rollout_costs_match_jax(walker_rollout):
     x0, controls, costs, _ = walker_rollout
-    env = Walker2dDeviceEnv(dtype=torch.float64)
+    env = Walker2dDeviceEnv(dtype=torch.float64, device="cpu")
     got = planar_rollout_costs_tak_reference(
         env, torch.as_tensor(x0), torch.as_tensor(controls.transpose(1, 2, 0)))
     np.testing.assert_allclose(got.numpy(), costs, rtol=1e-10)

@@ -24,7 +24,7 @@ def _pair(sigma_est, elite_stop_tol, kind="cemppi", alpha=1.0):
     kw = dict(kind=kind, num_samples=K, horizon=H, lam=10.0, opt_its=ITS,
               sigma_est=sigma_est, elite_stop_tol=elite_stop_tol, alpha=alpha)
     jenv = JCarRacingEnv(dtype=jnp.float64)
-    env = CarRacingEnv(dtype=torch.float64)
+    env = CarRacingEnv(dtype=torch.float64, device="cpu")
     jpol = jmake_policy(jenv, JPolicyConfig(**kw), cov_mat=COV)
     pol = make_policy(env, PolicyConfig(**kw), cov_mat=COV)
     return jenv, jpol, env, pol
@@ -80,7 +80,7 @@ def test_control_cost_term_matches_jax():
 
 
 def test_logging_policy_returns_trajectories_of_the_same_step():
-    env = CarRacingEnv(dtype=torch.float64)
+    env = CarRacingEnv(dtype=torch.float64, device="cpu")
     z = torch.as_tensor(np.random.default_rng(2).standard_normal((ITS, 2 * H, K)))
     out = {}
     for log in (False, True):
@@ -105,7 +105,7 @@ def test_generator_drives_sampling_reproducibly():
 
 @pytest.mark.parametrize("kind", POLICY_KINDS)
 def test_every_kind_builds_and_steps_on_the_cpu(kind):
-    env = CarRacingEnv(dtype=torch.float32)
+    env = CarRacingEnv(dtype=torch.float32, device="cpu")
     pol = make_policy(env, PolicyConfig(kind=kind, num_samples=8, horizon=4, opt_its=2),
                       cov_mat=COV)
     a, ps, info = pol.step(env.reset(), pol.init_state(3))

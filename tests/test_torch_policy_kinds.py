@@ -45,7 +45,7 @@ def _run(kind, its, alpha, n_steps=2, **cfg_kw):
     kw = dict(kind=kind, num_samples=K, horizon=H, lam=10.0, opt_its=its, alpha=alpha,
               sigma_est="ss", **cfg_kw)
     jenv = JCarRacingEnv(dtype=jnp.float64)
-    env = CarRacingEnv(dtype=torch.float64)
+    env = CarRacingEnv(dtype=torch.float64, device="cpu")
     jpol = jmake_policy(jenv, JPolicyConfig(**kw), cov_mat=COV)
     pol = make_policy(env, PolicyConfig(**kw), cov_mat=COV)
     rng = np.random.default_rng(5)

@@ -25,6 +25,7 @@ from mpopis_tpu.models.rollout import rollout_batch as jrollout_batch
 from mpopis_tpu_torch.kernels import spatial_step
 from mpopis_tpu_torch.kernels.build import CSRC_DIR
 from mpopis_tpu_torch.models import AntDeviceEnv
+from mpopis_tpu_torch.models import spatial_contact as sc
 from mpopis_tpu_torch.models.base import make_state
 
 K, T = 4, 3
@@ -42,7 +43,7 @@ def _one_torch_thread():
 
 
 def _start(name, dtype=torch.float64):
-    env = AntDeviceEnv(dtype=dtype)
+    env = AntDeviceEnv(dtype=dtype, device="cpu")
     x = env.reset().x.clone()
     x[2] = STARTS[name]
     return env, x
@@ -90,29 +91,35 @@ def test_wrappers_on_cpu_run_the_plain_versions_without_launching():
 def test_kernel_model_packing_follows_the_layout():
     """The flat int and double arrays hold what `make_model` in
     csrc/spatial_dynamics.cuh reads, in its order and counts."""
-    env = AntDeviceEnv()
+    env = AntDeviceEnv(device="cpu")
     model = env.MODEL
     ints, dbl = spatial_step._env_model(env)
     ints, dbl = list(ints), list(dbl)
     nb, nj, nc, nl, na = 13, 9, 25, 8, 8
-    assert ints[:12] == [14, 15, nb, nj, nc, nl, na, 0, 0, 5, 3, 6]
-    assert len(ints) == 12 + 4 * nb + 4 * nj + 2 * nc + 2 * nl + na
-    assert len(dbl) == 19 + 2 * 14 + 22 * nb + 24 * nj + 16 * nc + 9 * nl + na
+    # the header ends with Ant's build's feature mask (none) and no carry bodies
+    assert ints[:16] == [14, 15, nb, nj, nc, nl, na, 0, 0, 5, 3, 6, 0, -1, -1, -1]
+    assert len(ints) == 16 + 4 * nb + 4 * nj + 3 * nc + 2 * nl + na
+    assert len(dbl) == 20 + 3 * 14 + 22 * nb + 24 * nj + 16 * nc + 9 * nl + na
     h = model.timestep
-    assert dbl[:7] == [9.81, 0.0, h, 0.5 * h, 1.0, 1.0 / (h * 5), 0.5]
-    assert dbl[7:19] == [0.0, 0.5 * h, 0.5 * h, h, 0.0, 0.25 * h, 0.25 * h, 0.5 * h,
+    assert dbl[:8] == [9.81, 0.0, h, 0.5 * h, 1.0, 1.0 / (h * 5), 0.5, 1.0]
+    assert dbl[8:20] == [0.0, 0.5 * h, 0.5 * h, h, 0.0, 0.25 * h, 0.25 * h, 0.5 * h,
                          1 / 6, 1 / 3, 1 / 3, 1 / 6]
-    body = ints[12: 12 + 4 * nb]
+    assert dbl[20 + 3 * 6: 20 + 3 * 7] == [1.0, 1.0, h * 1.0]  # dof 6: damping, armature, h·d
+    body = ints[16: 16 + 4 * nb]
     assert body[:4] == [-1, 0, 1, 0b111111]  # the torso: its free joint's 6 dofs
     # aux_1 (body 2) hangs on front_left_leg (no joint); its hinge, joint 1, is dof 6
     assert body[8:12] == [1, 1, 1, 0b1111111]
-    joints = ints[12 + 4 * nb: 12 + 4 * nb + 4 * nj]
+    joints = ints[16 + 4 * nb: 16 + 4 * nb + 4 * nj]
     assert joints[:4] == [0, 0, 0, 0] and joints[4:8] == [2, 1, 6, 7]
+    contacts = ints[16 + 4 * nb + 4 * nj: 16 + 4 * nb + 4 * nj + 3 * nc]
+    assert contacts[:6] == [0, 0, 3, 1, 1, 3]  # body, has_axis, condim
     assert ints[-na:] == [dof for dof, _ in env.ACTUATORS]
     assert dbl[-na:] == [gear for _, gear in env.ACTUATORS]
 
 
 def test_kernel_model_rejects_what_the_kernel_cannot_take():
+    """Ant's build takes none of the Pusher's branches; no build takes joint
+    springs, self pairs or another reward family."""
     model = AntDeviceEnv.MODEL
     args = (5, 3, 6, AntDeviceEnv.ACTUATORS, 1.0, 1.0, 0.5)
     with pytest.raises(ValueError, match="euler_implicit"):
@@ -132,6 +139,14 @@ def test_kernel_model_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="springs"):
         stiffness = (0.0,) * 6 + (1.0,) + model.stiffness[7:]
         spatial_step.kernel_model(dataclasses.replace(model, stiffness=stiffness), *args)
+    with pytest.raises(ValueError, match="self-collision"):
+        pair = sc.SCPairCapsule(1, (0.0,) * 3, (0.1, 0.0, 0.0), 0.08, 4, (0.0,) * 3,
+                                (0.1, 0.0, 0.0), 0.08, 0.0, (0.9, 0.95, 0.001))
+        spatial_step.kernel_model(dataclasses.replace(model, self_pairs=(pair,)), *args)
+    with pytest.raises(ValueError, match="pusher reward family"):
+        spatial_step.kernel_model(model, *args, family="pusher")
+    with pytest.raises(ValueError, match="standup"):
+        spatial_step.kernel_model(model, *args, family="standup")
 
 
 def test_first_substep_active_rows_counts_limits_and_contacts():

@@ -97,12 +97,12 @@ def test_ant_tables_match_jax_field_by_field():
     assert model.dof_joints == tuple((bi, sc.SJoint(**dataclasses.asdict(j)))
                                      for bi, j in jm.dof_joints)
     assert model.kb(0.95) == jm.kb(0.95)
-    env, jenv = AntDeviceEnv(), JAntDeviceEnv(dtype=jnp.float64)
+    env, jenv = AntDeviceEnv(device="cpu"), JAntDeviceEnv(dtype=jnp.float64)
     assert (env.FRAME_SKIP, env.dt) == (jant._FRAME_SKIP, jenv.dt)
     assert env.ACTUATORS == jant._ACTUATORS
     assert (env.state_dim, env.action_dim) == (jenv.state_dim, jenv.action_dim) == (30, 8)
-    np.testing.assert_array_equal(AntDeviceEnv(dtype=torch.float64).reset().x.numpy(),
-                                  np.asarray(jenv.reset().x))
+    env64 = AntDeviceEnv(dtype=torch.float64, device="cpu")
+    np.testing.assert_array_equal(env64.reset().x.numpy(), np.asarray(jenv.reset().x))
     assert (env.solver_outer, env.solver_cg) == (jenv.solver_outer, jenv.solver_cg) == (3, 6)
 
 
@@ -176,7 +176,7 @@ def test_rk4_substep_matches_jax(jax_substep, i):
 
 
 def test_observation_and_reward_match_jax():
-    env, jenv = AntDeviceEnv(dtype=torch.float64), JAntDeviceEnv(dtype=jnp.float64)
+    env, jenv = AntDeviceEnv(dtype=torch.float64, device="cpu"), JAntDeviceEnv(dtype=jnp.float64)
     x = np.concatenate([STATES[1][1], STATES[1][2], [0.3]])
     s, js = env.reset().replace(x=torch.as_tensor(x)), jenv.reset().replace(x=jnp.asarray(x))
     np.testing.assert_array_equal(env.observation(s).numpy(), np.asarray(jenv.observation(js)))

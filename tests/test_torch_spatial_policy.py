@@ -36,7 +36,7 @@ def _close(got, want, rtol=1e-9):
 def test_cemppi_step_on_ant_matches_jax():
     kw = dict(kind="cemppi", num_samples=K, horizon=H, lam=1.0, opt_its=ITS, sigma_est="mle")
     jenv = JAntDeviceEnv(dtype=jnp.float64)
-    env = AntDeviceEnv(dtype=torch.float64)
+    env = AntDeviceEnv(dtype=torch.float64, device="cpu")
     jpol = jmake_policy(jenv, JPolicyConfig(**kw), cov_mat=COV)
     pol = make_policy(env, PolicyConfig(**kw), cov_mat=COV)
     rng = np.random.default_rng(17)

@@ -61,7 +61,7 @@ def test_control_step_and_reward_match_jax(jax_step_reward, i):
     x = np.stack([np.concatenate([q, qv, [q[0]]]) for _, q, qv in STATES])
     acts = np.random.default_rng(9).uniform(-1.2, 1.2, (len(STATES), 8))
     want_x, want_r = jax_step_reward(x, acts)
-    env = AntDeviceEnv(dtype=torch.float64)
+    env = AntDeviceEnv(dtype=torch.float64, device="cpu")
     s, r = env.step_reward(make_state(torch.as_tensor(x[i])), torch.as_tensor(acts[i]))
     np.testing.assert_allclose(s.x.numpy(), want_x[i], rtol=1e-9,
                                atol=1e-9 * np.abs(want_x[i]).max())
