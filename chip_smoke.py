@@ -2,10 +2,12 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every path: the proof
+    python3 chip_smoke.py --only humanoid,standup   # some paths, to iterate
 
 It builds the kernels of `mpopis_tpu_torch/csrc/` with nvcc (one process
-per library, all at once) and drives the port's three paths:
+per library, all at once) and drives the port's paths (`--only` names
+them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
 
 - phases 1-5, the car: the car rollout kernel against its plain PyTorch
   version, a car race with CEMPPI at K=8192, H=50, 10 AIS iterations,
@@ -49,7 +51,18 @@ per library, all at once) and drives the port's three paths:
   and from the fingertips against the object and the table (the condim-1
   and pair rows counted), `simulate_mujoco_on_device("Pusher-v4")` at the
   JAX bench's configuration (K=1024, H=10, 2 AIS iterations) for 100
-  steps, its shaped reward at the end against the reset's, and the timings.
+  steps, its shaped reward at the end against the reset's, and the timings;
+- phases 29-32, the Humanoid, and 33-36, the Standup: the spatial kernel's
+  Humanoid and Standup builds (23 dofs, 242 rows with 109 capsule–capsule
+  self pairs, joint springs; the com-x track or the `standup` family)
+  checked the same way at K=1024, T=8 from the reset and from a crouch
+  (floor and self-pair rows counted), `simulate_mujoco_on_device` at the
+  JAX bench's configurations (K=1024, H=8, 2 AIS iterations, λ=1.0 / 0.3)
+  for 50 steps, the torso's height against a zero-action run, and the
+  timings.
+
+The f64 comparisons of Ant and the Pusher at the main path's K run the
+first 3 of its T steps; each plain version is timed once.
 
 Every kernel's launch count is set to 0 just before each path and read
 just after. Every phase raises on failure; there is no CPU path. The
@@ -78,6 +91,9 @@ SEED = 1
 RACE_STEPS = 1000
 # the planar-contact path: the JAX package's end-to-end contact configuration
 PK, PH, PITS, PLAM = 2048, 15, 3, 0.1
+# the f64 comparisons at K=2048 run the first 5 of the 15 steps (the f32 ones
+# all 15), to keep chip_smoke inside its time
+PH64 = 5
 # Hopper and Walker2d run 20 steps and the other kinds' races 30: enough to
 # show each on its kernels, and short enough to leave the time limit to the
 # later paths
@@ -116,6 +132,13 @@ SWIMMER_LIMITS = (0.1, -0.2, 0.3, 1.03 * _LIM, -1.04 * _LIM, 0.5, -0.4, 1.0, 2.0
 UK, UH, UITS, ULAM = 1024, 10, 2, 0.1
 PUSHER_STEPS = 100
 PUSHER_TOUCH = (-0.307, 0.068)
+# the Humanoid and the Standup: the JAX bench's entries (bench.py:358-359):
+# CEMPPI, K=1024, H=8, 2 AIS iterations, `mle`, Σ=0.25·I₁₇, contact solver
+# (3, 6), λ=1.0 (Humanoid) and 0.3 (Standup); 50 reported steps each
+HK, HH, HITS = 1024, 8, 2
+HUMANOID_STEPS = 50
+# the paths `--only` selects, in the order of a full run
+PATHS = ("car", "planar", "ais", "ant", "swimmer", "pusher", "humanoid", "standup")
 # the H100's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -226,20 +249,24 @@ def _qp_tally(module, env):
     `module.solve_qp`: per sample with at least one valid row, outer × (cg + 6
     arc trials + 2) applications of J M⁻¹ Jᵀ over its valid rows, 2·R·n + n²
     each; a sample with none skips its QP. Yields [multiply-adds, valid rows
-    after the joint limits' (the contact and pair rows), valid pair rows (the
-    model's last), all valid rows, summed over calls and samples]."""
+    after the joint limits' (the contact and pair rows), valid cylinder-pair
+    rows, all valid rows, valid self-pair rows (the model's last), summed
+    over calls and samples]."""
     orig, outer, cg, n = module.solve_qp, env.solver_outer, env.solver_cg, env.MODEL.n_dof
+    n_self = len(getattr(env.MODEL, "self_pairs", ()))
     first_row = len(env.MODEL.limits)
-    first_pair = env.MODEL.n_rows - len(env.MODEL.pairs)
-    tally = [0.0, 0, 0, 0]
+    first_self = env.MODEL.n_rows - n_self
+    first_pair = first_self - len(env.MODEL.pairs)
+    tally = [0.0, 0, 0, 0, 0]
 
     def counting(jmat, aref, r_reg, active, *args, **kwargs):
         rows = active.sum(-1).double()
         tally[0] += float(torch.where(rows > 0, outer * (cg + 8) * (2.0 * rows * n + n * n),
                                       0.0).sum())
         tally[1] += int(active[..., first_row:].sum())
-        tally[2] += int(active[..., first_pair:].sum())
+        tally[2] += int(active[..., first_pair:first_self].sum())
         tally[3] += int(active.sum())
+        tally[4] += int(active[..., first_self:].sum())
         return orig(jmat, aref, r_reg, active, *args, **kwargs)
 
     module.solve_qp = counting
@@ -356,20 +383,24 @@ def _planar_path(card: str) -> list:
               f"2e-3); against the plain f64: kernel {float((k32 - p64).abs().max()):.3e}, "
               f"plain f32 {float((p32 - p64).abs().max()):.3e}")
 
-        # f64, K=2048 T=15: median relative error ≤ 1e-9, with the plain
-        # version's own spread under controls·(1 + 1e-15) beside it
+        # f64, K=2048 over the first PH64 of the T=15 steps: median relative
+        # error ≤ 1e-9, beside the plain version's own spread under
+        # controls·(1 + 1e-15) where the median is beyond it (the nudge rule)
         ctrl64 = _uniform(PK, PH, na, 2048, torch.float64)
         for start in ("reset", "lowered"):
             env64, x64 = env_x(task, torch.float64, drop=start == "lowered")
-            want = ref(env64, x64, ctrl64)
-            rel = _rel_err(kern(env64, x64, ctrl64), want)
-            rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want)
-            med, med_pert = float(np.median(rel)), float(np.median(rel_pert))
-            print(f"phase 7: {task} f64 K={PK} T={PH} from {start}: rel err max {rel.max():.3e} "
-                  f"median {med:.3e}, {int(np.sum(rel > 1e-9))} of {PK} beyond 1e-9; "
-                  f"plain vs plain at controls·(1+1e-15): "
-                  f"max {rel_pert.max():.3e} median {med_pert:.3e}, "
-                  f"{int(np.sum(rel_pert > 1e-9))} beyond")
+            c64 = ctrl64[:PH64].contiguous()
+            want = ref(env64, x64, c64)
+            rel = _rel_err(kern(env64, x64, c64), want)
+            med, med_pert, spread = float(np.median(rel)), 0.0, "the plain version's own not needed"
+            if med > 1e-9:
+                rel_pert = _rel_err(ref(env64, x64, c64 * (1 + NUDGE[torch.float64])), want)
+                med_pert = float(np.median(rel_pert))
+                spread = (f"plain vs plain at controls·(1+1e-15): max {rel_pert.max():.3e} "
+                          f"median {med_pert:.3e}, {int(np.sum(rel_pert > 1e-9))} beyond")
+            print(f"phase 7: {task} f64 K={PK} T={PH64} from {start}: rel err max "
+                  f"{rel.max():.3e} median {med:.3e}, {int(np.sum(rel > 1e-9))} of {PK} beyond "
+                  f"1e-9; {spread}")
             _hold(f"{task} f64 from {start}: kernel median relative error", med, med_pert, 1e-9)
 
         # f32, K=2048 T=15, from reset: median relative error < 2e-4
@@ -473,7 +504,7 @@ def _planar_path(card: str) -> list:
         if task == "HalfCheetah-v4":
             _require(rps > 0, "the cheetah did not run forward")
 
-    # -- phase 10: timings by CUDA events, plain-kernel-kernel-plain ------------
+    # -- phase 10: timings by CUDA events ------------------------------------------
     t_phase = time.perf_counter()
     times = {}
     for task in envs:
@@ -481,24 +512,13 @@ def _planar_path(card: str) -> list:
         ctrl = _uniform(PK, PH, envs[task].action_dim, 10, torch.float32)
         xs = x[None].contiguous()
         act = torch.zeros((1, envs[task].action_dim), device="cuda")
-        runs = {
-            "rollout": (lambda: kern(env, x, ctrl), lambda: ref(env, x, ctrl), 20, 1),
-            "step": (lambda: planar_step.planar_step_states(env, xs, act),
-                     lambda: env.plain_step(make_state(xs), act), 50, 5),
-        }
-        for name, (run_k, run_p, reps_k, reps_p) in runs.items():
-            run_k()
-            run_p()
-            torch.cuda.synchronize()
-            p_a = _time_ms(run_p, reps_p)
-            k_a = _time_ms(run_k, reps_k)
-            k_b = _time_ms(run_k, reps_k)
-            p_b = _time_ms(run_p, reps_p)
-            times[(task, name)] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
-            shape = f"K={PK} T={PH}" if name == "rollout" else "one state"
-            print(f"phase 10: {task} {name} f32 {shape}: kernel {k_a:.4f} / {k_b:.4f} ms, "
-                  f"plain {p_a:.3f} / {p_b:.3f} ms (CUDA events, plain-kernel-kernel-plain; "
-                  f"{card})")
+        times[(task, "rollout")] = _timed(
+            f"phase 10: {task} rollout", f"K={PK} T={PH}", lambda: kern(env, x, ctrl), 20,
+            lambda: ref(env, x, ctrl), card)
+        times[(task, "step")] = _timed(
+            f"phase 10: {task} step", "one state",
+            lambda: planar_step.planar_step_states(env, xs, act), 50,
+            lambda: env.plain_step(make_state(xs), act), card, reps_p=5)
     k_ms, p_ms = times[("HalfCheetah-v4", "rollout")]
 
     # HalfCheetah's control step split in the main path's configuration:
@@ -973,7 +993,7 @@ def _spatial_path(card: str) -> list:
     for start in ANT_Z:
         # f32, K=64 T=3: the JAX kernel tests' rtol 2e-4 / atol 2e-3
         env, x = env_x(torch.float32, start)
-        n_lim, n_con = spatial_step.first_substep_active_rows(env, x)
+        n_lim, n_con, _ = spatial_step.first_substep_active_rows(env, x)
         ctrl = _uniform(64, 3, na, 64, torch.float32)
         got, want = kern(env, x, ctrl), ref(env, x, ctrl)
         err = float(torch.max(torch.abs(got - want)))
@@ -1080,59 +1100,30 @@ def _spatial_path(card: str) -> list:
     _require(np.isfinite(rew), "Ant: non-finite reward")
 
     # -- phase 20: the kernel against its plain version at the main path's K
-    # and T, then timings by CUDA events, plain-kernel-kernel-plain ------------
+    # (f32 at the main path's T, f64 over its first 3 steps), then timings by
+    # CUDA events ----------------------------------------------------------------
     t_phase = time.perf_counter()
-    env, x = env_x(torch.float32, "grounded")
-    ctrl = _uniform(AK, AH, na, 20, torch.float32)
-    # the plain run also tallies the QP's work (for the bound) and the contact
-    # rows active over the compared rollouts
-    with _qp_tally(spatial_contact, env) as tally:
-        want = ref(env, x, ctrl)
-    got = kern(env, x, ctrl)
-    rel32 = _rel_err(got, want)
-    max_abs = float((got - want).abs().max())
-    n_over = int((~torch.isclose(got, want, rtol=2e-4, atol=2e-3)).sum())
-    print(f"phase 20: Ant f32 K={AK} T={AH} from the grounded start: rel err max "
-          f"{rel32.max():.3e} median {np.median(rel32):.3e}, {n_over} of {AK} beyond rtol 2e-4 / "
-          f"atol 2e-3, max|err| {max_abs:.3e}; {tally[1]} contact rows active over the plain "
-          f"rollouts' QP calls")
-    _require(bool(torch.all(torch.isfinite(got))), "Ant: non-finite f32 kernel costs")
-    _require(float(np.median(rel32)) < 2e-4, "Ant: f32 median relative error >= 2e-4")
+    ctrl64 = _uniform(AK, AH, na, 20, torch.float64)
+    # the f32 plain run also tallies the QP's work (for the bound) and the
+    # contact rows active over the compared rollouts
+    res = _kernel_vs_plain("phase 20: Ant", kern, ref, env_x, ("grounded",), ctrl64, 2e-3,
+                           spatial_contact, t64=3)["grounded"]
+    tally = res["tally"]
+    print(f"phase 20: {tally[1]} contact rows active over the plain f32 rollouts' QP calls")
     _require(tally[1] > 0, "Ant: no contact row active in the compared rollouts")
+    env, x = env_x(torch.float32, "grounded")
+    ctrl = ctrl64.float()
     roll_bound = _bound(_contact_ops(env, AH * AK * env.FRAME_SKIP * 4, 1, 2, tally[0]),
                         4.0 * (AH * na * AK + AK + env.state_dim))
-    env64, x64 = env_x(torch.float64, "grounded")
-    ctrl64 = ctrl.double()
-    want64 = ref(env64, x64, ctrl64)
-    rel = _rel_err(kern(env64, x64, ctrl64), want64)
-    rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want64)
-    med, med_pert = float(np.median(rel)), float(np.median(rel_pert))
-    print(f"phase 20: Ant f64 K={AK} T={AH} from the grounded start: rel err max {rel.max():.3e} "
-          f"median {med:.3e}, {int(np.sum(rel > 1e-9))} of {AK} beyond 1e-9; plain vs plain at "
-          f"controls·(1+1e-15): max {rel_pert.max():.3e} median {med_pert:.3e}, "
-          f"{int(np.sum(rel_pert > 1e-9))} beyond")
-    _hold("Ant f64 K=1024 T=10: kernel median relative error", med, med_pert, 1e-9)
-
     xs, act = x[None].contiguous(), torch.zeros((1, na), device="cuda")
-    runs = {
-        "rollout": (lambda: kern(env, x, ctrl), lambda: ref(env, x, ctrl), 5, 1,
-                    f"K={AK} T={AH} from the grounded start"),
-        "step": (lambda: spatial_step.spatial_step_states(env, xs, act),
-                 lambda: env.plain_step(make_state(xs), act), 20, 1, "one grounded state"),
+    times = {
+        "rollout": _timed("phase 20: Ant rollout", f"K={AK} T={AH} from the grounded start",
+                          lambda: kern(env, x, ctrl), 5, res["plain_ms"], card),
+        "step": _timed("phase 20: Ant step", "one grounded state",
+                       lambda: spatial_step.spatial_step_states(env, xs, act), 20,
+                       lambda: env.plain_step(make_state(xs), act), card),
     }
-    times = {}
-    for name, (run_k, run_p, reps_k, reps_p, shape) in runs.items():
-        if name == "step":  # the rollout's two versions ran just above
-            run_k()
-            run_p()
-        torch.cuda.synchronize()
-        p_a = _time_ms(run_p, reps_p)
-        k_a = _time_ms(run_k, reps_k)
-        k_b = _time_ms(run_k, reps_k)
-        p_b = _time_ms(run_p, reps_p)
-        times[name] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
-        print(f"phase 20: Ant {name} f32 {shape}: kernel {k_a:.4f} / {k_b:.4f} ms, plain "
-              f"{p_a:.3f} / {p_b:.3f} ms (CUDA events, plain-kernel-kernel-plain; {card})")
+    max_abs, median32 = res["max_abs_err"], res["median_rel_err_f32"]
 
     # the control step split in the main path's configuration: host clock
     # around synchronised calls, 20 steps after 3 of warm-up
@@ -1181,7 +1172,7 @@ def _spatial_path(card: str) -> list:
         "bound_ms": roll_bound[0],
         "bound_by": roll_bound[1],
         "library_ms": None,
-        "median_rel_err_f32": float(np.median(rel32)),
+        "median_rel_err_f32": median32,
     }, {
         "name": "spatial_step_states",
         "route": "cuda",
@@ -1197,17 +1188,21 @@ def _spatial_path(card: str) -> list:
     }]
 
 
-def _kernel_vs_plain(label, kern, ref, make, starts, ctrl64, atol32, tally_module=None):
+def _kernel_vs_plain(label, kern, ref, make, starts, ctrl64, atol32, tally_module=None,
+                     t64=None):
     """The rollout kernel against its plain version at the main path's K and
     T from each start: f64 by the median relative error (1e-9), beside the
     plain version's own spread under controls·(1 + 1e-15) where the median
     is beyond 1e-9 (the nudge rule; that plain run is skipped otherwise),
     f32 within rtol 2e-4 / atol `atol32` or else by its median relative
-    error (< 2e-4) with the samples beyond counted. `make(dtype, start)`
-    gives (env, x). With `tally_module`, the f32 plain run tallies the QP
-    (`_qp_tally`). Returns per start {max_abs_err, median_rel_err_f32,
-    tally}."""
+    error (< 2e-4) with the samples beyond counted. `t64` cuts the f64
+    comparison to the first t64 steps. `make(dtype, start)` gives (env, x).
+    With `tally_module`, the f32 plain run tallies the QP (`_qp_tally`).
+    Returns per start {max_abs_err, median_rel_err_f32, tally, plain_ms (the
+    f32 plain run by CUDA events)}."""
     k, horizon = ctrl64.shape[2], ctrl64.shape[0]
+    ctrl32, ctrl64 = ctrl64.float(), ctrl64[:t64].contiguous()
+    h64 = ctrl64.shape[0]
     out = {}
     for start in starts:
         env64, x64 = make(torch.float64, start)
@@ -1220,18 +1215,23 @@ def _kernel_vs_plain(label, kern, ref, make, starts, ctrl64, atol32, tally_modul
             med_pert = float(np.median(rel_pert))
             spread = (f"plain vs plain at controls·(1+1e-15): max {rel_pert.max():.3e} median "
                       f"{med_pert:.3e}, {int(np.sum(rel_pert > 1e-9))} beyond")
-        print(f"{label} f64 K={k} T={horizon} from {start}: rel err max {rel.max():.3e} median "
+        print(f"{label} f64 K={k} T={h64} from {start}: rel err max {rel.max():.3e} median "
               f"{med:.3e}, {int(np.sum(rel > 1e-9))} of {k} beyond 1e-9; {spread}")
         _hold(f"{label} f64 from {start}: kernel median relative error", med, med_pert, 1e-9)
 
         env, x = make(torch.float32, start)
-        ctrl = ctrl64.float()
-        tally = None
-        if tally_module is None:
+        ctrl = ctrl32
+        tally = [None]
+        with contextlib.ExitStack() as stack:
+            if tally_module is not None:
+                tally = stack.enter_context(_qp_tally(tally_module, env))
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_end = torch.cuda.Event(enable_timing=True)
+            t_start.record()
             want = ref(env, x, ctrl)
-        else:
-            with _qp_tally(tally_module, env) as tally:
-                want = ref(env, x, ctrl)
+            t_end.record()
+        torch.cuda.synchronize()
+        plain_ms = t_start.elapsed_time(t_end)
         got = kern(env, x, ctrl)
         rel32 = _rel_err(got, want)
         max_abs = float((got - want).abs().max())
@@ -1244,7 +1244,8 @@ def _kernel_vs_plain(label, kern, ref, make, starts, ctrl64, atol32, tally_modul
         _require(n_over == 0 or float(np.median(rel32)) < 2e-4,
                  f"{label}: f32 median relative error >= 2e-4 from {start}")
         out[start] = {"max_abs_err": max_abs, "median_rel_err_f32": float(np.median(rel32)),
-                      "tally": tally}
+                      "tally": tally if tally_module is not None else None,
+                      "plain_ms": plain_ms}
     return out
 
 
@@ -1329,8 +1330,8 @@ def _cemppi_kernel_vs_plain(label, env_cls, k, horizon, its, lam, rollout, step)
 def _main_path(label, task, k, horizon, its, lam, steps, rollout, step):
     """`simulate_mujoco_on_device(task)` on the card, f32, seed 1, every count
     set to 0 just before and read just after; the executed actions (its CSV)
-    replayed through the env's step entry give the final state. Returns
-    (metrics, the counts, the env, the final state)."""
+    replayed through the env's step entry give the states. Returns
+    (metrics, the counts, the env, the states from the reset on)."""
     import tempfile
 
     from mpopis_tpu_torch.harness.simulate import PORTED_MUJOCO_TASKS, simulate_mujoco_on_device
@@ -1358,25 +1359,29 @@ def _main_path(label, task, k, horizon, its, lam, steps, rollout, step):
     _require(set(launches) == {rollout, step}, f"{task}: other kernels launched: {launches}")
     _require(np.isfinite(rew), f"{task}: non-finite reward")
     env = PORTED_MUJOCO_TASKS[task](dtype=torch.float32, device="cuda")
-    s = env.reset()
+    states = [env.reset()]
     for a in acts:
-        s = env.step(s, torch.as_tensor(a, dtype=torch.float32, device="cuda"))
-    return m, counts, env, s
+        states.append(env.step(states[-1], torch.as_tensor(a, dtype=torch.float32,
+                                                           device="cuda")))
+    return m, counts, env, states
 
 
-def _timed(label, shape, run_k, run_p, reps_k, reps_p, card):
-    """CUDA-event times, plain-kernel-kernel-plain, after one warm-up of the
-    kernel (the caller has run the plain version on these inputs): (kernel
-    ms, plain ms)."""
+def _timed(label, shape, run_k, reps_k, plain, card, reps_p=1):
+    """CUDA-event times of a kernel, twice after one warm-up, beside its plain
+    version's once: `plain` is the ms of the plain run that the comparison
+    made on these inputs, or a callable timed here (reps_p calls) after the
+    kernel. Returns (kernel ms, plain ms)."""
     run_k()
     torch.cuda.synchronize()
-    p_a = _time_ms(run_p, reps_p)
     k_a = _time_ms(run_k, reps_k)
     k_b = _time_ms(run_k, reps_k)
-    p_b = _time_ms(run_p, reps_p)
-    print(f"{label} f32 {shape}: kernel {k_a:.4f} / {k_b:.4f} ms, plain {p_a:.3f} / {p_b:.3f} ms "
-          f"(CUDA events, plain-kernel-kernel-plain; {card})")
-    return (k_a + k_b) / 2, (p_a + p_b) / 2
+    if callable(plain):
+        plain, how = _time_ms(plain, reps_p), "kernel-kernel-plain"
+    else:
+        how = "the plain time from the comparison's run"
+    print(f"{label} f32 {shape}: kernel {k_a:.4f} / {k_b:.4f} ms, plain {plain:.3f} ms (CUDA "
+          f"events, {how}; {card})")
+    return (k_a + k_b) / 2, plain
 
 
 def _swimmer_path(card: str) -> list:
@@ -1425,7 +1430,7 @@ def _swimmer_path(card: str) -> list:
                             "swimmer_rollout", "swimmer_step_states")
 
     # -- phase 23: the main path -----------------------------------------------
-    m, counts, env, s = _main_path("phase 23:", "Swimmer-v4", SK, SH, SITS, SLAM, SWIMMER_STEPS,
+    m, counts, env, (*_, s) = _main_path("phase 23:", "Swimmer-v4", SK, SH, SITS, SLAM, SWIMMER_STEPS,
                                    "swimmer_rollout", "swimmer_step_states")
     x_final = float(s.x[0])
     print(f"phase 23: the replayed actions leave the torso at x = {x_final:.4f} (from 0)")
@@ -1450,10 +1455,10 @@ def _swimmer_path(card: str) -> list:
     step_bound = _bound(_contact_ops(env, env.FRAME_SKIP * 4, 1, 2, tally[0]),
                         4.0 * (2 * env.state_dim + na))
     roll = _timed("phase 24: Swimmer rollout", f"K={SK} T={SH} from reset",
-                  lambda: kern(env, x, ctrl), lambda: ref(env, x, ctrl), 10, 1, card)
+                  lambda: kern(env, x, ctrl), 10, res["reset"]["plain_ms"], card)
     stp = _timed("phase 24: Swimmer step", "one state",
-                 lambda: planar_step.swimmer_step_states(env, xs, act),
-                 lambda: env.plain_step(make_state(xs), act), 50, 2, card)
+                 lambda: planar_step.swimmer_step_states(env, xs, act), 50,
+                 lambda: env.plain_step(make_state(xs), act), card, reps_p=2)
     print(f"phase 24: bounds, Swimmer rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), step "
           f"{step_bound[0]:.3e} ms ({step_bound[1]}) ({time.perf_counter() - t_phase:.1f} s)")
     return [{
@@ -1514,13 +1519,13 @@ def _pusher_path(card: str) -> list:
                 if "registers" in ptx or "spill" in ptx or "Compiling entry" in ptx:
                     print("  ptxas (Pusher build):", ptx.strip())
     env, x = make(torch.float32, "touch")
-    n_lim, n_con = spatial_step.first_substep_active_rows(env, x)
+    n_lim, n_con, _ = spatial_step.first_substep_active_rows(env, x)
     print(f"phase 25: Pusher touching start: {n_lim} limit and {n_con} floor and pair rows "
           f"active in the first substep")
     ctrl64 = torch.as_tensor(np.random.default_rng(25).uniform(-2, 2, (UH, na, UK)),
                              dtype=torch.float64, device="cuda")
     res = _kernel_vs_plain("phase 25: Pusher", kern, ref, make, ("reset", "touch"), ctrl64,
-                           2e-3, spatial_contact)
+                           2e-3, spatial_contact, t64=3)
     tally = res["touch"]["tally"]
     print(f"phase 25: over the plain f32 rollouts' QP calls from the touching start: "
           f"{tally[1] - tally[2]} condim-1 floor rows and {tally[2]} capsule–cylinder pair rows "
@@ -1538,7 +1543,7 @@ def _pusher_path(card: str) -> list:
                             "spatial_rollout", "spatial_step_states")
 
     # -- phase 27: the main path -----------------------------------------------
-    m, counts, env, s = _main_path("phase 27:", "Pusher-v4", UK, UH, UITS, ULAM, PUSHER_STEPS,
+    m, counts, env, (*_, s) = _main_path("phase 27:", "Pusher-v4", UK, UH, UITS, ULAM, PUSHER_STEPS,
                                    "spatial_rollout", "spatial_step_states")
     r0, r1 = float(env.reward(env.reset())), float(env.reward(s))
     print(f"phase 27: the replayed actions take the shaped reward −|obj − goal| − "
@@ -1564,10 +1569,10 @@ def _pusher_path(card: str) -> list:
     step_bound = _bound(_contact_ops(env, env.FRAME_SKIP, 2, 2, tally[0]),
                         4.0 * (2 * env.state_dim + na))
     roll = _timed("phase 28: Pusher rollout", f"K={UK} T={UH} from reset",
-                  lambda: kern(env, x, ctrl), lambda: ref(env, x, ctrl), 10, 1, card)
+                  lambda: kern(env, x, ctrl), 10, res["reset"]["plain_ms"], card)
     stp = _timed("phase 28: Pusher step", "one state",
-                 lambda: spatial_step.spatial_step_states(env, xs, act),
-                 lambda: env.plain_step(make_state(xs), act), 50, 2, card)
+                 lambda: spatial_step.spatial_step_states(env, xs, act), 50,
+                 lambda: env.plain_step(make_state(xs), act), card, reps_p=2)
     print(f"phase 28: bounds, Pusher rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), step "
           f"{step_bound[0]:.3e} ms ({step_bound[1]}) ({time.perf_counter() - t_phase:.1f} s)")
     return [{
@@ -1598,31 +1603,257 @@ def _pusher_path(card: str) -> list:
     }]
 
 
-def main() -> int:
+def _humanoid_path(card: str, which: str) -> list:
+    """Phases 29-32 (`humanoid`) or 33-36 (`standup`): kernel 4's Humanoid or
+    Standup build (23 dofs, 242 rows: 109 capsule–capsule self pairs, joint
+    springs; the com-x track or the `standup` family) and the on-device
+    Humanoid-v4 or HumanoidStandup-v4 path. Returns the `kernels` entries of
+    its rollout and step."""
+    from mpopis_tpu_torch.kernels import build, spatial_step
+    from mpopis_tpu_torch.models import (
+        HumanoidDeviceEnv,
+        HumanoidStandupDeviceEnv,
+        humanoid_device,
+        spatial_contact,
+    )
+    from mpopis_tpu_torch.models.base import make_state
+
+    humanoid = which == "humanoid"
+    cls = HumanoidDeviceEnv if humanoid else HumanoidStandupDeviceEnv
+    task = "Humanoid-v4" if humanoid else "HumanoidStandup-v4"
+    label = "Humanoid" if humanoid else "Standup"
+    first = 29 if humanoid else 33
+    lam = 1.0 if humanoid else 0.3
+    # the start whose rows the compared rollouts must exercise: the Humanoid's
+    # crouch (floor and self-pair rows at once), the Standup's supine reset
+    touch = "crouch" if humanoid else "reset"
+    kern = spatial_step.spatial_rollout_costs_tak
+    ref = spatial_step.spatial_rollout_costs_tak_reference
+    na = cls.action_dim
+
+    def make(dtype, start):
+        env = cls(dtype=dtype, device="cuda")
+        if start == "reset":
+            return env, env.reset().x
+        q = humanoid_device.crouched_qpos(env.MODEL)
+        qv = torch.as_tensor(np.random.default_rng(4).uniform(-0.3, 0.3, 23))
+        carry = humanoid_device.com_x(q)[None] if humanoid else torch.zeros(1, dtype=q.dtype)
+        return env, torch.cat([q, qv, carry]).to("cuda", dtype)
+
+    # -- the build, and the kernel against its plain version -------------------
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    build.load_library("spatial_rollout")
+    log = build.BUILD_INFO["spatial_rollout"]["log"].splitlines()
+    mangled = f"Li23ELi24ELi{spatial_step.select_build(cls.MODEL, cls.FAMILY, cls.TRACK)}E"
+    for i, line in enumerate(log):  # this build's entries: (n_dof, n_q, mask)
+        if "Compiling entry" in line and mangled in line:
+            for ptx in log[i:i + 6]:
+                if "registers" in ptx or "spill" in ptx or "Compiling entry" in ptx:
+                    print(f"  ptxas ({label} build):", ptx.strip())
+    for start in ("reset", "crouch"):
+        env, x = make(torch.float32, start)
+        n_lim, n_con, n_self = spatial_step.first_substep_active_rows(env, x)
+        print(f"phase {first}: {label} {start} start (z = {float(x[2]):.4f}): {n_lim} limit, "
+              f"{n_con} floor and {n_self} self-pair rows active in the first substep")
+    ctrl64 = torch.as_tensor(np.random.default_rng(first).uniform(-0.4, 0.4, (HH, na, HK)),
+                             dtype=torch.float64, device="cuda")
+    res = _kernel_vs_plain(f"phase {first}: {label}", kern, ref, make, ("reset", "crouch"),
+                           ctrl64, 2e-3, spatial_contact, t64=3)
+    for start in ("reset", "crouch"):
+        tl = res[start]["tally"]
+        print(f"phase {first}: over the plain f32 rollouts' QP calls from {start}: "
+              f"{tl[3] - tl[1]} limit, {tl[1] - tl[4]} floor and {tl[4]} self-pair rows active")
+    # CUDA reserves local memory for every thread that can be resident
+    # at the largest stack launched so far: the f64 build's shows here
+    print(f"phase {first}: free device memory {free0 / 2**30:.2f} GiB before this build's "
+          f"first launch, {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB after its comparisons")
+    tl = res[touch]["tally"]
+    _require(tl[1] - tl[4] > 0 and tl[4] > 0,
+             f"{label}: no floor or no self-pair row active in the compared rollouts")
+    step_err = _step_vs_plain(f"phase {first}: {label}", spatial_step.spatial_step_states, make,
+                              touch, 0.01, 0.5, na, 47)
+    torch.cuda.synchronize()
+    print(f"phase {first}: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- the CEMPPI step in f64, kernel path vs plain path ----------------------
+    _cemppi_kernel_vs_plain(f"phase {first + 1}: {label}", cls, 64, 4, HITS, lam,
+                            "spatial_rollout", "spatial_step_states")
+
+    # -- the main path, against a zero-action run --------------------------------
+    # The torso is held to the JAX package's criteria at their depth, 6 control
+    # steps (tests/test_humanoid_device.py:259-260,
+    # tests/test_humanoidstandup_device.py:283-284). Over 50 steps the
+    # Humanoid's objective (5 + 1.25·com-x velocity − 0.1·Σa², no
+    # termination) pays for a forward dive, so its torso is only reported
+    # there; the controller must beat the zero-action run's reward per step.
+    m, counts, env, states = _main_path(f"phase {first + 2}:", task, HK, HH, HITS, lam,
+                                        HUMANOID_STEPS, "spatial_rollout",
+                                        "spatial_step_states")
+    executed = 10 * -(-(HUMANOID_STEPS + 1) // 10)  # whole chunks of 10 steps
+    _require(counts["spatial_step_states"] == executed,
+             f"{task}: {counts['spatial_step_states']} step launches for {executed} steps")
+    zero = torch.zeros(na, dtype=torch.float32, device="cuda")
+    zero_states, zero_rew = [env.reset()], 0.0
+    for i in range(len(states) - 1):
+        s0, r0 = env.step_reward(zero_states[-1], zero)
+        zero_states.append(s0)
+        zero_rew += float(r0) if i < HUMANOID_STEPS else 0.0
+    z6, z6_0 = float(states[6].x[2]), float(zero_states[6].x[2])
+    z, z0 = float(states[-1].x[2]), float(zero_states[-1].x[2])
+    rps, rps0 = float(m["rewards_per_step"][0]), zero_rew / HUMANOID_STEPS
+    print(f"phase {first + 2}: the torso from z = {float(states[0].x[2]):.4f}: after 6 steps "
+          f"{z6:.4f} (zero action {z6_0:.4f}), after {len(states) - 1} {z:.4f} (zero action "
+          f"{z0:.4f}); reward per step {rps:.4f}, zero action {rps0:.4f}")
+    if humanoid:
+        _require(z6 > 0.6 and z6 > z6_0 - 0.25, "the humanoid's torso fell in 6 steps")
+    else:
+        _require(z6 >= z6_0 - 0.02 and z6 > 0.08, "the standup's torso went down in 6 steps")
+    _require(rps > rps0, f"{task}: the controller's reward per step is under the zero action's")
+
+    # -- timings and bounds -----------------------------------------------------
+    # The rollouts are timed on the compared f32 inputs from the contact
+    # start, whose plain run was timed and tallied the QP. Operations counted
+    # as for Ant (_contact_ops): per RK4 stage one mass-matrix factorization
+    # and two solves, and the QP's applications of J M⁻¹ Jᵀ over the rows
+    # valid in these inputs; frames, mass matrix, bias and pair geometry are
+    # not counted. Bytes: the controls or states read, the costs or states
+    # written.
+    t_phase = time.perf_counter()
+    env, x = make(torch.float32, touch)
+    ctrl = ctrl64.float()
+    xs, act = x[None].contiguous(), torch.zeros((1, na), device="cuda")
+    roll_bound = _bound(_contact_ops(env, HH * HK * env.FRAME_SKIP * 4, 1, 2,
+                                     res[touch]["tally"][0]),
+                        4.0 * (HH * na * HK + HK + env.state_dim))
+    with _qp_tally(spatial_contact, env) as tally:
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        env.plain_step(make_state(xs), act)
+        t_end.record()
+    torch.cuda.synchronize()
+    step_bound = _bound(_contact_ops(env, env.FRAME_SKIP * 4, 1, 2, tally[0]),
+                        4.0 * (2 * env.state_dim + na))
+    roll = _timed(f"phase {first + 3}: {label} rollout", f"K={HK} T={HH} from {touch}",
+                  lambda: kern(env, x, ctrl), 3, res[touch]["plain_ms"], card)
+    stp = _timed(f"phase {first + 3}: {label} step", f"one {touch} state",
+                 lambda: spatial_step.spatial_step_states(env, xs, act), 20,
+                 t_start.elapsed_time(t_end), card)
+    print(f"phase {first + 3}: bounds, {label} rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), "
+          f"step {step_bound[0]:.3e} ms ({step_bound[1]}) ({time.perf_counter() - t_phase:.1f} s)")
+    return [{
+        "name": f"spatial_rollout_{which}",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/spatial_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/spatial_step.py:139",
+        "launches": counts["spatial_rollout"],
+        "max_abs_err": res[touch]["max_abs_err"],
+        "ms": roll[0],
+        "plain_ms": roll[1],
+        "bound_ms": roll_bound[0],
+        "bound_by": roll_bound[1],
+        "library_ms": None,
+        "median_rel_err_f32": res[touch]["median_rel_err_f32"],
+    }, {
+        "name": f"spatial_step_states_{which}",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/spatial_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/spatial_step.py:52",
+        "launches": counts["spatial_step_states"],
+        "max_abs_err": step_err["float32"],
+        "ms": stp[0],
+        "plain_ms": stp[1],
+        "bound_ms": step_bound[0],
+        "bound_by": step_bound[1],
+        "library_ms": None,
+    }]
+
+
+# the libraries each path builds
+_LIBRARIES = {"car": ("car_rollout",), "planar": ("planar_rollout",),
+              "ais": ("ais_update", "linalg"), "ant": ("spatial_rollout",),
+              "swimmer": ("swimmer_rollout",), "pusher": ("spatial_rollout",),
+              "humanoid": ("spatial_rollout",), "standup": ("spatial_rollout",)}
+
+
+def _parse_paths(argv) -> tuple:
+    """The paths to run: all of PATHS, or those `--only a,b` names."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
+    ap.add_argument("--only", default=None, metavar="PATHS",
+                    help=f"comma-separated paths to run, of {','.join(PATHS)} (default: all; "
+                    "only the default run is the proof)")
+    args = ap.parse_args(argv)
+    if args.only is None:
+        return PATHS
+    only = tuple(p.strip() for p in args.only.split(",") if p.strip())
+    bad = sorted(set(only) - set(PATHS))
+    if bad or not only:
+        ap.error(f"--only {args.only!r}: unknown paths {bad}; choose from {','.join(PATHS)}")
+    return tuple(p for p in PATHS if p in only)
+
+
+def main(argv=None) -> int:
+    paths = _parse_paths(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
-    from mpopis_tpu_torch.kernels import build, car_rollout, planar_step
-    from mpopis_tpu_torch.models import CarRacingEnv
-    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+    try:
+        from mpopis_tpu_torch.kernels import build
+    except ModuleNotFoundError as e:  # the script without the checkout beside it
+        print(f"chip_smoke: {e}; run it from the root of a checkout of the repo",
+              file=sys.stderr)
+        return 3
 
     # -- phase 0: the card -------------------------------------------------
     card = _card()
     print(f"phase 0: card {card!r}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}; paths {','.join(paths)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1: build (every library at once, one nvcc each) ---------------
     t0 = time.perf_counter()
-    build.build_all(["car_rollout", "planar_rollout", "ais_update", "linalg", "spatial_rollout",
-                     "swimmer_rollout"])
+    build.build_all(sorted({lib for p in paths for lib in _LIBRARIES[p]}))
     build_s = time.perf_counter() - t0
+    print(f"phase 1: the libraries of {','.join(paths)} built in parallel in {build_s:.1f} s")
+    for _, info in sorted(build.BUILD_INFO.items()):
+        print(f"phase 1: {info['so']} built in {info['seconds']:.1f} s")
+    kernels = []
+    for path, run in (("car", _car_path), ("planar", _planar_path), ("ais", _ais_path),
+                      ("ant", _spatial_path), ("swimmer", _swimmer_path),
+                      ("pusher", _pusher_path),
+                      ("humanoid", lambda c: _humanoid_path(c, "humanoid")),
+                      ("standup", lambda c: _humanoid_path(c, "standup"))):
+        if path in paths:
+            t_path = time.perf_counter()
+            kernels += run(card)
+            print(f"path {path}: {time.perf_counter() - t_path:.1f} s")
+
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def _car_path(card: str) -> list:
+    """Phases 1-5: the car rollout kernel and the car race. Returns the
+    `kernels` entry of car_rollout."""
+    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
+    from mpopis_tpu_torch.kernels import build, car_rollout
+    from mpopis_tpu_torch.models import CarRacingEnv
+    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+
     build.load_library("car_rollout")
     info = build.BUILD_INFO["car_rollout"]
     built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
-    print(f"phase 1: {info['so']} {built} (all libraries built in parallel in {build_s:.1f} s)")
+    print(f"phase 1: {info['so']} {built} (in parallel with the others)")
     for line in _ptxas_lines(info["log"]):
         print("  ptxas:", line)
 
@@ -1769,12 +2000,6 @@ def main() -> int:
           f"the stop read, {read:.3f} ms with it ({(read - no_read) / ITS:.4f} ms per "
           f"read); per-run ms {json.dumps(step_ms)}")
 
-    planar = _planar_path(card)
-    ais = _ais_path(card)
-    spatial = _spatial_path(card)
-    swimmer = _swimmer_path(card)
-    pusher = _pusher_path(card)
-
     # Operations counted per sample and action step: the substeps' arithmetic
     # (~120 operations and ~15 transcendentals each, counted as one operation
     # apiece, from step_car_state) and the reward's sweep over the M track
@@ -1784,8 +2009,7 @@ def main() -> int:
     car_bound = _bound(K * H * (n_sub * 135.0 + 6.0 * m_track + 40.0),
                        4.0 * (2 * H * K + K + 3 * m_track + 8))
 
-    print(card)
-    print(json.dumps({"kernels": [{
+    return [{
         "name": "car_rollout",
         "route": "cuda",
         "source": "mpopis_tpu_torch/csrc/car_rollout.cu",
@@ -1799,13 +2023,8 @@ def main() -> int:
         "library_ms": None,
         "max_abs_err_f64": max_abs_f64,
         "median_rel_err_f32": float(np.median(rel32)),
-    }, *planar, *ais, *spatial, *swimmer, *pusher]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+    }]
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

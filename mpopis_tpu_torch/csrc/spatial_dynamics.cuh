@@ -1,17 +1,21 @@
 // Spatial (3D) contact dynamics of one sample, for the rollout kernel in
 // spatial_rollout.cu: quaternion forward kinematics, the analytic mass matrix
-// and bias, the joint-limit and floor-contact rows (condim-3 pyramids or one
-// condim-1 normal row), the capsule-cylinder pair rows, the warm-started box
-// QP, the RK4 substep over the quaternion manifold and the Euler-implicit
-// substep, and the control step with its reward family.
+// and bias, joint springs, the joint-limit and floor-contact rows (condim-3
+// pyramids or one condim-1 normal row), the capsule-cylinder and the
+// capsule-capsule (self) pair rows, the warm-started box QP, the RK4 substep
+// over the quaternion manifold and the Euler-implicit substep, and the
+// control step with its reward family.
 //
 // What a build takes is fixed at compile time by the feature mask F (kEuler,
-// kSlide, kCondim1, kCylinder, kPusher below): the branches of a feature
-// compile only into the builds that have it, so the Ant build (F = 0: RK4,
-// free and hinge joints, condim-3 contacts, the `locomotion` family) holds
-// none of the Pusher's code (F = all five: Euler, slide joints, condim-1
-// floor contacts, capsule-cylinder pairs, the `pusher` family). No build
-// takes joint springs or self-collision pairs (make_model refuses them).
+// kSlide, kCondim1, kCylinder, kPusher, kSelfPairs, kSprings, kComX,
+// kStandup below): the branches of a feature compile only into the builds
+// that have it, so the Ant build (F = 0: RK4, free and hinge joints, condim-3
+// contacts, the `locomotion` family with the root-x track) holds none of the
+// others' code. The Pusher's F has the first five (Euler, slide joints,
+// condim-1 floor contacts, capsule-cylinder pairs, the `pusher` family); the
+// Humanoid's has self pairs, springs and the com-x track; the Standup's self
+// pairs, springs and the `standup` family. The row capacity follows F too
+// (RowCap): 128 rows, or 248 with self pairs.
 //
 // A transcription of the plain PyTorch version
 // (mpopis_tpu_torch/models/spatial_contact.py), which keeps the JAX package's
@@ -48,8 +52,20 @@ constexpr int kSlideJoints = 2;  // slide joints
 constexpr int kCondim1 = 4;   // condim-1 floor contacts (one normal row)
 constexpr int kCylinder = 8;  // capsule-cylinder pairs (one row each)
 constexpr int kPusher = 16;   // the `pusher` reward family (else `locomotion`)
+constexpr int kSelfPairs = 32;  // sphere/capsule self pairs (one row each)
+constexpr int kSprings = 64;    // joint springs in the smooth force
+constexpr int kComX = 128;      // the com-x track of `locomotion` (else the root's x)
+constexpr int kStandup = 256;   // the `standup` reward family
 constexpr int kMaxPairs = 4;
+constexpr int kMaxSelfPairs = 112;
+constexpr int kMaxRowsWide = 248;  // rows of a build with self pairs (Humanoid: 242)
 constexpr int kCarryBodies = 3;  // the `pusher` family's xpos bodies
+
+// the row capacity of a build: local arrays of every thread are this long
+template <int F>
+struct RowCap {
+  static constexpr int n = (F & kSelfPairs) ? kMaxRowsWide : kMaxRows;
+};
 
 // entries of the state's tail the reward family carries
 template <int F>
@@ -94,6 +110,15 @@ struct CylPair {  // capsule (body1) against an upright solid cylinder (body2)
 };
 
 template <typename T>
+struct CapPair {  // sphere/capsule (body1) against sphere/capsule (body2)
+  T a1[3], d1[3], a2[3], d2[3];  // segment starts and start-to-end vectors, own frames
+  T lale, den_eps, le, inv_la, inv_le;  // la le, 1e-12 la le, le, 1/la, 1/le (la = |d1|^2)
+  T r1, r2, margin, bw;          // radii, margin, the bodies' summed invweight
+  Imp<T> imp;
+  int body1, body2, seg1, seg2;  // seg: the end is a capsule (else a sphere)
+};
+
+template <typename T>
 struct Limit {
   T lo, hi, margin, invweight;
   Imp<T> imp;
@@ -116,6 +141,13 @@ struct Model {
   int n_dof, n_q, nb, nj, n_contacts, n_limits, n_act, n_cyl, n_rows;
   int frame_skip, outer, cg, features;
   int carry_body[kCarryBodies];
+  // The self pairs, springs and total mass follow every older field, so the
+  // Ant and Pusher builds read their fields at the offsets they always had.
+  CapPair<T> cap[kMaxSelfPairs];
+  T stiffness[kMaxDof], springref[kMaxDof];
+  int spring_qadr[kMaxDof];  // qpos of a 1-dof joint's dof (-1 on free dofs)
+  T inv_total_mass;
+  int n_cap;
 };
 
 __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
@@ -495,13 +527,13 @@ __device__ __forceinline__ T dot_row(const T (&j)[N], const T (&v)[N]) {
   return s;
 }
 
-// The rows valid at this state, compacted; idx maps each to its row of the
-// model (the index of its lambda warm start).
-template <typename T, int N>
+// The rows valid at this state, compacted, up to R of them; idx maps each to
+// its row of the model (the index of its lambda warm start).
+template <typename T, int N, int R>
 struct Rows {
-  T J[kMaxRows][N];
-  T aref[kMaxRows], reg[kMaxRows];
-  int idx[kMaxRows];
+  T J[R][N];
+  T aref[R], reg[R];
+  int idx[R];
   int nv;
 };
 
@@ -588,9 +620,70 @@ __device__ void capsule_cylinder(const Kin<T, N>& kin, const CylPair<T>& pr, T& 
   for (int i = 0; i < 3; ++i) cp[i] = p1[i] + nvec[i] * reach;
 }
 
-template <typename T, int N, int NQ, int F>
+// Sphere/capsule against sphere/capsule (a self pair): the distance, the
+// normal from body1 to body2 and the contact point, as the plain version's
+// capsule_capsule. The closest points of the two axis segments (Ericson), an
+// end that is a sphere taking the point-against-segment form; then dist =
+// |c2 - c1| - r1 - r2 and the point c1 + n (r1 + dist / 2).
+template <typename T, int N>
+__device__ void capsule_capsule(const Kin<T, N>& kin, const CapPair<T>& pr, T& dist,
+                                T (&nvec)[3], T (&cp)[3]) {
+  T a1[3], a2[3], d1[3], d2[3], c1[3], c2[3], t[3];
+  rvec(kin.R[pr.body1], pr.a1, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) a1[i] = kin.o[pr.body1][i] + t[i];
+  rvec(kin.R[pr.body2], pr.a2, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) a2[i] = kin.o[pr.body2][i] + t[i];
+  rvec(kin.R[pr.body1], pr.d1, d1);
+  rvec(kin.R[pr.body2], pr.d2, d2);
+  T s = T(0), u = T(0);  // the points' parameters along d1 and d2
+  if (pr.seg1 && pr.seg2) {
+    T r[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) r[i] = a1[i] - a2[i];
+    const T lf = dot3(d2, r), lc = dot3(d1, r), lb = dot3(d1, d2);
+    const T den = pr.lale - lb * lb;
+    if (den > pr.den_eps) s = clip((lb * lf - lc * pr.le) / (den < T(1e-30) ? T(1e-30) : den),
+                                   T(0), T(1));
+    const T u_raw = (lb * s + lf) * pr.inv_le;
+    if (u_raw < T(0))
+      s = clip(-lc * pr.inv_la, T(0), T(1));
+    else if (u_raw > T(1))
+      s = clip((lb - lc) * pr.inv_la, T(0), T(1));
+    u = clip(u_raw, T(0), T(1));
+  } else if (pr.seg2) {  // a sphere against a capsule
+    T r[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) r[i] = a1[i] - a2[i];
+    u = clip(dot3(r, d2) * pr.inv_le, T(0), T(1));
+  } else if (pr.seg1) {  // a capsule against a sphere
+    T r[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) r[i] = a2[i] - a1[i];
+    s = clip(dot3(r, d1) * pr.inv_la, T(0), T(1));
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    c1[i] = pr.seg1 ? a1[i] + s * d1[i] : a1[i];
+    c2[i] = pr.seg2 ? a2[i] + u * d2[i] : a2[i];
+    t[i] = c2[i] - c1[i];
+  }
+  const T l2 = dot3(t, t);
+  const T ln = d_sqrt(l2 < T(1e-24) ? T(1e-24) : l2);
+  const T inv = T(1) / ln;
+  dist = (ln - pr.r1) - pr.r2;
+  const T reach = pr.r1 + T(0.5) * dist;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    nvec[i] = inv * t[i];
+    cp[i] = c1[i] + reach * nvec[i];
+  }
+}
+
+template <typename T, int N, int NQ, int F, int R>
 __device__ void contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[N],
-                             const Kin<T, N>& kin, Rows<T, N>& rows) {
+                             const Kin<T, N>& kin, Rows<T, N, R>& rows) {
   int nv = 0, r = 0;
   for (int l = 0; l < m.n_limits; ++l, ++r) {
     const Limit<T>& lm = m.lim[l];
@@ -697,13 +790,32 @@ __device__ void contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[
       ++nv;
     }
   }
+  if (F & kSelfPairs) {  // the same rows for the self pairs
+    for (int pi = 0; pi < m.n_cap; ++pi, ++r) {
+      const CapPair<T>& pr = m.cap[pi];
+      T dist, nvec[3], cp[3];
+      capsule_capsule(kin, pr, dist, nvec, cp);
+      if (!(dist < pr.margin)) continue;
+      T jv1[N][3], jv2[N][3];
+      point_jac(m, kin, pr.body1, cp, jv1, static_cast<T(*)[3]>(nullptr));
+      point_jac(m, kin, pr.body2, cp, jv2, static_cast<T(*)[3]>(nullptr));
+#pragma unroll
+      for (int d = 0; d < N; ++d) rows.J[nv][d] = -dot3(jv1[d], nvec) + dot3(jv2[d], nvec);
+      const T pos_m = dist - pr.margin;
+      const T imp = impedance(pos_m, pr.imp);
+      rows.aref[nv] = (-pr.imp.bc) * dot_row(rows.J[nv], qv) - pr.imp.kc * imp * pos_m;
+      rows.reg[nv] = (T(1) - imp) / imp * pr.bw;
+      rows.idx[nv] = r;
+      ++nv;
+    }
+  }
   rows.nv = nv;
 }
 
 // out = mask ? J (L L^T)^-1 J^T (mask ? v : 0) + R (mask ? v : 0) : 0 over the
 // compacted rows; a null mask means every row
-template <typename T, int N>
-__device__ void ar_apply(const Rows<T, N>& rows, const T (&L)[N][N], const T* v, const bool* mask,
+template <typename T, int N, int R>
+__device__ void ar_apply(const Rows<T, N, R>& rows, const T (&L)[N][N], const T* v, const bool* mask,
                          T* out) {
   const int nv = rows.nv;
   T u[N];
@@ -733,13 +845,13 @@ __constant__ double kArc[6] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search 
 // of the plain version's _qp_iterate. lam_full holds the warm start of every
 // model row on entry and the solution (0 on rows not valid) on exit. Returns
 // J^T lam.
-template <typename T, int N>
-__device__ void solve_qp(const Model<T>& m, const Rows<T, N>& rows, const T (&L)[N][N],
+template <typename T, int N, int R>
+__device__ void solve_qp(const Model<T>& m, const Rows<T, N, R>& rows, const T (&L)[N][N],
                          const T (&a_smooth)[N], T* lam_full, T (&qfrc)[N]) {
   const int nv = rows.nv;
-  T lam[kMaxRows], rhs[kMaxRows], g[kMaxRows], x[kMaxRows], res[kMaxRows], p[kMaxRows];
-  T ap[kMaxRows], best[kMaxRows];
-  bool act[kMaxRows];
+  T lam[R], rhs[R], g[R], x[R], res[R], p[R];
+  T ap[R], best[R];
+  bool act[R];
   for (int r = 0; r < nv; ++r) {
     lam[r] = lam_full[rows.idx[r]];
     rhs[r] = rows.aref[r] - dot_row(rows.J[r], a_smooth);
@@ -818,11 +930,12 @@ __device__ void solve_qp(const Model<T>& m, const Rows<T, N>& rows, const T (&L)
 // One constrained forward pass (mj_forward) at (q, qv): the acceleration;
 // lam_full warm-starts the QP and returns its solution. With kEuler the QP
 // sees the undamped M and the acceleration solves (M + h diag(damping)) acc =
-// smooth + qfrc (the implicit damping of mj_Euler). Kept out of line: RK4
+// smooth + qfrc (the implicit damping of mj_Euler). With kSprings the smooth
+// force pulls each sprung hinge toward its springref. Kept out of line: RK4
 // calls it 4 times per substep.
-template <typename T, int N, int NQ, int F>
+template <typename T, int N, int NQ, int F, int R>
 __device__ __noinline__ void forward_acc(const Model<T>& m, const T (&q)[NQ], const T (&qv)[N],
-                                         const T (&tau)[N], T* lam_full, Rows<T, N>& rows,
+                                         const T (&tau)[N], T* lam_full, Rows<T, N, R>& rows,
                                          T (&acc)[N]) {
   Kin<T, N> kin;
   compute_frames<T, N, NQ, F>(m, q, kin);
@@ -831,8 +944,14 @@ __device__ __noinline__ void forward_acc(const Model<T>& m, const T (&q)[NQ], co
   cholesky(M, L);
 #pragma unroll
   for (int d = 0; d < N; ++d) smooth[d] = tau[d] - bias[d] - m.damping[d] * qv[d];
+  if (F & kSprings) {
+#pragma unroll
+    for (int d = 0; d < N; ++d)
+      if (m.stiffness[d] != T(0))
+        smooth[d] = smooth[d] - m.stiffness[d] * (q[m.spring_qadr[d]] - m.springref[d]);
+  }
   chol_solve(L, smooth, a_smooth);
-  contact_rows<T, N, NQ, F>(m, q, qv, kin, rows);
+  contact_rows<T, N, NQ, F, R>(m, q, qv, kin, rows);
   solve_qp(m, rows, L, a_smooth, lam_full, qfrc);
 #pragma unroll
   for (int d = 0; d < N; ++d) smooth[d] = smooth[d] + qfrc[d];
@@ -896,9 +1015,9 @@ __device__ void normalize_quats(const Model<T>& m, T (&q)[NQ]) {
 // previous stage's velocity, the weighted velocities accumulated stage by
 // stage, lambda chained through the stages; q_snap gets the last stage's
 // qpos (what mj_step leaves in data.xpos).
-template <typename T, int N, int NQ, int F>
+template <typename T, int N, int NQ, int F, int R>
 __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (&tau)[N],
-                            T* lam_full, Rows<T, N>& rows, T (&q_snap)[NQ]) {
+                            T* lam_full, Rows<T, N, R>& rows, T (&q_snap)[NQ]) {
   normalize_quats(m, q);
   T kq[N], kv[N], accq[N], accv[N], vs[N], acc[N];
 #pragma unroll
@@ -911,7 +1030,7 @@ __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (
     integrate_pos(m, q, kq, m.ch[s], m.half_ch[s], q_snap);
 #pragma unroll
     for (int d = 0; d < N; ++d) vs[d] = qv[d] + m.ch[s] * kv[d];
-    forward_acc<T, N, NQ, F>(m, q_snap, vs, tau, lam_full, rows, acc);
+    forward_acc<T, N, NQ, F, R>(m, q_snap, vs, tau, lam_full, rows, acc);
 #pragma unroll
     for (int d = 0; d < N; ++d) {
       accq[d] = accq[d] + m.w[s] * vs[d];
@@ -931,12 +1050,12 @@ __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (
 // One Euler-implicit substep: the velocity by the implicitly damped
 // acceleration, then the positions by the new velocity; q_snap gets the
 // pre-integration (normalized) qpos, which mj_step leaves in data.xpos.
-template <typename T, int N, int NQ, int F>
+template <typename T, int N, int NQ, int F, int R>
 __device__ void euler_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (&tau)[N],
-                              T* lam_full, Rows<T, N>& rows, T (&q_snap)[NQ]) {
+                              T* lam_full, Rows<T, N, R>& rows, T (&q_snap)[NQ]) {
   normalize_quats(m, q);
   T acc[N];
-  forward_acc<T, N, NQ, F>(m, q, qv, tau, lam_full, rows, acc);
+  forward_acc<T, N, NQ, F, R>(m, q, qv, tau, lam_full, rows, acc);
 #pragma unroll
   for (int d = 0; d < N; ++d) qv[d] = qv[d] + m.h * acc[d];
 #pragma unroll
@@ -947,16 +1066,17 @@ __device__ void euler_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T
 constexpr int kIntHeader = 16;
 constexpr int kDoubleHeader = 20;
 constexpr int kIntsPerBody = 4, kIntsPerJoint = 4, kIntsPerContact = 3, kIntsPerLimit = 2;
-constexpr int kIntsPerPair = 2;
+constexpr int kIntsPerPair = 2, kIntsPerSelfPair = 4;
 constexpr int kDoublesPerDof = 3, kDoublesPerBody = 22, kDoublesPerJoint = 24;
 constexpr int kDoublesPerContact = 16, kDoublesPerLimit = 9, kDoublesPerPair = 19;
+constexpr int kDoublesPerSelfPair = 26, kDoublesPerSpring = 2;
 
 // One control step from the state (q, qv) under the actions a (clamped to
 // +-act_clip for the torque): frame_skip substeps from lambda = 0, lambda
 // chained; q_snap gets the snapshot of the last substep.
-template <typename T, int N, int NQ, int F>
+template <typename T, int N, int NQ, int F, int R>
 __device__ void control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T* a, T* lam_full,
-                             Rows<T, N>& rows, T (&q_snap)[NQ]) {
+                             Rows<T, N, R>& rows, T (&q_snap)[NQ]) {
   T tau[N];
 #pragma unroll
   for (int d = 0; d < N; ++d) tau[d] = T(0);
@@ -971,9 +1091,9 @@ __device__ void control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T*
   for (int i = 0; i < NQ; ++i) q_snap[i] = q[i];
   for (int s = 0; s < m.frame_skip; ++s) {
     if (F & kEuler)
-      euler_substep<T, N, NQ, F>(m, q, qv, tau, lam_full, rows, q_snap);
+      euler_substep<T, N, NQ, F, R>(m, q, qv, tau, lam_full, rows, q_snap);
     else
-      rk4_substep<T, N, NQ, F>(m, q, qv, tau, lam_full, rows, q_snap);
+      rk4_substep<T, N, NQ, F, R>(m, q, qv, tau, lam_full, rows, q_snap);
   }
 }
 
@@ -984,21 +1104,139 @@ __device__ __forceinline__ T dist3(const T* x, int i, int j) {
   return d_sqrt(s < T(1e-30) ? T(1e-30) : s);
 }
 
+// The body-mass-weighted world com x of the frames (gymnasium's mass_center
+// over data.xipos), summed in the plain version's order.
+template <typename T, int N>
+__device__ T com_x(const Model<T>& m, const Kin<T, N>& kin) {
+  T s = T(0);
+  for (int b = 0; b < m.nb; ++b) {
+    const Body<T>& bd = m.body[b];
+    const T* r = kin.R[b];
+    const T cx = ((kin.o[b][0] + r[0] * bd.com[0]) + r[1] * bd.com[1]) + r[2] * bd.com[2];
+    s = s + bd.mass * cx;
+  }
+  return s * m.inv_total_mass;
+}
+
+// Adds the wrench (torque about com, force) of the force f at the point cp,
+// times sgn, to a body's row of acc
+template <typename T>
+__device__ __forceinline__ void add_wrench(T (*acc)[6], int body, const T* cp, const T* com,
+                                           const T* f, T sgn) {
+  T rel[3], tq[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) rel[i] = cp[i] - com[i];
+  cross(rel, f, tq);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    acc[body][i] = acc[body][i] + sgn * tq[i];
+    acc[body][3 + i] = acc[body][3 + i] + sgn * f[i];
+  }
+}
+
+// Sum over the bodies of |cfrc_ext|^2 of the QP forces lam (model rows) at
+// the frames, as the plain version's contact_force_ssq: per body the world
+// (torque about the whole robot's com, force); a pyramid's force is
+// n sum(lam) + mu t1 (lam0 - lam1) + mu t2 (lam2 - lam3), a condim-1 or pair
+// row's n lam, +f on body2 and -f on body1; limit rows carry no force.
+template <typename T, int N, int F>
+__device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T* lam) {
+  T com[3] = {T(0), T(0), T(0)}, acc[kMaxBodies][6];
+  for (int b = 0; b < m.nb; ++b) {
+    const Body<T>& bd = m.body[b];
+    T t[3];
+    rvec(kin.R[b], bd.com, t);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      com[i] = com[i] + bd.mass * (kin.o[b][i] + t[i]);
+      acc[b][i] = acc[b][3 + i] = T(0);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) com[i] = m.inv_total_mass * com[i];
+  int r = m.n_limits;
+  for (int ci = 0; ci < m.n_contacts; ++ci) {
+    const Contact<T>& ct = m.con[ci];
+    T p[3], f[3];
+    rvec(kin.R[ct.body], ct.local, p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) p[i] = kin.o[ct.body][i] + p[i];
+    const T dist = (p[2] - m.floor_z) - ct.radius;
+    const T cp[3] = {p[0], p[1], m.floor_z + T(0.5) * dist};
+    if ((F & kCondim1) && ct.condim == 1) {
+      f[0] = f[1] = T(0);
+      f[2] = lam[r];
+      r += 1;
+    } else {
+      T t1x = T(0), t1y = T(1);
+      if (ct.has_axis) {
+        T a[3];
+        rvec(kin.R[ct.body], ct.axis, a);
+        const T n2 = a[0] * a[0] + a[1] * a[1];
+        const T nrm = d_sqrt(n2 < T(1e-24) ? T(1e-24) : n2);
+        t1x = a[0] / nrm;
+        t1y = a[1] / nrm;
+      }
+      const T fn = ((lam[r] + lam[r + 1]) + lam[r + 2]) + lam[r + 3];
+      const T ft1 = ct.mu * (lam[r] - lam[r + 1]);
+      const T ft2 = ct.mu * (lam[r + 2] - lam[r + 3]);
+      f[0] = ft1 * t1x + ft2 * (-t1y);
+      f[1] = ft1 * t1y + ft2 * t1x;
+      f[2] = fn;
+      r += 4;
+    }
+    add_wrench(acc, ct.body, cp, com, f, T(1));
+  }
+  if (F & kCylinder) {
+    for (int pi = 0; pi < m.n_cyl; ++pi, ++r) {
+      const CylPair<T>& pr = m.cyl[pi];
+      T dist, nvec[3], cp[3], f[3];
+      capsule_cylinder(kin, pr, dist, nvec, cp);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) f[i] = lam[r] * nvec[i];
+      add_wrench(acc, pr.body2, cp, com, f, T(1));
+      add_wrench(acc, pr.body1, cp, com, f, T(-1));
+    }
+  }
+  if (F & kSelfPairs) {
+    for (int pi = 0; pi < m.n_cap; ++pi, ++r) {
+      const CapPair<T>& pr = m.cap[pi];
+      T dist, nvec[3], cp[3], f[3];
+      capsule_capsule(kin, pr, dist, nvec, cp);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) f[i] = lam[r] * nvec[i];
+      add_wrench(acc, pr.body2, cp, com, f, T(1));
+      add_wrench(acc, pr.body1, cp, com, f, T(-1));
+    }
+  }
+  T s = T(0);
+  for (int b = 0; b < m.nb; ++b) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) s = s + acc[b][c] * acc[b][c];
+  }
+  return s;
+}
+
 // What one thread of the kernel does for sample k: from x0 + k * x_stride
 // (qpos, qvel, the family's carry) it applies `horizon` control steps; action
 // i of step t is controls[t * c_t + i * c_i + k * c_k]. Per step the family
 // reads the snapshot into the new carry and rewards:
-//   locomotion: carry = the snapshot's root x (the `q0` track);
-//     reward = healthy + (carry' - carry) fwd_w / dt - ctrl_w sum a^2;
+//   locomotion: carry = the snapshot's root x (the `q0` track) or, with
+//     kComX, its mass-weighted com x; reward = healthy + (carry' - carry)
+//     fwd_w / dt - ctrl_w sum a^2;
 //   pusher: carry = the frame origins of the tips, object and goal bodies
 //     (their data.xpos); reward = -|obj - goal| - ctrl_w sum a^2
-//     - 0.5 |obj - tips| of the previous carry (the pre-step data.xpos).
-// The reward reads the action as given. Writes costs[k] (the rollout entry)
-// or the state to x_out (the step entry, horizon 1) where not null.
-template <typename T, int N, int NQ, int F>
+//     - 0.5 |obj - tips| of the previous carry (the pre-step data.xpos);
+//   standup: carry = the snapshot's sum of |cfrc_ext|^2 from the last QP's
+//     lambda; reward = q'[2] / h - ctrl_w sum a^2 - min(0.5e-6 carry', 10)
+//     + healthy.
+// The reward reads the action as given, or clipped to +-act_clip with kComX
+// and in the `standup` family. Writes costs[k] (the rollout entry) or the
+// state to x_out (the step entry, horizon 1) where not null.
+template <typename T, int N, int NQ, int F, int R>
 __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_stride,
                            const T* controls, long long c_t, long long c_i, long long c_k,
-                           int horizon, T* costs, T* x_out, T* lam_full, Rows<T, N>& rows) {
+                           int horizon, T* costs, T* x_out, T* lam_full, Rows<T, N, R>& rows) {
   constexpr int NC = Carry<F>::n;
   T a[kMaxAct], q[NQ], qv[N], carry[NC], q_snap[NQ];
   const T* xk = x0 + k * x_stride;
@@ -1011,11 +1249,33 @@ __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_st
   T cost = T(0);
   for (int t = 0; t < horizon; ++t) {
     for (int i = 0; i < m.n_act; ++i) a[i] = controls[t * c_t + i * c_i + k * c_k];
-    control_step<T, N, NQ, F>(m, q, qv, a, lam_full, rows, q_snap);
+    control_step<T, N, NQ, F, R>(m, q, qv, a, lam_full, rows, q_snap);
     T ssq = T(0);
     for (int i = 0; i < m.n_act; ++i) ssq = ssq + a[i] * a[i];
     T rew;
-    if (F & kPusher) {
+    if (F & kStandup) {
+      Kin<T, N> kin;
+      compute_frames<T, N, NQ, F>(m, q_snap, kin);
+      const T cfrc = contact_force_ssq<T, N, F>(m, kin, lam_full);
+      T ssq_c = T(0);
+      for (int i = 0; i < m.n_act; ++i) {
+        const T ai = clip(a[i], -m.act_clip, m.act_clip);
+        ssq_c = ssq_c + ai * ai;
+      }
+      const T impact = T(0.5e-6) * cfrc;
+      rew = ((q[2] / m.h - m.ctrl_w * ssq_c) - (impact < T(10) ? impact : T(10))) + m.healthy;
+      carry[0] = cfrc;
+    } else if (F & kComX) {
+      Kin<T, N> kin;
+      compute_frames<T, N, NQ, F>(m, q_snap, kin);
+      const T track = com_x(m, kin);
+      rew = m.healthy + (track - carry[0]) * m.fwd_inv_dt;
+      for (int i = 0; i < m.n_act; ++i) {
+        const T ai = clip(a[i], -m.act_clip, m.act_clip);
+        rew = rew - m.ctrl_w * (ai * ai);
+      }
+      carry[0] = track;
+    } else if (F & kPusher) {
       rew = -dist3(carry, 3, 6) - m.ctrl_w * ssq - T(0.5) * dist3(carry, 3, 0);
       Kin<T, N> kin;
       compute_frames<T, N, NQ, F>(m, q_snap, kin);
@@ -1051,7 +1311,8 @@ __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_st
 //     the 3 carry bodies of the `pusher` family or -1); per body parent,
 //     first joint, joint count, chain dof mask; per joint body, kind, dof,
 //     qadr; per contact body, has_axis, condim; per limit dof, qadr; per
-//     actuator dof; per cylinder pair body1, body2.
+//     actuator dof; per cylinder pair body1, body2; per self pair body1,
+//     body2, and whether each end is a capsule.
 //   doubles: header (gravity, floor_z, h, h/2, healthy, fwd_w/dt, ctrl_w, the
 //     action clip, the 4 stage c*h, the 4 stage c*h/2, the 4 stage weights);
 //     per dof damping, armature, h*damping; per body pos, rotation (9), com,
@@ -1059,8 +1320,11 @@ __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_st
 //     local, axis, radius, mu, margin, body invweight, pyramid factor,
 //     impedance (5); per limit lo, hi, margin, dof invweight, impedance (5);
 //     per actuator its gear; per cylinder pair a1, b1, centre (3 each), r1,
-//     r2, half height, margin, the bodies' summed invweight, impedance (5).
-// Self pairs are refused.
+//     r2, half height, margin, the bodies' summed invweight, impedance (5);
+//     per self pair a1, d1, a2, d2 (3 each), la le, 1e-12 la le, le, 1/la,
+//     1/le, r1, r2, margin, the summed invweight, impedance (5); with
+//     kSprings, per dof stiffness and springref.
+// The total mass is summed here, in double, in body order.
 template <typename T>
 bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<T>* out) {
   if (n_int < kIntHeader || n_double < kDoubleHeader) return false;
@@ -1084,18 +1348,21 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
   if (nd < 1 || nd > kMaxDof || nq < nd || nb < 1 || nb > kMaxBodies || nj < 0 ||
       nj > kMaxJoints || nc < 0 || nc > kMaxContacts || nl < 0 || nl > kMaxLimits || na < 0 ||
       na > kMaxAct || n_cyl < 0 || n_cyl > kMaxPairs || (n_cyl > 0 && !(fx & kCylinder)) ||
-      n_self != 0 || m.frame_skip < 0 || m.outer < 0 || m.cg < 0)
+      n_self < 0 || n_self > kMaxSelfPairs || (n_self > 0 && !(fx & kSelfPairs)) ||
+      m.frame_skip < 0 || m.outer < 0 || m.cg < 0)
     return false;
+  m.n_cap = n_self;
   for (int b = 0; b < kCarryBodies; ++b) {
     m.carry_body[b] = ip[13 + b];
     if ((fx & kPusher) && (m.carry_body[b] < 0 || m.carry_body[b] >= nb)) return false;
   }
   if (n_int != kIntHeader + kIntsPerBody * nb + kIntsPerJoint * nj + kIntsPerContact * nc +
-                   kIntsPerLimit * nl + na + kIntsPerPair * n_cyl)
+                   kIntsPerLimit * nl + na + kIntsPerPair * n_cyl + kIntsPerSelfPair * n_self)
     return false;
   if (n_double != kDoubleHeader + kDoublesPerDof * nd + kDoublesPerBody * nb +
                       kDoublesPerJoint * nj + kDoublesPerContact * nc + kDoublesPerLimit * nl +
-                      na + kDoublesPerPair * n_cyl)
+                      na + kDoublesPerPair * n_cyl + kDoublesPerSelfPair * n_self +
+                      ((fx & kSprings) ? kDoublesPerSpring * nd : 0))
     return false;
   const int* ic = ip + kIntHeader;
   const double* dc = dp;
@@ -1118,9 +1385,12 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
     m.armature[d] = T(dc[1]);
     m.h_damping[d] = T(dc[2]);
     m.dof_rot[d] = 0;
+    m.spring_qadr[d] = -1;
   }
+  double total_mass = 0.0;
   for (int b = 0; b < nb; ++b, dc += kDoublesPerBody, ic += kIntsPerBody) {
     Body<T>& bd = m.body[b];
+    total_mass += dc[15];
     for (int i = 0; i < 3; ++i) {
       bd.pos[i] = T(dc[i]);
       bd.com[i] = T(dc[12 + i]);
@@ -1162,7 +1432,9 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
     } else if (J.kind == kHinge) {
       m.dof_rot[J.dof] = 1;
     }
+    if (J.kind != kFree) m.spring_qadr[J.dof] = J.qadr;
   }
+  m.inv_total_mass = T(1.0 / total_mass);
   auto imp = [](const double* v) {
     return Imp<T>{T(v[0]), T(v[1]), T(v[2]), T(v[3]), T(v[4])};
   };
@@ -1221,10 +1493,39 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
     pr.body2 = ic[1];
     if (pr.body1 < 0 || pr.body1 >= nb || pr.body2 < 0 || pr.body2 >= nb) return false;
   }
+  for (int p = 0; p < n_self; ++p, dc += kDoublesPerSelfPair, ic += kIntsPerSelfPair) {
+    CapPair<T>& pr = m.cap[p];
+    for (int i = 0; i < 3; ++i) {
+      pr.a1[i] = T(dc[i]);
+      pr.d1[i] = T(dc[3 + i]);
+      pr.a2[i] = T(dc[6 + i]);
+      pr.d2[i] = T(dc[9 + i]);
+    }
+    pr.lale = T(dc[12]);
+    pr.den_eps = T(dc[13]);
+    pr.le = T(dc[14]);
+    pr.inv_la = T(dc[15]);
+    pr.inv_le = T(dc[16]);
+    pr.r1 = T(dc[17]);
+    pr.r2 = T(dc[18]);
+    pr.margin = T(dc[19]);
+    pr.bw = T(dc[20]);
+    pr.imp = imp(dc + 21);
+    pr.body1 = ic[0];
+    pr.body2 = ic[1];
+    pr.seg1 = ic[2];
+    pr.seg2 = ic[3];
+    if (pr.body1 < 0 || pr.body1 >= nb || pr.body2 < 0 || pr.body2 >= nb) return false;
+  }
+  for (int d = 0; d < nd; ++d) {
+    m.stiffness[d] = (fx & kSprings) ? T(dc[kDoublesPerSpring * d]) : T(0);
+    m.springref[d] = (fx & kSprings) ? T(dc[kDoublesPerSpring * d + 1]) : T(0);
+    if (m.stiffness[d] != T(0) && m.spring_qadr[d] < 0) return false;  // a sprung free dof
+  }
   // the rows: limits, then 4 per condim-3 contact or 1 per condim-1 one
-  // (counted above), then one per cylinder pair
-  m.n_rows += nl + n_cyl;
-  return m.n_rows <= kMaxRows;
+  // (counted above), then one per cylinder pair and one per self pair
+  m.n_rows += nl + n_cyl + n_self;
+  return m.n_rows <= ((fx & kSelfPairs) ? kMaxRowsWide : kMaxRows);
 }
 
 }  // namespace spatial

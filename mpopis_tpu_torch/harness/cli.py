@@ -6,9 +6,11 @@
 
 `car` and `mujoco` take the flags and defaults of the JAX package's
 (`python -m mpopis_tpu ...`), plus `--device` (default `cuda`). `mujoco`
-runs with `--on-device` for Ant-v4, HalfCheetah-v4, Hopper-v4, Pusher-v4,
-Swimmer-v4 and Walker2d-v4; the other on-device tasks, the host engine (no `--on-device`) and the other
-subcommands exit with "not yet ported".
+runs with `--on-device` for the tasks of `harness.simulate.PORTED_MUJOCO_TASKS`
+(Ant-v4, HalfCheetah-v4, Hopper-v4, Humanoid-v4, HumanoidStandup-v4,
+Pusher-v4, Swimmer-v4, Walker2d-v4); the other on-device tasks, the host
+engine (no `--on-device`) and the other subcommands exit with "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="shard the K rollouts across devices (not yet ported)",
     )
 
+    from mpopis_tpu_torch.harness.simulate import PORTED_MUJOCO_TASKS
+
     mj = sub.add_parser("mujoco", help="MuJoCo tasks (on-device dynamics with --on-device)")
     _common(mj, 100, 50, 1.0)
     mj.add_argument("--env-name", default="HalfCheetah-v4")
@@ -77,8 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host engine only (not yet ported)")
     mj.add_argument(
         "--on-device", action="store_true",
-        help="run the dynamics on the card (ported: Ant-v4, HalfCheetah-v4, Hopper-v4, "
-        "Walker2d-v4; "
+        help=f"run the dynamics on the card (ported: {', '.join(PORTED_MUJOCO_TASKS)}; "
         "without it the host engine is not yet ported)",
     )
     mj.add_argument(

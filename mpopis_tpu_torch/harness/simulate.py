@@ -27,6 +27,8 @@ from mpopis_tpu_torch.models import (
     CarRacingEnv,
     CheetahDeviceEnv,
     HopperDeviceEnv,
+    HumanoidDeviceEnv,
+    HumanoidStandupDeviceEnv,
     PusherDeviceEnv,
     SwimmerDeviceEnv,
     Walker2dDeviceEnv,
@@ -270,6 +272,8 @@ PORTED_MUJOCO_TASKS = {
     "Ant-v4": AntDeviceEnv,
     "HalfCheetah-v4": CheetahDeviceEnv,
     "Hopper-v4": HopperDeviceEnv,
+    "Humanoid-v4": HumanoidDeviceEnv,
+    "HumanoidStandup-v4": HumanoidStandupDeviceEnv,
     "Pusher-v4": PusherDeviceEnv,
     "Swimmer-v4": SwimmerDeviceEnv,
     "Walker2d-v4": Walker2dDeviceEnv,
@@ -280,8 +284,8 @@ def simulate_mujoco_on_device(task: str, **kwargs):
     """A MuJoCo task with on-device dynamics: the K×T rollouts of each
     control step run on the card (for the planar- and spatial-contact
     families, one kernel launch per AIS iteration). Counterpart of the JAX
-    package's `simulate_mujoco_on_device`; ported for Ant-v4, HalfCheetah-v4,
-    Hopper-v4, Pusher-v4, Swimmer-v4 and Walker2d-v4. `solver_iters=(outer, cg)` sets the contact QP's fixed
+    package's `simulate_mujoco_on_device`; ported for the tasks of
+    PORTED_MUJOCO_TASKS. `solver_iters=(outer, cg)` sets the contact QP's fixed
     iteration counts (default (3, 6)); `dtype` and `device` (default cuda)
     place the run. Returns the metrics dict, `ais_iterations` and
     `control_steps_per_s` included."""

@@ -1,11 +1,12 @@
-"""Spatial-contact rollout costs and control steps (Ant, Pusher): the CUDA
-kernel `csrc/spatial_rollout.cu`, its plain PyTorch version, and the
-wrappers.
+"""Spatial-contact rollout costs and control steps (Ant, Pusher, Humanoid,
+HumanoidStandup): the CUDA kernel `csrc/spatial_rollout.cu`, its plain
+PyTorch version, and the wrappers.
 
 Counterpart of `mpopis_tpu/kernels/spatial_step.py` (the Pallas TPU kernel
 `_make_kernel` with `_spatial_advance`, entry `spatial_rollout_costs_tak`),
-for the `locomotion` reward family with the `q0` track (Ant) and the
-`pusher` family (Pusher). Two entries share the kernel's device code:
+for the `locomotion` reward family with the `q0` track (Ant) or the `com_x`
+track (Humanoid), the `pusher` family (Pusher) and the `standup` family
+(HumanoidStandup). Two entries share the kernel's device code:
 
 - `spatial_rollout_costs_tak(env, state0_x, controls_tak)`: (K,) costs
   Σ_t −reward_t of clamped controls (T, na, K) from one state
@@ -43,17 +44,28 @@ LAUNCHES = 0
 STEP_LAUNCHES = 0
 # what a build of the kernel takes (the feature mask of csrc/spatial_dynamics.cuh)
 EULER, SLIDE, CONDIM1, CYLINDER, PUSHER = 1, 2, 4, 8, 16
+SELF_PAIRS, SPRINGS, COM_X, STANDUP = 32, 64, 128, 256
 FEATURE_NAMES = {EULER: "the euler_implicit substep", SLIDE: "slide joints",
                  CONDIM1: "condim-1 contacts", CYLINDER: "capsule–cylinder pairs",
-                 PUSHER: "the pusher reward family"}
-# the builds: (n_dof, n_q) -> feature mask (Ant, the Pusher)
-KERNEL_DOFS = {(14, 15): 0, (11, 11): EULER | SLIDE | CONDIM1 | CYLINDER | PUSHER}
+                 PUSHER: "the pusher reward family", SELF_PAIRS: "self-collision pairs",
+                 SPRINGS: "joint springs", COM_X: "the com_x track",
+                 STANDUP: "the standup reward family"}
+# the bits of a build that fix its reward: a model's need them exactly
+REWARD_BITS = PUSHER | COM_X | STANDUP
+# the builds: (n_dof, n_q, feature mask) -> task
+BUILDS = {(14, 15, 0): "Ant",
+          (11, 11, EULER | SLIDE | CONDIM1 | CYLINDER | PUSHER): "Pusher",
+          (23, 24, SELF_PAIRS | SPRINGS | COM_X): "Humanoid",
+          (23, 24, SELF_PAIRS | SPRINGS | STANDUP): "HumanoidStandup"}
+_MASK = {task: mask for (_, _, mask), task in BUILDS.items()}
 # the packing layout and capacities of csrc/spatial_rollout.cu (checked at load)
 LAYOUT = {"int_header": 16, "double_header": 20, "bodies": 16, "joints": 24, "contacts": 32,
-          "limits": 24, "actuators": 24, "pairs": 4, "rows": 128,
-          "ant_features": KERNEL_DOFS[(14, 15)], "pusher_features": KERNEL_DOFS[(11, 11)]}
+          "limits": 24, "actuators": 24, "pairs": 4, "self_pairs": 112, "rows": 128,
+          "wide_rows": 248, "ant_features": _MASK["Ant"], "pusher_features": _MASK["Pusher"],
+          "humanoid_features": _MASK["Humanoid"], "standup_features": _MASK["HumanoidStandup"]}
 _KINDS = {"free": 0, "hinge": 1, "slide": 2}
-_FAMILIES = {"locomotion": 0, "pusher": PUSHER}
+_FAMILIES = {"locomotion": 0, "pusher": PUSHER, "standup": STANDUP}
+_TRACKS = {"q0": 0, "com_x": COM_X}
 
 # model, n_dof, n_q, feature mask, na
 _LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -106,47 +118,64 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"spatial kernel: {msg}")
 
 
-def model_features(model, family: str) -> int:
-    """The feature mask a model and reward family need of a build."""
+def model_features(model, family: str, track: str = "q0") -> int:
+    """The feature mask a model, reward family and track need of a build."""
+    _require(family in _FAMILIES, f"the {family} reward family is not yet ported")
+    _require(track in _TRACKS, f"the {track} track is not yet ported")
     kinds = {j.kind for _, j in model.dof_joints}
     return ((EULER if model.integrator == "euler_implicit" else 0)
             | (SLIDE if "slide" in kinds else 0)
             | (CONDIM1 if any(c.condim == 1 for c in model.contacts) else 0)
             | (CYLINDER if model.pairs else 0)
-            | _FAMILIES[family])
+            | (SELF_PAIRS if model.self_pairs else 0)
+            | (SPRINGS if any(model.stiffness) else 0)
+            | _FAMILIES[family] | (_TRACKS[track] if family == "locomotion" else 0))
+
+
+def select_build(model, family: str, track: str = "q0") -> int:
+    """The feature mask of the build that runs this model: one of BUILDS at
+    its (n_dof, n_q) that has every feature the model needs and rewards its
+    family and track; raises with what is missing."""
+    n, nq = model.n_dof, model.n_q
+    masks = [mask for (bn, bq, mask) in BUILDS if (bn, bq) == (n, nq)]
+    _require(bool(masks), f"{n} dofs and {nq} qpos (the kernel is built for "
+             f"{sorted({(bn, bq) for bn, bq, _ in BUILDS})})")
+    need = model_features(model, family, track)
+    for mask in masks:
+        if not need & ~mask and (need & REWARD_BITS) == (mask & REWARD_BITS):
+            return mask
+    same = [m for m in masks if (need & REWARD_BITS) == (m & REWARD_BITS)]
+    _require(bool(same), f"no {(n, nq)} build rewards the {family} reward family with the "
+             f"{track} track")
+    missing = [name for bit, name in FEATURE_NAMES.items() if need & bit and not same[0] & bit]
+    _require(False, f"{', '.join(missing)} not in the {(n, nq)} build")
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy: float,
                  fwd_w: float, ctrl_w: float, family: str = "locomotion", act_clip: float = 1.0,
-                 carry_bodies: tuple = (-1, -1, -1)):
+                 carry_bodies: tuple = (-1, -1, -1), track: str = "q0"):
     """The model, solver counts, actuators, reward family and weights as the
     kernel's flat int and double arrays (layout: `make_model` in
     csrc/spatial_dynamics.cuh). Derived constants are computed here in
     double, as the plain version computes its Python floats. The kernel has
-    two builds, KERNEL_DOFS: Ant's (RK4, free and hinge joints, condim-3
-    floor contacts, the `locomotion` family) and the Pusher's (Euler-implicit,
-    hinge and slide joints, condim-1 floor contacts, capsule–cylinder pairs,
-    the `pusher` family). Neither takes joint springs or self pairs."""
+    four builds, BUILDS: Ant's (RK4, free and hinge joints, condim-3 floor
+    contacts, the `locomotion` family with the `q0` track), the Pusher's
+    (Euler-implicit, hinge and slide joints, condim-1 floor contacts,
+    capsule–cylinder pairs, the `pusher` family), the Humanoid's (RK4,
+    condim-3 contacts, self pairs, joint springs, `locomotion` with the
+    `com_x` track) and the Standup's (the same with the `standup` family)."""
     n, nb = model.n_dof, len(model.bodies)
     joints = model.dof_joints
-    _require(family in _FAMILIES, f"the {family} reward family is not yet ported")
-    _require((n, model.n_q) in KERNEL_DOFS,
-             f"{n} dofs and {model.n_q} qpos (the kernel is built for {tuple(KERNEL_DOFS)})")
-    build = KERNEL_DOFS[(n, model.n_q)]
-    need = model_features(model, family)
-    missing = [name for bit, name in FEATURE_NAMES.items() if need & bit and not build & bit]
-    _require(not missing, f"{', '.join(missing)} not in the {(n, model.n_q)} build")
-    _require((need & PUSHER) == (build & PUSHER),
-             f"the {(n, model.n_q)} build rewards another family than {family}")
-    _require(not model.self_pairs, "self-collision pairs are not yet ported")
-    _require(not any(model.stiffness), "joint springs are not yet ported")
+    build = select_build(model, family, track)
     _require(all(c.condim in (1, 3) for c in model.contacts), "condim must be 1 or 3")
+    rows = LAYOUT["wide_rows"] if build & SELF_PAIRS else LAYOUT["rows"]
     _require(nb <= LAYOUT["bodies"] and len(joints) <= LAYOUT["joints"]
              and len(model.contacts) <= LAYOUT["contacts"]
              and len(model.limits) <= LAYOUT["limits"] and len(actuators) <= LAYOUT["actuators"]
              and len(model.pairs) <= LAYOUT["pairs"]
-             and model.n_rows <= LAYOUT["rows"], "too many bodies, joints, contacts, limits, "
+             and len(model.self_pairs) <= LAYOUT["self_pairs"]
+             and model.n_rows <= rows, "too many bodies, joints, contacts, limits, "
              "actuators, pairs or rows")
     _require(all(b.parent < i for i, b in enumerate(model.bodies)), "parents must come first")
     _require(all(len(b.joints) == 1 for b in model.bodies
@@ -172,6 +201,13 @@ def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy
     ints += [dof for dof, _ in actuators]
     for p in model.pairs:
         ints += [p.body1, p.body2]
+    # per self pair its segments (body frames) and their squared lengths
+    segs = []
+    for p in model.self_pairs:
+        d1, d2 = (tuple(b - a for a, b in zip(p.a1, p.b1)), tuple(b - a for a, b in zip(p.a2, p.b2)))
+        segs.append((d1, d2, sum(c * c for c in d1), sum(c * c for c in d2)))
+    for p, (_, _, la, le) in zip(model.self_pairs, segs):
+        ints += [p.body1, p.body2, int(la > 0.0), int(le > 0.0)]
 
     dbl = [model.gravity, model.floor_z, h, 0.5 * h, healthy, fwd_w * (1.0 / (h * frame_skip)),
            ctrl_w, act_clip]
@@ -199,6 +235,14 @@ def kernel_model(model, frame_skip: int, outer: int, cg: int, actuators, healthy
         dbl += [*p.a1, *p.b1, *p.center2, p.r1, p.r2, p.hh2, p.margin,
                 model.body_invweight0[p.body1] + model.body_invweight0[p.body2]]
         dbl += impedance_consts(p, model)
+    for p, (d1, d2, la, le) in zip(model.self_pairs, segs):
+        dbl += [*p.a1, *d1, *p.a2, *d2, la * le, 1e-12 * la * le, le,
+                1.0 / la if la > 0.0 else 1.0, 1.0 / le if le > 0.0 else 1.0, p.r1, p.r2,
+                p.margin, model.body_invweight0[p.body1] + model.body_invweight0[p.body2]]
+        dbl += impedance_consts(p, model)
+    if build & SPRINGS:
+        for d in range(n):
+            dbl += [model.stiffness[d], model.springref[d]]
     return (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(dbl))(*dbl)
 
 
@@ -206,7 +250,7 @@ def _env_model(env):
     return kernel_model(env.MODEL, env.FRAME_SKIP, env.solver_outer, env.solver_cg,
                         tuple(env.ACTUATORS), float(env.HEALTHY), float(env.FWD_W),
                         float(env.CTRL_W), env.FAMILY, float(env.ACTION_CLIP),
-                        tuple(getattr(env, "CARRY_BODIES", (-1, -1, -1))))
+                        tuple(getattr(env, "CARRY_BODIES", (-1, -1, -1))), env.TRACK)
 
 
 def _device_model(env, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -236,12 +280,14 @@ def spatial_rollout_costs_tak_reference(env, state0_x, controls_tak):
 
 
 def first_substep_active_rows(env, x):
-    """(joint-limit rows, floor-contact and pair rows) active at the state x:
-    the rows the first substep's QP solves for."""
+    """(joint-limit rows, floor-contact and capsule–cylinder pair rows,
+    self-pair rows) active at the state x: the rows the first substep's QP
+    solves for."""
     model = env.MODEL
     active = contact_rows(model, x[: model.n_q], x[model.n_q: model.n_q + model.n_dof])[3]
-    n_lim = len(model.limits)
-    return int(active[:n_lim].sum()), int(active[n_lim:].sum())
+    n_lim, n_self = len(model.limits), model.n_rows - len(model.self_pairs)
+    return (int(active[:n_lim].sum()), int(active[n_lim:n_self].sum()),
+            int(active[n_self:].sum()))
 
 
 def _check_cuda(dev, dtype):
@@ -251,8 +297,9 @@ def _check_cuda(dev, dtype):
 
 def _launch_args(env, dtype, dev):
     model = env.MODEL
-    return (_device_model(env, dtype, dev).data_ptr(), model.n_dof, model.n_q,
-            KERNEL_DOFS[(model.n_dof, model.n_q)], env.action_dim)
+    ints, _ = _env_model(env)
+    return (_device_model(env, dtype, dev).data_ptr(), model.n_dof, model.n_q, ints[12],
+            env.action_dim)
 
 
 def spatial_rollout_costs_tak(env, state0_x, controls_tak):

@@ -8,6 +8,8 @@ from mpopis_tpu_torch.models.car_racing import (
 )
 from mpopis_tpu_torch.models.cheetah_device import CheetahDeviceEnv
 from mpopis_tpu_torch.models.hopper_device import HopperDeviceEnv
+from mpopis_tpu_torch.models.humanoid_device import HumanoidDeviceEnv
+from mpopis_tpu_torch.models.humanoidstandup_device import HumanoidStandupDeviceEnv
 from mpopis_tpu_torch.models.planar_contact import PlanarContactEnv, PlanarContactModel
 from mpopis_tpu_torch.models.pusher_device import PusherDeviceEnv
 from mpopis_tpu_torch.models.rollout import rollout_batch
@@ -27,6 +29,8 @@ __all__ = [
     "step_car_state",
     "CheetahDeviceEnv",
     "HopperDeviceEnv",
+    "HumanoidDeviceEnv",
+    "HumanoidStandupDeviceEnv",
     "Walker2dDeviceEnv",
     "PlanarContactEnv",
     "PlanarContactModel",

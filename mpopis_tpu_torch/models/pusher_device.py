@@ -229,7 +229,7 @@ class PusherDeviceEnv(SpatialContactEnv):
         x[22:] = _XPOS0
         return make_state(self.tensor(x))
 
-    def _carry(self, q_snap: torch.Tensor) -> torch.Tensor:
+    def _carry(self, q_snap: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
         return xpos9(q_snap)
 
     def _reward(self, x0, x1, action):

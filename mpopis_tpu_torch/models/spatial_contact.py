@@ -27,9 +27,10 @@ planar family's dense stacked-row solve (`planar_contact.solve_qp`). This
 is the plain version the CUDA kernel `csrc/spatial_rollout.cu` is held
 against.
 
-Not ported yet (the Humanoid and HumanoidStandup slices): the
-capsule–capsule self pairs and `contact_force_ssq`. `SCPairCapsule` is here
-as a table only; a model with self pairs raises in `contact_rows`.
+The Humanoid's and the Standup's additions: the capsule–capsule self pairs
+(`capsule_capsule`, their rows after the cylinder pairs), joint springs in
+the smooth force, and `contact_force_ssq`, the Σ‖cfrc_ext‖² the Standup's
+reward reads.
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ class SCPairCylinder:
 @dataclasses.dataclass(frozen=True)
 class SCPairCapsule:
     """Sphere/capsule against sphere/capsule on two bodies: the Humanoid's
-    frictionless self-collision pairs. A table only in this slice."""
+    frictionless self-collision pairs, one row each. A sphere is a
+    zero-length segment (a == b)."""
 
     body1: int
     a1: tuple[float, float, float]
@@ -265,13 +267,21 @@ def _tables(model: SpatialContactModel, dtype: torch.dtype, device: torch.device
         xx, xy, xz, yy, yz, zz = i6
         return ((xx, xy, xz), (xy, yy, yz), (xz, yz, zz))
 
-    lim, con, prs = model.limits, model.contacts, model.pairs
+    lim, con, prs, sps = model.limits, model.contacts, model.pairs, model.self_pairs
     assert all(p.condim == 1 for p in prs)
     # rows per contact: 4 pyramid rows (condim 3) or 1 normal row (condim 1),
     # gathered from [the C×4 pyramid rows, the C normal rows] in model order
-    order = []
+    order, con_row = [], []
     for ci, c in enumerate(con):
+        con_row.append(len(lim) + len(order))
         order += [4 * ci + r for r in range(4)] if c.condim == 3 else [4 * len(con) + ci]
+    # self pairs: the segments in their body frames, their static squared
+    # lengths (0 for a sphere) and the constants of the closest-point algebra,
+    # in double; 1/length² is 1 where a sphere never reads it
+    seg = [(tuple(b - a for a, b in zip(p.a1, p.b1)), tuple(b - a for a, b in zip(p.a2, p.b2)))
+           for p in sps]
+    la = [sum(c * c for c in d1) for d1, _ in seg]
+    le = [sum(c * c for c in d2) for _, d2 in seg]
     return SimpleNamespace(
         n=n,
         is_rot=t(is_rot, torch.bool),
@@ -313,6 +323,7 @@ def _tables(model: SpatialContactModel, dtype: torch.dtype, device: torch.device
         con_axis=t([c.axis_local or (0.0, 0.0, 0.0) for c in con]),
         con_pyramid=t([c.condim == 3 for c in con], torch.bool),
         con_order=t(order, torch.long),
+        con_row=t(con_row, torch.long),
         con_imp=solimp_tensors(model, con, t),
         h_damping_diag=torch.diag(t([model.timestep * d for d in model.damping])),
         pair_b1=t([p.body1 for p in prs], torch.long),
@@ -327,6 +338,25 @@ def _tables(model: SpatialContactModel, dtype: torch.dtype, device: torch.device
         pair_bw=t([model.body_invweight0[p.body1] + model.body_invweight0[p.body2]
                    for p in prs]),
         pair_imp=solimp_tensors(model, prs, t),
+        self_b1=t([p.body1 for p in sps], torch.long),
+        self_b2=t([p.body2 for p in sps], torch.long),
+        self_a1=t([p.a1 for p in sps]).reshape(-1, 3),
+        self_a2=t([p.a2 for p in sps]).reshape(-1, 3),
+        self_d1=t([d1 for d1, _ in seg]).reshape(-1, 3),
+        self_d2=t([d2 for _, d2 in seg]).reshape(-1, 3),
+        self_seg1=t([v > 0.0 for v in la], torch.bool),
+        self_seg2=t([v > 0.0 for v in le], torch.bool),
+        self_lale=t([a * e for a, e in zip(la, le)]),
+        self_den_eps=t([1e-12 * a * e for a, e in zip(la, le)]),
+        self_inv_la=t([1.0 / v if v > 0.0 else 1.0 for v in la]),
+        self_inv_le=t([1.0 / v if v > 0.0 else 1.0 for v in le]),
+        self_le=t(le),
+        self_r1=t([p.r1 for p in sps]),
+        self_r2=t([p.r2 for p in sps]),
+        self_margin=t([p.margin for p in sps]),
+        self_bw=t([model.body_invweight0[p.body1] + model.body_invweight0[p.body2]
+                   for p in sps]),
+        self_imp=solimp_tensors(model, sps, t),
     )
 
 
@@ -573,9 +603,8 @@ def contact_rows(model: SpatialContactModel, q: torch.Tensor, qv: torch.Tensor, 
     """Constraint rows in the dense stacked form: (J (..., R, n), aref (..., R),
     R (..., R), active (..., R) bool), rows ordered as in the JAX package:
     limits, then per contact n + μt1, n − μt1, n + μt2, n − μt2 (condim 3) or
-    the normal row (condim 1), then one row per capsule–cylinder pair."""
-    if model.self_pairs:
-        raise NotImplementedError("spatial self-collision pairs are not yet ported")
+    the normal row (condim 1), then one row per capsule–cylinder pair, then
+    one per self pair."""
     tab = _tab(model, q)
     fr = frames(model, q) if fr is None else fr
     js, arefs, regs, acts = [], [], [], []
@@ -639,21 +668,26 @@ def contact_rows(model: SpatialContactModel, q: torch.Tensor, qv: torch.Tensor, 
         regs.append(all_reg[..., tab.con_order])
         acts.append(all_act[..., tab.con_order])
 
-    if model.pairs:
-        dist, nvec, cp = capsule_cylinder(model, fr)
+    for pairs, geom, b1, b2, margin, bw, pimp in (
+            (model.pairs, capsule_cylinder, tab.pair_b1, tab.pair_b2, tab.pair_margin,
+             tab.pair_bw, tab.pair_imp),
+            (model.self_pairs, capsule_capsule, tab.self_b1, tab.self_b2, tab.self_margin,
+             tab.self_bw, tab.self_imp)):
+        if not pairs:
+            continue
+        dist, nvec, cp = geom(model, fr)
         # J = n · (v₂(cp) − v₁(cp)) over both bodies' dof columns (a dof on
         # both chains cancels)
-        jv1, _ = point_jacobians(model, fr, tab.pair_b1, cp)  # (..., P, n, 3)
-        jv2, _ = point_jacobians(model, fr, tab.pair_b2, cp)
+        jv1, _ = point_jacobians(model, fr, b1, cp)  # (..., P, n, 3)
+        jv2, _ = point_jacobians(model, fr, b2, cp)
         nv = nvec.unsqueeze(-2)
         j = -_dot3(jv1, nv) + _dot3(jv2, nv)
-        pimp = tab.pair_imp
-        pos_m = dist - tab.pair_margin
+        pos_m = dist - margin
         imp = _impedance_rows(pos_m, pimp)
         js.append(j)
         arefs.append(-pimp["bc"] * _seqdot(j, qv.unsqueeze(-2)) - pimp["kc"] * imp * pos_m)
-        regs.append((1.0 - imp) / imp * tab.pair_bw)
-        acts.append(dist < tab.pair_margin)
+        regs.append((1.0 - imp) / imp * bw)
+        acts.append(dist < margin)
 
     return (torch.cat(js, dim=-2), torch.cat(arefs, dim=-1), torch.cat(regs, dim=-1),
             torch.cat(acts, dim=-1))
@@ -728,6 +762,111 @@ def capsule_cylinder(model: SpatialContactModel, fr: Frames, halvings: int = 40)
     nvec = torch.stack([-nx, -ny, -nz], dim=-1)
     cp = p1 + nvec * (tab.pair_r1 + 0.5 * dist).unsqueeze(-1)
     return dist, nvec, cp
+
+
+def capsule_capsule(model: SpatialContactModel, fr: Frames):
+    """Sphere/capsule against sphere/capsule, per self pair: (dist (..., P),
+    normal body1 → body2 (..., P, 3), contact point (..., P, 3)). The closest
+    points of the two axis segments (Ericson, branchless), a pair end that is
+    a sphere taking the point-against-segment form of its type; then
+    dist = |c2 − c1| − r1 − r2 and the contact point c1 + n·(r1 + dist/2).
+    Each type's formula is the JAX package's `_capsule_capsule`, computed for
+    every pair and selected by the pair's static type."""
+    tab = _tab(model, fr.axis)
+    org = torch.stack(fr.origin, dim=-2)
+    rot = torch.stack(fr.rot, dim=-3)
+    r1m, r2m = rot[..., tab.self_b1, :, :], rot[..., tab.self_b2, :, :]
+    a1 = org[..., tab.self_b1, :] + _rvec(r1m, tab.self_a1)
+    a2 = org[..., tab.self_b2, :] + _rvec(r2m, tab.self_a2)
+    d1, d2 = _rvec(r1m, tab.self_d1), _rvec(r2m, tab.self_d2)
+    # capsule against capsule
+    r = a1 - a2
+    lf, lc, lb = _dot3(d2, r), _dot3(d1, r), _dot3(d1, d2)
+    den = tab.self_lale - lb * lb
+    s = torch.where(den > tab.self_den_eps,
+                    torch.clamp((lb * lf - lc * tab.self_le) / torch.clamp(den, min=1e-30),
+                                0.0, 1.0), 0.0)
+    t_raw = (lb * s + lf) * tab.self_inv_le
+    s = torch.where(t_raw < 0.0, torch.clamp(-lc * tab.self_inv_la, 0.0, 1.0),
+                    torch.where(t_raw > 1.0, torch.clamp((lb - lc) * tab.self_inv_la, 0.0, 1.0), s))
+    t = torch.clamp(t_raw, 0.0, 1.0)
+    # a sphere (body1's end) against a capsule, a capsule against a sphere
+    t_sphere = torch.clamp(_dot3(a1 - a2, d2) * tab.self_inv_le, 0.0, 1.0)
+    s_sphere = torch.clamp(_dot3(a2 - a1, d1) * tab.self_inv_la, 0.0, 1.0)
+    seg1, seg2 = tab.self_seg1, tab.self_seg2
+    s = torch.where(seg2, s, s_sphere)
+    t = torch.where(seg1, t, t_sphere)
+    c1 = torch.where(seg1[:, None], a1 + s.unsqueeze(-1) * d1, a1)
+    c2 = torch.where(seg2[:, None], a2 + t.unsqueeze(-1) * d2, a2)
+    dvec = c2 - c1
+    ln = torch.sqrt(torch.clamp(_dot3(dvec, dvec), min=1e-24))
+    nvec = (1.0 / ln).unsqueeze(-1) * dvec
+    dist = ln - tab.self_r1 - tab.self_r2
+    cp = c1 + (tab.self_r1 + 0.5 * dist).unsqueeze(-1) * nvec
+    return dist, nvec, cp
+
+
+def contact_force_ssq(model: SpatialContactModel, q: torch.Tensor, lam: torch.Tensor, fr=None):
+    """Σ_b ‖cfrc_ext[b]‖² (..., ) of the contact forces λ (..., n_rows) at the
+    positions q: per body the world (torque, force) about the whole robot's
+    mass-weighted com; a pyramid's force is n·Σλ + μ·t₁(λ₀ − λ₁) + μ·t₂(λ₂ −
+    λ₃), a condim-1 row's and a pair row's n·λ, +f on body2 and −f on body1;
+    limit rows carry no force and the world body accumulates nothing. The
+    sums run in the JAX package's order (contacts, then cylinder pairs, then
+    self pairs, per body). HumanoidStandup's impact cost reads it at the last
+    RK stage's positions with that stage's λ."""
+    tab = _tab(model, q)
+    fr = frames(model, q) if fr is None else fr
+    com = None
+    for bi, b in enumerate(model.bodies):
+        term = b.mass * (fr.origin[bi] + _rvec(fr.rot[bi], tab.body_com[bi]))
+        com = term if com is None else com + term
+    com = (1.0 / sum(b.mass for b in model.bodies)) * com
+    zero = torch.zeros_like(q[..., 0])
+    # each contribution: (body, sign, contact point (..., 3), force (..., 3))
+    parts = []
+    if model.contacts:
+        org = torch.stack(fr.origin, dim=-2)[..., tab.con_body, :]
+        rot = torch.stack(fr.rot, dim=-3)[..., tab.con_body, :, :]
+        p = org + _rvec(rot, tab.con_local)
+        dist = (p[..., 2] - model.floor_z) - tab.con_radius
+        cp = torch.stack([p[..., 0], p[..., 1], model.floor_z + 0.5 * dist], dim=-1)
+        a_w = _rvec(rot, tab.con_axis)
+        nrm = torch.sqrt(torch.clamp(a_w[..., 0] * a_w[..., 0] + a_w[..., 1] * a_w[..., 1],
+                                     min=1e-24))
+        t1x = torch.where(tab.con_has_axis, a_w[..., 0] / nrm, 0.0)
+        t1y = torch.where(tab.con_has_axis, a_w[..., 1] / nrm, 1.0)
+        last = model.n_rows - 1
+        lams = [lam[..., torch.clamp(tab.con_row + i, max=last)] for i in range(4)]
+        fn = ((lams[0] + lams[1]) + lams[2]) + lams[3]
+        ft1 = tab.con_mu * (lams[0] - lams[1])
+        ft2 = tab.con_mu * (lams[2] - lams[3])
+        pyr = tab.con_pyramid
+        f = torch.stack([torch.where(pyr, ft1 * t1x + ft2 * (-t1y), 0.0),
+                         torch.where(pyr, ft1 * t1y + ft2 * t1x, 0.0),
+                         torch.where(pyr, fn, lams[0])], dim=-1)
+        parts += [(c.body, 1.0, cp[..., ci, :], f[..., ci, :])
+                  for ci, c in enumerate(model.contacts)]
+    for pairs, geom in ((model.pairs, capsule_cylinder), (model.self_pairs, capsule_capsule)):
+        if not pairs:
+            continue
+        first = (model.n_rows - len(model.self_pairs) - len(model.pairs)
+                 if geom is capsule_cylinder else model.n_rows - len(model.self_pairs))
+        _dist, nvec, cp = geom(model, fr)
+        f = lam[..., first: first + len(pairs), None] * nvec
+        for i, pr in enumerate(pairs):
+            parts += [(pr.body2, 1.0, cp[..., i, :], f[..., i, :]),
+                      (pr.body1, -1.0, cp[..., i, :], f[..., i, :])]
+    acc = {}
+    for body, sgn, cp, f in parts:
+        w = torch.cat([_cross(cp - com, f), f], dim=-1)
+        w = -w if sgn < 0 else w
+        acc[body] = w if body not in acc else acc[body] + w
+    s = zero
+    for body in sorted(acc):
+        for c in range(6):
+            s = s + acc[body][..., c] * acc[body][..., c]
+    return s
 
 
 def qfrc_smooth(model: SpatialContactModel, q, qv, tau, bias=None):
@@ -840,10 +979,11 @@ class SpatialContactEnv(ContactEnv):
     reads of the kinematics mj_step leaves in data.xpos: the last RK stage's
     positions for RK4, the last substep's pre-integration positions for
     Euler. The `locomotion` family (this class) carries the root's x there
-    (the JAX package's `q0` track) and rewards healthy + fwd_w·(track' −
-    track)/dt − ctrl_w·Σa², with the action as given; a task of another
-    family overrides FAMILY, N_CARRY, `_carry`, `_reward` and `reset`. The
-    kernels are `kernels/spatial_step.py`'s.
+    (TRACK `q0`, the JAX package's default track) and rewards healthy +
+    fwd_w·(track' − track)/dt − ctrl_w·Σa², with the action as given; a task
+    of another track or family overrides TRACK or FAMILY, `_carry` (which
+    also gets the last substep's λ), `_reward` and `reset`. The kernels are
+    `kernels/spatial_step.py`'s.
     """
 
     solver_outer: int = 3
@@ -853,6 +993,7 @@ class SpatialContactEnv(ContactEnv):
     ACTION_CLIP = 1.0
     FWD_W = 1.0
     FAMILY = "locomotion"
+    TRACK = "q0"
     N_CARRY = 1
     KERNEL = "spatial"
 
@@ -867,15 +1008,16 @@ class SpatialContactEnv(ContactEnv):
         tau[..., dofs] = gear * a
         return tau
 
-    def _carry(self, q_snap: torch.Tensor) -> torch.Tensor:
-        """The family's snapshot (..., N_CARRY) of the positions mj_step
-        leaves in data.xpos: here the root's x."""
+    def _carry(self, q_snap: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+        """The family's snapshot (..., N_CARRY) of what mj_step leaves in
+        data: the positions of its xpos `q_snap` and the last QP's λ. Here
+        the root's x."""
         return q_snap[..., :1]
 
     def plain_step(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """One control step: FRAME_SKIP substeps of the model's integrator, λ
         warm starts chained across them and reset at the control-step
-        boundary, then the carry of the last substep's snapshot."""
+        boundary, then the carry of the last substep's snapshot and λ."""
         model = self.MODEL
         substep = euler_implicit_substep if model.integrator == "euler_implicit" else rk4_substep
         nq, n = model.n_q, model.n_dof
@@ -886,7 +1028,7 @@ class SpatialContactEnv(ContactEnv):
         q_snap = q
         for _ in range(self.FRAME_SKIP):
             q, qv, lam, q_snap = substep(model, q, qv, tau, self.solver_outer, self.solver_cg, lam)
-        return EnvState(x=torch.cat([q, qv, self._carry(q_snap)], dim=-1).to(self.dtype),
+        return EnvState(x=torch.cat([q, qv, self._carry(q_snap, lam)], dim=-1).to(self.dtype),
                         t=state.t + 1, done=state.done)
 
     def _reward(self, x0, x1, action):

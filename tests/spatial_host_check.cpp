@@ -1,8 +1,12 @@
 // Host build of the spatial kernel's device code (mpopis_tpu_torch/csrc/
-// spatial_dynamics.cuh) for tests/test_torch_spatial_kernel.py (Ant's build)
-// and tests/test_torch_pusher_kernel.py (the Pusher's): runs the kernel's
+// spatial_dynamics.cuh) for tests/test_torch_spatial_kernel.py (Ant's build),
+// tests/test_torch_pusher_kernel.py (the Pusher's),
+// tests/test_torch_humanoid_kernel.py (the Humanoid's) and
+// tests/test_torch_standup_models.py (the Standup's): runs the kernel's
 // per-sample function on the CPU, so that its arithmetic is held against the
-// plain PyTorch version where there is no card.
+// plain PyTorch version where there is no card. HOST_BUILDS picks the builds
+// compiled in (1: Ant and the Pusher, the default; 2: the Humanoid; 4: the
+// Standup), so that each test compiles only its own.
 //
 // Input file: int f64, n_int, n_double; the packed ints and doubles; int mode
 // (0 rollout, 1 step), K, T, na; the states as doubles (one state for a
@@ -26,7 +30,13 @@ inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 
 using namespace spatial;
 
+#ifndef HOST_BUILDS
+#define HOST_BUILDS 1
+#endif
+
 constexpr int kPusherFeatures = kEuler | kSlideJoints | kCondim1 | kCylinder | kPusher;
+constexpr int kHumanoidFeatures = kSelfPairs | kSprings | kComX;
+constexpr int kStandupFeatures = kSelfPairs | kSprings | kStandup;
 
 template <typename V>
 static std::vector<V> read(FILE* f, int n) {
@@ -38,6 +48,7 @@ static std::vector<V> read(FILE* f, int n) {
 template <typename T, int N, int NQ, int F>
 static int run(FILE* f, const std::vector<int>& ip, const std::vector<double>& dp) {
   constexpr int NX = NQ + N + Carry<F>::n;
+  constexpr int R = RowCap<F>::n;
   const std::vector<int> hdr = read<int>(f, 4);
   const int mode = hdr[0], num_k = hdr[1], horizon = hdr[2], na = hdr[3];
   static Model<T> m;
@@ -48,17 +59,17 @@ static int run(FILE* f, const std::vector<int>& ip, const std::vector<double>& d
   const std::vector<double> ctrl = read<double>(f, (mode == 0 ? horizon : 1) * na * num_k);
   std::vector<T> xs(x0.begin(), x0.end()), cs(ctrl.begin(), ctrl.end());
   std::vector<T> costs(num_k), out(static_cast<size_t>(NX) * num_k);
-  static Rows<T, N> rows;
-  T lam_full[kMaxRows];
+  static Rows<T, N, R> rows;
+  static T lam_full[R];
   for (int k = 0; k < num_k; ++k) {
     if (mode == 0) {  // the rollout entry's strides: controls (T, na, K)
-      run_sample<T, N, NQ, F>(m, k, xs.data(), 0, cs.data(), static_cast<long long>(na) * num_k,
-                              num_k, 1, horizon, costs.data(), static_cast<T*>(nullptr), lam_full,
-                              rows);
+      run_sample<T, N, NQ, F, R>(m, k, xs.data(), 0, cs.data(),
+                                 static_cast<long long>(na) * num_k, num_k, 1, horizon,
+                                 costs.data(), static_cast<T*>(nullptr), lam_full, rows);
       printf("%.17g\n", static_cast<double>(costs[k]));
     } else {  // the step entry's: states (K, NX), actions (K, na)
-      run_sample<T, N, NQ, F>(m, k, xs.data(), NX, cs.data(), 0, 1, na, 1,
-                              static_cast<T*>(nullptr), out.data(), lam_full, rows);
+      run_sample<T, N, NQ, F, R>(m, k, xs.data(), NX, cs.data(), 0, 1, na, 1,
+                                 static_cast<T*>(nullptr), out.data(), lam_full, rows);
       for (int i = 0; i < NX; ++i) printf("%.17g ", static_cast<double>(out[k * NX + i]));
       printf("\n");
     }
@@ -71,9 +82,19 @@ static int dispatch(FILE* f, int n_int, int n_double) {
   const std::vector<int> ip = read<int>(f, n_int);
   const std::vector<double> dp = read<double>(f, n_double);
   if (n_int < kIntHeader) return 2;
+#if HOST_BUILDS & 1
   if (ip[0] == 14 && ip[1] == 15 && ip[12] == 0) return run<T, 14, 15, 0>(f, ip, dp);
   if (ip[0] == 11 && ip[1] == 11 && ip[12] == kPusherFeatures)
     return run<T, 11, 11, kPusherFeatures>(f, ip, dp);
+#endif
+#if HOST_BUILDS & 2
+  if (ip[0] == 23 && ip[1] == 24 && ip[12] == kHumanoidFeatures)
+    return run<T, 23, 24, kHumanoidFeatures>(f, ip, dp);
+#endif
+#if HOST_BUILDS & 4
+  if (ip[0] == 23 && ip[1] == 24 && ip[12] == kStandupFeatures)
+    return run<T, 23, 24, kStandupFeatures>(f, ip, dp);
+#endif
   return 2;
 }
 

@@ -18,9 +18,12 @@ from mpopis_tpu_torch.models import (
     CarRacingEnv,
     CheetahDeviceEnv,
     HopperDeviceEnv,
+    HumanoidDeviceEnv,
+    HumanoidStandupDeviceEnv,
     PusherDeviceEnv,
     SwimmerDeviceEnv,
     Walker2dDeviceEnv,
+    humanoid_device,
     make_state,
     pusher_device,
 )
@@ -358,8 +361,85 @@ def test_pusher_step_kernel_matches_plain_step(cuda_device, dtype, bound):
     assert float(err.max()) <= bound
 
 
+# -- the spatial-contact kernel's Humanoid and Standup builds ---------------------
+HUMANOIDS = {"humanoid": HumanoidDeviceEnv, "standup": HumanoidStandupDeviceEnv}
+
+
+def _humanoid(which, dtype, device, start):
+    """The reset (the Humanoid standing, the Standup supine) or the crouch
+    (floor and self-pair rows active) with velocities from a numpy seed."""
+    env = HUMANOIDS[which](dtype=dtype, device=device)
+    if start == "reset":
+        return env, env.reset().x
+    q = humanoid_device.crouched_qpos(env.MODEL)
+    qv = torch.as_tensor(np.random.default_rng(4).uniform(-0.3, 0.3, 23))
+    carry = humanoid_device.com_x(q)[None] if which == "humanoid" else torch.zeros(1).double()
+    return env, torch.cat([q, qv, carry]).to(device, dtype)
+
+
+@pytest.mark.parametrize("start", ["reset", "crouch"])
+@pytest.mark.parametrize("which", sorted(HUMANOIDS))
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 2e-4, 2e-3),  # the JAX kernel tests' float32 tolerance
+    (torch.float64, 1e-9, 0.0),
+])
+def test_humanoid_kernel_matches_plain_version(cuda_device, which, start, dtype, rtol, atol):
+    """f64 under the nudge rule: to 1e-9, or to 10× the plain version's own
+    spread under controls·(1 + 1e-15) where the QP switches contacts (the
+    supine Standup lies on a dozen floor and self-pair rows)."""
+    env, x0 = _humanoid(which, dtype, cuda_device, start)
+    ctrl = torch.as_tensor(np.random.default_rng(64).uniform(-0.4, 0.4, (2, 17, 32)),
+                           dtype=dtype, device=cuda_device)
+    before = spatial_step.LAUNCHES
+    got = env.fused_rollout_costs_tak(make_state(x0), ctrl)
+    assert spatial_step.LAUNCHES == before + 1
+    want = spatial_step.spatial_rollout_costs_tak_reference(env, x0, ctrl)
+    assert bool(torch.all(torch.isfinite(got)))
+    if dtype == torch.float64:
+        nudged = spatial_step.spatial_rollout_costs_tak_reference(env, x0, ctrl * (1 + 1e-15))
+        rtol = max(rtol, 10 * float(((nudged - want) / want).abs().max()))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("which", sorted(HUMANOIDS))
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9), (torch.float32, 2e-4)])
+def test_humanoid_step_kernel_matches_plain_step(cuda_device, which, dtype, bound):
+    """Per state around the crouch, |kernel − plain| / max |plain|: the median
+    within the bound, the carry (com x or Σ‖cfrc_ext‖²) included."""
+    env, x0 = _humanoid(which, dtype, cuda_device, "crouch")
+    rng = np.random.default_rng(3)
+    dx = np.concatenate([rng.uniform(-0.01, 0.01, (32, 47)), np.zeros((32, 1))], axis=1)
+    xs = x0 + torch.as_tensor(dx, dtype=dtype, device=cuda_device)
+    acts = torch.as_tensor(rng.uniform(-0.5, 0.5, (32, 17)), dtype=dtype, device=cuda_device)
+    before = spatial_step.STEP_LAUNCHES
+    got = env.step(make_state(xs), acts)
+    assert spatial_step.STEP_LAUNCHES == before + 1 and got.t == 1
+    want = env.plain_step(make_state(xs), acts).x
+    err = (got.x - want).abs().amax(-1) / want.abs().amax(-1)
+    assert bool(torch.all(torch.isfinite(got.x))) and float(err.median()) <= bound
+
+
+@pytest.mark.parametrize("which", sorted(HUMANOIDS))
+def test_humanoid_policy_step_launches_the_kernels(cuda_device, which):
+    """A CEMPPI step rolls out once per AIS iteration on the build; the env
+    step launches the step kernel once."""
+    env = HUMANOIDS[which](device=cuda_device)
+    cfg = PolicyConfig(kind="cemppi", num_samples=64, horizon=2, lam=1.0, opt_its=2,
+                       sigma_est="mle")
+    pol = make_policy(env, cfg, cov_mat=0.25 * np.eye(17))
+    before = (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES)
+    a, _, info = pol.step(env.reset(), pol.init_state(1))
+    torch.cuda.synchronize()
+    assert (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES) == (before[0] + info["ais_its"],
+                                                                   before[1])
+    s, r = env.step_reward(env.reset(), a)
+    assert spatial_step.STEP_LAUNCHES == before[1] + 1
+    assert bool(torch.isfinite(r)) and s.x.device.type == "cuda"
+
+
 def test_spatial_wrappers_refuse_what_no_build_takes(cuda_device):
-    """Self pairs and joint springs: refused before any launch."""
+    """Self pairs and joint springs in a build without them: refused before
+    any launch."""
     import dataclasses
 
     from mpopis_tpu_torch.models import spatial_contact as sc

@@ -159,11 +159,25 @@ def test_cli_mujoco_on_device_prints_banner_and_table(capsys):
 @pytest.mark.parametrize("argv", [
     ["mujoco"],
     ["mujoco", "--env-name", "Hopper-v4"],
-    ["mujoco", "--on-device", "--env-name", "Humanoid-v4"],
+    ["mujoco", "--on-device", "--env-name", "Reacher-v4"],
 ])
 def test_cli_unported_mujoco_paths_exit(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         main(argv)
+
+
+def test_cli_on_device_help_names_every_ported_task(capsys, monkeypatch):
+    """The `--on-device` help lists PORTED_MUJOCO_TASKS, all eight."""
+    monkeypatch.setenv("COLUMNS", "1000")  # no line breaks inside a task name
+    with pytest.raises(SystemExit) as exit_info:
+        main(["mujoco", "--help"])
+    assert exit_info.value.code == 0
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.strip().startswith("--on-device"))
+    assert len(simulate.PORTED_MUJOCO_TASKS) == 8
+    for task in simulate.PORTED_MUJOCO_TASKS:
+        assert task in line
+    assert "Humanoid-v4" in line and "HumanoidStandup-v4" in line
 
 
 def test_cli_mujoco_parser_defaults_match_jax():

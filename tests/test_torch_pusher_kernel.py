@@ -67,8 +67,8 @@ def test_first_substep_active_rows_counts_limits_contacts_and_pairs():
     """At the reset nothing touches (joints at limit bounds 0 are not past
     them); the side start has a pair row; the floor start floor rows too."""
     got = {name: spatial_step.first_substep_active_rows(*_start(name)) for name in STARTS}
-    assert got["reset"] == (0, 0)
-    assert got["side"][1] >= 1
+    assert got["reset"] == (0, 0, 0)
+    assert got["side"][1] >= 1 and got["side"][2] == 0
     x = _start("floor")[1]
     active = spatial_step.contact_rows(pd.MODEL, x[:11], x[11:22])[3]
     assert active[11:17].any() and active[17:].any()
@@ -119,8 +119,9 @@ def test_kernel_model_packing_follows_the_layout():
     ints, dbl = spatial_step._env_model(env)
     ints, dbl = list(ints), list(dbl)
     nb, nj, nc, nl, na, npair = 12, 11, 6, 11, 7, 3
-    feats = spatial_step.KERNEL_DOFS[(11, 11)]
+    feats = spatial_step.select_build(pd.MODEL, "pusher")
     assert feats == 31 == spatial_step.model_features(pd.MODEL, "pusher")
+    assert spatial_step.BUILDS[(11, 11, feats)] == "Pusher"
     assert ints[:16] == [11, 11, nb, nj, nc, nl, na, npair, 0, 5, 3, 6, feats, 9, 10, 11]
     assert len(ints) == 16 + 4 * nb + 4 * nj + 3 * nc + 2 * nl + na + 2 * npair
     assert len(dbl) == 20 + 3 * 11 + 22 * nb + 24 * nj + 16 * nc + 9 * nl + na + 19 * npair

@@ -118,8 +118,9 @@ def test_kernel_model_packing_follows_the_layout():
 
 
 def test_kernel_model_rejects_what_the_kernel_cannot_take():
-    """Ant's build takes none of the Pusher's branches; no build takes joint
-    springs, self pairs or another reward family."""
+    """Ant's (14, 15) build takes none of the other builds' branches (Euler,
+    slide joints, condim-1 contacts, joint springs, self pairs) or reward
+    families."""
     model = AntDeviceEnv.MODEL
     args = (5, 3, 6, AntDeviceEnv.ACTUATORS, 1.0, 1.0, 0.5)
     with pytest.raises(ValueError, match="euler_implicit"):
@@ -153,7 +154,7 @@ def test_first_substep_active_rows_counts_limits_and_contacts():
     """At the reset the 4 ankle limits are violated; at x[2] = 0.26 the torso
     sphere is inside the contact margin; at the grounded start (0.30) it is
     not yet."""
-    for name, want in (("reset", (4, 0)), ("shallow", (4, 4)), ("grounded", (4, 0))):
+    for name, want in (("reset", (4, 0, 0)), ("shallow", (4, 4, 0)), ("grounded", (4, 0, 0))):
         env, x = _start(name)
         assert spatial_step.first_substep_active_rows(env, x) == want, name
 
