@@ -91,9 +91,6 @@ SEED = 1
 RACE_STEPS = 1000
 # the planar-contact path: the JAX package's end-to-end contact configuration
 PK, PH, PITS, PLAM = 2048, 15, 3, 0.1
-# the f64 comparisons at K=2048 run the first 5 of the 15 steps (the f32 ones
-# all 15), to keep chip_smoke inside its time
-PH64 = 5
 # Hopper and Walker2d run 20 steps and the other kinds' races 30: enough to
 # show each on its kernels, and short enough to leave the time limit to the
 # later paths
@@ -383,22 +380,21 @@ def _planar_path(card: str) -> list:
               f"2e-3); against the plain f64: kernel {float((k32 - p64).abs().max()):.3e}, "
               f"plain f32 {float((p32 - p64).abs().max()):.3e}")
 
-        # f64, K=2048 over the first PH64 of the T=15 steps: median relative
-        # error ≤ 1e-9, beside the plain version's own spread under
-        # controls·(1 + 1e-15) where the median is beyond it (the nudge rule)
+        # f64, K=2048 T=15: median relative error ≤ 1e-9, beside the plain
+        # version's own spread under controls·(1 + 1e-15) where the median is
+        # beyond it (the nudge rule)
         ctrl64 = _uniform(PK, PH, na, 2048, torch.float64)
         for start in ("reset", "lowered"):
             env64, x64 = env_x(task, torch.float64, drop=start == "lowered")
-            c64 = ctrl64[:PH64].contiguous()
-            want = ref(env64, x64, c64)
-            rel = _rel_err(kern(env64, x64, c64), want)
+            want = ref(env64, x64, ctrl64)
+            rel = _rel_err(kern(env64, x64, ctrl64), want)
             med, med_pert, spread = float(np.median(rel)), 0.0, "the plain version's own not needed"
             if med > 1e-9:
-                rel_pert = _rel_err(ref(env64, x64, c64 * (1 + NUDGE[torch.float64])), want)
+                rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want)
                 med_pert = float(np.median(rel_pert))
                 spread = (f"plain vs plain at controls·(1+1e-15): max {rel_pert.max():.3e} "
                           f"median {med_pert:.3e}, {int(np.sum(rel_pert > 1e-9))} beyond")
-            print(f"phase 7: {task} f64 K={PK} T={PH64} from {start}: rel err max "
+            print(f"phase 7: {task} f64 K={PK} T={PH} from {start}: rel err max "
                   f"{rel.max():.3e} median {med:.3e}, {int(np.sum(rel > 1e-9))} of {PK} beyond "
                   f"1e-9; {spread}")
             _hold(f"{task} f64 from {start}: kernel median relative error", med, med_pert, 1e-9)
@@ -1660,7 +1656,7 @@ def _humanoid_path(card: str, which: str) -> list:
     ctrl64 = torch.as_tensor(np.random.default_rng(first).uniform(-0.4, 0.4, (HH, na, HK)),
                              dtype=torch.float64, device="cuda")
     res = _kernel_vs_plain(f"phase {first}: {label}", kern, ref, make, ("reset", "crouch"),
-                           ctrl64, 2e-3, spatial_contact, t64=3)
+                           ctrl64, 2e-3, spatial_contact)
     for start in ("reset", "crouch"):
         tl = res[start]["tally"]
         print(f"phase {first}: over the plain f32 rollouts' QP calls from {start}: "

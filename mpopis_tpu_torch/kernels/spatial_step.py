@@ -50,19 +50,17 @@ FEATURE_NAMES = {EULER: "the euler_implicit substep", SLIDE: "slide joints",
                  PUSHER: "the pusher reward family", SELF_PAIRS: "self-collision pairs",
                  SPRINGS: "joint springs", COM_X: "the com_x track",
                  STANDUP: "the standup reward family"}
-# the bits of a build that fix its reward: a model's need them exactly
-REWARD_BITS = PUSHER | COM_X | STANDUP
-# the builds: (n_dof, n_q, feature mask) -> task
-BUILDS = {(14, 15, 0): "Ant",
-          (11, 11, EULER | SLIDE | CONDIM1 | CYLINDER | PUSHER): "Pusher",
-          (23, 24, SELF_PAIRS | SPRINGS | COM_X): "Humanoid",
-          (23, 24, SELF_PAIRS | SPRINGS | STANDUP): "HumanoidStandup"}
-_MASK = {task: mask for (_, _, mask), task in BUILDS.items()}
+# the builds: (n_dof, n_q, feature mask)
+ANT_BUILD = (14, 15, 0)
+PUSHER_BUILD = (11, 11, EULER | SLIDE | CONDIM1 | CYLINDER | PUSHER)
+HUMANOID_BUILD = (23, 24, SELF_PAIRS | SPRINGS | COM_X)
+STANDUP_BUILD = (23, 24, SELF_PAIRS | SPRINGS | STANDUP)
+BUILDS = (ANT_BUILD, PUSHER_BUILD, HUMANOID_BUILD, STANDUP_BUILD)
 # the packing layout and capacities of csrc/spatial_rollout.cu (checked at load)
 LAYOUT = {"int_header": 16, "double_header": 20, "bodies": 16, "joints": 24, "contacts": 32,
           "limits": 24, "actuators": 24, "pairs": 4, "self_pairs": 112, "rows": 128,
-          "wide_rows": 248, "ant_features": _MASK["Ant"], "pusher_features": _MASK["Pusher"],
-          "humanoid_features": _MASK["Humanoid"], "standup_features": _MASK["HumanoidStandup"]}
+          "wide_rows": 248, "ant_features": ANT_BUILD[2], "pusher_features": PUSHER_BUILD[2],
+          "humanoid_features": HUMANOID_BUILD[2], "standup_features": STANDUP_BUILD[2]}
 _KINDS = {"free": 0, "hinge": 1, "slide": 2}
 _FAMILIES = {"locomotion": 0, "pusher": PUSHER, "standup": STANDUP}
 _TRACKS = {"q0": 0, "com_x": COM_X}
@@ -132,23 +130,23 @@ def model_features(model, family: str, track: str = "q0") -> int:
             | _FAMILIES[family] | (_TRACKS[track] if family == "locomotion" else 0))
 
 
+def _names(mask: int) -> str:
+    return ", ".join(name for bit, name in FEATURE_NAMES.items() if mask & bit) or "nothing"
+
+
 def select_build(model, family: str, track: str = "q0") -> int:
-    """The feature mask of the build that runs this model: one of BUILDS at
-    its (n_dof, n_q) that has every feature the model needs and rewards its
-    family and track; raises with what is missing."""
+    """The feature mask of the build that runs this model with this reward
+    family and track: the one of BUILDS with exactly the features it needs;
+    raises with what each build at its (n_dof, n_q) lacks and adds."""
     n, nq = model.n_dof, model.n_q
-    masks = [mask for (bn, bq, mask) in BUILDS if (bn, bq) == (n, nq)]
+    need = model_features(model, family, track)
+    if (n, nq, need) in BUILDS:
+        return need
+    masks = [mask for bn, bq, mask in BUILDS if (bn, bq) == (n, nq)]
     _require(bool(masks), f"{n} dofs and {nq} qpos (the kernel is built for "
              f"{sorted({(bn, bq) for bn, bq, _ in BUILDS})})")
-    need = model_features(model, family, track)
-    for mask in masks:
-        if not need & ~mask and (need & REWARD_BITS) == (mask & REWARD_BITS):
-            return mask
-    same = [m for m in masks if (need & REWARD_BITS) == (m & REWARD_BITS)]
-    _require(bool(same), f"no {(n, nq)} build rewards the {family} reward family with the "
-             f"{track} track")
-    missing = [name for bit, name in FEATURE_NAMES.items() if need & bit and not same[0] & bit]
-    _require(False, f"{', '.join(missing)} not in the {(n, nq)} build")
+    _require(False, f"no {(n, nq)} build fits: " + "; ".join(
+        f"one lacks {_names(need & ~m)} and adds {_names(m & ~need)}" for m in masks))
 
 
 @functools.lru_cache(maxsize=None)

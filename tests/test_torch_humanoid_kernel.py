@@ -126,33 +126,36 @@ def test_plain_rollout_costs_match_jax(jax_env):
                                rtol=1e-9)
 
 
-def cemppi_step_against_jax(jenv_cls, env, lam):
+def cemppi_step_against_jax(jenv_cls, env, lam, costs=None):
     """One CEMPPI control step (2 AIS iterations, K=4, H=2, `mle`) from the
     reset of `env` (f64, CPU) and of the JAX package's `jenv_cls` with the
-    same injected normals, the JAX policy scoring its candidates with the
-    port's plain rollout costs through a host callback (so that it runs
-    eagerly, with no dynamics of its own to compile; the dynamics are
-    pinned by the step and rollout tests). The action, the plan, the costs
-    and the weights at rtol 1e-9, or within 10× the JAX step's own spread
-    under z·(1 + 1e-15) where a contact switch turns rounding into other
-    iterates (the nudge rule)."""
+    same injected normals, the JAX policy scoring its candidates through a
+    host callback (so that it runs eagerly, with no vmapped rollout to
+    compile): `costs(x, controls_tak)` in numpy, by default the port's
+    plain rollout costs (the dynamics pinned by the step and rollout
+    tests). The action, the plan, the costs and the weights at rtol 1e-9,
+    or within 10× the JAX step's own spread under z·(1 + 1e-15) where a
+    contact switch turns rounding into other iterates (the nudge rule)."""
+    if costs is None:
+        def costs(x, c):
+            return spatial_step.spatial_rollout_costs_tak_reference(
+                env, torch.as_tensor(x), torch.as_tensor(c)).numpy()
 
-    class PortCosts(jenv_cls):
+    class HostCosts(jenv_cls):
         @property
         def supports_fused_rollout(self):
             return True
 
         def fused_rollout_costs_tak(self, state, controls_tak):
             def host(x, c):
-                return spatial_step.spatial_rollout_costs_tak_reference(
-                    env, torch.as_tensor(np.array(x)), torch.as_tensor(np.array(c))).numpy()
+                return np.asarray(costs(np.array(x), np.array(c)), dtype=np.float64)
 
             return jax.pure_callback(
                 host, jax.ShapeDtypeStruct(controls_tak.shape[2:], controls_tak.dtype),
                 state.x, controls_tak)
 
     kw = dict(kind="cemppi", num_samples=4, horizon=2, lam=lam, opt_its=2, sigma_est="mle")
-    jenv = PortCosts(dtype=jnp.float64)
+    jenv = HostCosts(dtype=jnp.float64)
     jpol = jmake_policy(jenv, JPolicyConfig(**kw), cov_mat=COV, jit=False)
     pol = make_policy(env, PolicyConfig(**kw), cov_mat=COV)
     z = np.random.default_rng(13).standard_normal((2, 17 * 2, 4))
@@ -210,7 +213,7 @@ def test_kernel_model_packing_follows_the_layout():
     nb, nj, nc, nl, na, ns = 13, 18, 29, 17, 17, 109
     feats = spatial_step.select_build(model, "locomotion", "com_x")
     assert feats == spatial_step.SELF_PAIRS | spatial_step.SPRINGS | spatial_step.COM_X == 224
-    assert spatial_step.BUILDS[(23, 24, feats)] == "Humanoid"
+    assert (23, 24, feats) == spatial_step.HUMANOID_BUILD
     assert ints[:16] == [23, 24, nb, nj, nc, nl, na, 0, ns, 5, 3, 6, feats, -1, -1, -1]
     assert len(ints) == 16 + 4 * nb + 4 * nj + 3 * nc + 2 * nl + na + 4 * ns
     assert len(dbl) == (20 + 3 * 23 + 22 * nb + 24 * nj + 16 * nc + 9 * nl + na + 26 * ns

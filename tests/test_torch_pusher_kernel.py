@@ -121,7 +121,7 @@ def test_kernel_model_packing_follows_the_layout():
     nb, nj, nc, nl, na, npair = 12, 11, 6, 11, 7, 3
     feats = spatial_step.select_build(pd.MODEL, "pusher")
     assert feats == 31 == spatial_step.model_features(pd.MODEL, "pusher")
-    assert spatial_step.BUILDS[(11, 11, feats)] == "Pusher"
+    assert (11, 11, feats) == spatial_step.PUSHER_BUILD
     assert ints[:16] == [11, 11, nb, nj, nc, nl, na, npair, 0, 5, 3, 6, feats, 9, 10, 11]
     assert len(ints) == 16 + 4 * nb + 4 * nj + 3 * nc + 2 * nl + na + 2 * npair
     assert len(dbl) == 20 + 3 * 11 + 22 * nb + 24 * nj + 16 * nc + 9 * nl + na + 19 * npair
