@@ -23,12 +23,15 @@ them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
 - phases 11-15, the policy layer: the AIS-update kernels (masked and
   weighted refit, CMA tail) and the Cholesky and forward-solve kernels
   against their plain versions (float32 at the JAX kernel tests'
-  tolerances, float64 at 1e-9 relative), the float32 control step at
-  K=8192 on the kernel path against the library path under each switch
+  tolerances, float64 at 1e-9 relative; the last two at n = 1, 31, 32,
+  33, 100, 136, 600 and 1024, and the Cholesky's NaNs from a failing
+  pivot at n = 6 and at column 70 of n = 100), the float32 control step
+  at K=8192 on the kernel path against the library path under each switch
   (MPOPIS_FUSED_UPDATE=1, MPOPIS_PALLAS_LINALG=1), `simulate_car_racing`
   at full width for all nine policy kinds (CMAMPPI raced on both paths),
-  and the timings of each kernel, its plain version, the library
-  composition it replaces and each kind's control step;
+  and the timings of each kernel (back to back from Python, and
+  device-only from a CUDA graph of the same calls), its plain version, the
+  library call or composition it replaces and each kind's control step;
 - phases 16-20, the spatial-contact MuJoCo task Ant: the spatial rollout
   kernel and its control-step entry against their plain versions (f32 at
   the JAX kernel tests' tolerances from reset and from the grounded start,
@@ -296,6 +299,42 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int):
+    """(ms per call, method): the device time of `reps` calls of `fn` without
+    the host between them. The calls are captured once in a CUDA graph and
+    its replay is timed by CUDA events; where the capture fails, the sum of
+    the device kernels' times in a torch.profiler trace of `reps` calls."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps, "CUDA graph"
+    except RuntimeError as err:
+        print(f"  CUDA graph capture failed ({str(err).splitlines()[0]}); torch.profiler")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / 1e3 / reps, "torch.profiler kernel sum"
 
 
 def _rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -604,6 +643,10 @@ def _err_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) 
 
 # float32 tolerances of the JAX kernel tests (rtol, atol) per kernel family
 F32_TOL = {"refit": (5e-4, 5e-5), "cma": (5e-3, 5e-4), "solve": (5e-5, 5e-6)}
+# the Cholesky and forward-solve kernels' sizes: their panel edges (32
+# columns), the car's n = 100, the Humanoid's H·nu = 136, and two sizes
+# factored in device memory, up to the switch's n = 1024
+CHOL_SIZES = (1, 31, 32, 33, 100, 136, 600, 1024)
 
 
 def _ais_path(card: str) -> list:
@@ -649,7 +692,7 @@ def _ais_path(card: str) -> list:
              torch.as_tensor(consts["ws"], device=dev),
              torch.tensor(0.8, device=dev, dtype=torch.float64))
     spd64 = {}
-    for size in (n, 600):
+    for size in CHOL_SIZES:
         b = 0.2 * torch.randn((size, size), generator=g, device=dev, dtype=torch.float64)
         spd64[size] = b @ b.T + torch.eye(size, device=dev, dtype=torch.float64)
     rhs64 = {size: torch.randn((2, size), generator=g, device=dev, dtype=torch.float64)
@@ -682,8 +725,8 @@ def _ais_path(card: str) -> list:
             a = spd64[size].to(dt)
             l_ref = linalg.chol_reference(a)
             rhs = rhs64[size].to(dt)
-            out.append((f"cholesky n={size}", "refit", lambda a=a: linalg.chol_kernel(a),
-                        lambda a=a: linalg.chol_reference(a)))
+            out.append((f"cholesky n={size} lda={linalg.chol_lda(size, dt)}", "refit",
+                        lambda a=a: linalg.chol_kernel(a), lambda a=a: linalg.chol_reference(a)))
             out.append((f"forward_solve n={size} nrhs=2", "solve",
                         lambda l=l_ref, r=rhs: linalg.fwd_solve_kernel(l, r),
                         lambda l=l_ref, r=rhs: linalg.fwd_solve_reference(l, r)))
@@ -708,15 +751,35 @@ def _ais_path(card: str) -> list:
                 rel = max(_rel_norm(gg, ww) for gg, ww in zip(got, want))
                 print(f"phase 12: {name} f64: max|err| / max|plain| {rel:.3e} (bound 1e-9)")
                 _require(rel <= 1e-9, f"{name}: f64 kernel disagrees with its plain version")
+    ldas = {(size, dt): linalg.chol_lda(size, dt) for size in CHOL_SIZES
+            for dt in (torch.float32, torch.float64)}
+    _require(any(lda > size for (size, _), lda in ldas.items()) and
+             any(size > 240 for size, _ in ldas),
+             "no Cholesky case factored with padded rows in shared memory, or none in memory")
+    # not positive definite: the identity with pivot 3 of 6 failing, and the
+    # n = 100 matrix with pivot 70 failing (inside the third panel)
     for dt in (torch.float32, torch.float64):
-        bad = torch.eye(6, device=dev, dtype=dt)
-        bad[3, 3] = -1.0
-        l_bad = linalg.chol_kernel(bad)
-        torch.cuda.synchronize()
-        nan_ok = bool(torch.isnan(l_bad[3:, 3]).all()) and not bool(torch.isnan(l_bad[:, :3]).any())
-        print(f"phase 12: cholesky of a matrix that is not positive definite ({dt}): NaN from "
-              f"the failing column on: {nan_ok}")
-        _require(nan_ok, "the Cholesky kernel did not give NaNs for a non-PD matrix")
+        bad6 = torch.eye(6, device=dev, dtype=dt)
+        bad100 = spd64[n].to(dt).clone()
+        for bad, piv in ((bad6, 3), (bad100, 70)):
+            bad[piv, piv] = -1.0
+            l_bad, l_want = linalg.chol_kernel(bad), linalg.chol_reference(bad)
+            torch.cuda.synchronize()
+            low = torch.tril(torch.ones_like(bad, dtype=torch.bool))
+            nan_ok = (bool(torch.equal(torch.isnan(l_bad), torch.isnan(l_want))) and
+                      bool(torch.isnan(l_bad[piv:, piv:][low[piv:, piv:]]).all()) and
+                      not bool(torch.isnan(l_bad[:, :piv]).any()))
+            # columns before it: within the f32 tolerance, or 1e-9 of max|plain| in f64
+            if dt == torch.float32:
+                before = _err_ratio(l_bad[:, :piv], l_want[:, :piv], *F32_TOL["refit"])
+            else:
+                before = _rel_norm(l_bad[:, :piv], l_want[:, :piv]) / 1e-9
+            print(f"phase 12: cholesky n={bad.shape[0]} ({dt}) with pivot {piv} failing: the "
+                  f"plain version's NaN pattern, NaN on and below the diagonal from column "
+                  f"{piv}, finite before it: {nan_ok}; columns before it {before:.3f} of the "
+                  f"{'f32 tolerance' if dt == torch.float32 else 'f64 bound 1e-9'}")
+            _require(nan_ok and before <= 1.0,
+                     f"the Cholesky kernel's NaNs for a non-PD matrix (n={bad.shape[0]}, {dt})")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
     # -- phase 13: the f32 control step, kernel path against library path ----
@@ -880,12 +943,19 @@ def _ais_path(card: str) -> list:
         c_a = _time_ms(run_comp, 30)
         lib = (_time_ms(run_lib, 30) + _time_ms(run_lib, 30)) / 2 if run_lib else None
         c_b = _time_ms(run_comp, 30)
+        # device-only: the same 30 calls, the kernel's and the library call's
+        # alike, timed without the Python caller between them
+        k_dev, k_how = _device_ms(run_k, 30)
+        lib_dev, lib_how = _device_ms(run_lib, 30) if run_lib else (None, None)
         times[name] = {"ms": (k_a + k_b) / 2, "plain_ms": (p_a + p_b) / 2, "library_ms": lib,
-                       "composition_ms": (c_a + c_b) / 2}
-        lib_txt = f", library call {lib:.4f} ms" if lib is not None else ""
-        print(f"phase 15: {name} f32 n={n} K={K}: kernel {k_a:.4f} / {k_b:.4f} ms, plain "
-              f"{p_a:.3f} / {p_b:.3f} ms, the library composition it replaces {c_a:.4f} / "
-              f"{c_b:.4f} ms{lib_txt} (CUDA events; {card})")
+                       "composition_ms": (c_a + c_b) / 2, "device_ms": k_dev,
+                       "library_device_ms": lib_dev}
+        lib_txt = (f", library call {lib:.4f} ms back to back, {lib_dev:.4f} ms device-only "
+                   f"({lib_how})" if lib is not None else "")
+        print(f"phase 15: {name} f32 n={n} K={K}: kernel {k_a:.4f} / {k_b:.4f} ms back to back, "
+              f"{k_dev:.4f} ms device-only ({k_how}), plain {p_a:.3f} / {p_b:.3f} ms, the "
+              f"library composition it replaces {c_a:.4f} / {c_b:.4f} ms{lib_txt} (CUDA "
+              f"events; {card})")
     fused_cma = cma_strategy("1")
     fused_cma()
     print(f"phase 15: CMA strategy update, fused path {_time_ms(fused_cma, 30):.4f} ms (the "
@@ -933,8 +1003,10 @@ def _ais_path(card: str) -> list:
         # 20 Newton–Schulz steps of 3 products, the rank-μ sum over K, the Cholesky
         "cma_update": _bound(60 * 2.0 * n**3 + 8.0 * K + chol_flops,
                              4.0 * (3 * n * n + 4 * n + 2 * K + 2)),
-        "cholesky": _bound(chol_flops, 4.0 * 2 * n * n),
-        "forward_solve": _bound(2 * n * n, 4.0 * (n * n + 2 * 2 * n)),
+        # the lower triangle read, all of L written
+        "cholesky": _bound(chol_flops, 4.0 * (n * n + n * (n + 1) / 2)),
+        # the lower triangle of L and b read, y written
+        "forward_solve": _bound(2 * n * n, 4.0 * (n * (n + 1) / 2 + 2 * 2 * n)),
     }
     sources = {"masked_refit": ("ais_update", "mpopis_tpu/kernels/ais_update.py:192"),
                "weighted_refit": ("ais_update", "mpopis_tpu/kernels/ais_update.py:219"),
@@ -942,7 +1014,8 @@ def _ais_path(card: str) -> list:
                "cholesky": ("linalg", "mpopis_tpu/kernels/linalg.py:34"),
                "forward_solve": ("linalg", "mpopis_tpu/kernels/linalg.py:53")}
     err_key = {"masked_refit": "masked_refit ss", "weighted_refit": "weighted_refit",
-               "cma_update": "cma_update update_chol=True", "cholesky": f"cholesky n={n}",
+               "cma_update": "cma_update update_chol=True",
+               "cholesky": f"cholesky n={n} lda={linalg.chol_lda(n, torch.float32)}",
                "forward_solve": f"forward_solve n={n} nrhs=2"}
     entries = []
     for name, (src, replaces) in sources.items():
@@ -954,6 +1027,8 @@ def _ais_path(card: str) -> list:
             "plain_ms": times[name]["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": times[name]["library_ms"],
             "composition_ms": times[name]["composition_ms"],
+            "device_ms": times[name]["device_ms"],
+            "library_device_ms": times[name]["library_device_ms"],
         })
     return entries
 

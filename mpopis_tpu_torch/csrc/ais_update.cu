@@ -36,9 +36,18 @@
 // What bounds them on an H100: at the headline (n = 100, K = 8192) the
 // refit's moments are 2 n^2 K = 164 MFLOP each (A, and B for lw/ss), ~2.4 us
 // at the 67 TFLOP/s float peak, against 3.3 MB of E read (~1 us at 3.35 TB/s);
-// the one-block finalize (n sequential Cholesky columns) and the CMA tail
-// (60 dependent 2 MFLOP products on one SM, then a Cholesky) are latency-bound
-// chains on one SM, far from either peak.
+// the one-block finalize and the CMA tail (60 dependent 2 MFLOP products on
+// one SM, then a Cholesky) are latency-bound chains on one SM, far from
+// either peak. Their Cholesky is block_linalg.cuh's blocked factor (panels of
+// 32 columns, three barriers each, where the column loop before it had three
+// per column), which the finalize writes straight to L: the masked `ss`
+// refit fell from 0.184-0.189 to 0.098 ms device-only (0.101-0.109 back to
+// back), the weighted refit from 0.172-0.176 to 0.084 (0.087-0.090), the CMA
+// tail from 2.520-2.526 to 2.371 (2.378-2.389) ms (f32, chip_smoke.py phase
+// 15, the parent's kernels timed back to back in the same call; H100 80GB
+// HBM3, 700 W). At 1024 threads a thread has 64 registers, and the factor's
+// diagonal blocks spill: they take ~4.8 us there against ~2.5 us at 384
+// threads (scripts/linalg_phase_times.py).
 //
 // Interface: plain C functions per dtype, loaded with ctypes. Each launches on
 // the given stream, does not synchronise, and returns cudaGetLastError(); the
@@ -265,8 +274,7 @@ __global__ void __launch_bounds__(kThreads)
     shrink_finalize(a, b, vec, n, m, method, red);
   }
   mpopis::block_jitter(a, n, jitter, eps_of(T()), red);
-  mpopis::block_cholesky(a, n);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) l_out[idx] = a[idx];
+  mpopis::block_cholesky(a, n, n, l_out);
 }
 
 size_t refit_work_elems(int n) { return 2 * static_cast<size_t>(n) * n + 2 * n; }
@@ -426,7 +434,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (update_chol) {
     mpopis::block_jitter(w, n, jitter, eps_of(T()), red);
-    mpopis::block_cholesky(w, n);
+    mpopis::block_cholesky(w, n, n);
   }
   for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
     chol_out[idx] = update_chol ? sigma_new * w[idx] : T(0);

@@ -19,6 +19,7 @@ kernel launches, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -26,28 +27,46 @@ import torch
 from mpopis_tpu_torch.kernels.build import load_library
 
 MAX_N = 1024  # the largest matrix the switch sends to the kernels
-MAX_RHS = 256  # kSolveThreads of csrc/linalg.cu: one thread per right-hand side
+MAX_RHS = 16  # kMaxRhs of csrc/linalg.cu: one warp per right-hand side
 CHOL_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
 
-_FNS: dict[tuple[str, torch.dtype], object] = {}
+_LIB: list[ctypes.CDLL] = []  # the loaded library, its argument types set
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _kernel_fn(name: str, dtype: torch.dtype):
-    if not _FNS:
+def _lib() -> ctypes.CDLL:
+    if not _LIB:
         lib = load_library("linalg")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for op, argtypes in (("chol", [ptr, ptr, i32, ptr]),
-                             ("fwd_solve", [ptr, ptr, ptr, i32, i32, ptr])):
-            for suffix, dt in (("f32", torch.float32), ("f64", torch.float64)):
-                fn = getattr(lib, f"linalg_{op}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _FNS[(op, dt)] = fn
-        lib.linalg_max_solve_rhs.restype = ctypes.c_int
+        for name, argtypes, restype in (
+            *((f"linalg_chol_{sfx}", [ptr, ptr, i32, ptr], i32) for sfx in _SUFFIX.values()),
+            *((f"linalg_fwd_solve_{sfx}", [ptr, ptr, ptr, i32, i32, ptr], i32)
+              for sfx in _SUFFIX.values()),
+            ("linalg_max_solve_rhs", [], i32),
+            ("linalg_chol_lda", [i32, i32], i32),
+            ("linalg_fwd_solve_smem", [i32, i32, i32], ctypes.c_longlong),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
         if lib.linalg_max_solve_rhs() != MAX_RHS:
             raise RuntimeError("linalg.cu and its wrapper disagree on the interface")
-    return _FNS[(name, dtype)]
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def chol_lda(n: int, dtype: torch.dtype) -> int:
+    """The row stride the Cholesky kernel factors an (n, n) matrix with: an odd
+    number of 16-byte units where those rows fit a block's shared memory, else n."""
+    return _lib().linalg_chol_lda(n, torch.finfo(dtype).bits // 8)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_solve_fits(n: int, nrhs: int, dtype: torch.dtype) -> bool:
+    """Whether the forward-solve kernel takes nrhs right-hand sides of length
+    n: nrhs ≤ MAX_RHS and its two stages of L and y fit a block's shared memory.
+    Cached, so a launch pays the library's answer once per shape."""
+    return _lib().linalg_fwd_solve_smem(n, nrhs, torch.finfo(dtype).bits // 8) >= 0
 
 
 def chol_reference(a: torch.Tensor) -> torch.Tensor:
@@ -105,7 +124,7 @@ def chol_kernel(a: torch.Tensor) -> torch.Tensor:
     check_arg("chol_kernel", a.is_contiguous(), "matrix must be contiguous")
     n = a.shape[0]
     out = torch.empty_like(a)
-    fn = _kernel_fn("chol", a.dtype)
+    fn = getattr(_lib(), f"linalg_chol_{_SUFFIX[a.dtype]}")
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -132,10 +151,9 @@ def fwd_solve_kernel(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_tensor("fwd_solve_kernel", "L", l, dev, l.dtype)
     check_tensor("fwd_solve_kernel", "b", b, dev, l.dtype)
     nrhs = b.shape[0]
-    check_arg("fwd_solve_kernel",
-              nrhs <= MAX_RHS and nrhs * (n + 1) * l.element_size() <= 48 * 1024,
+    check_arg("fwd_solve_kernel", fwd_solve_fits(n, nrhs, l.dtype),
               f"{nrhs} right-hand sides of length {n} (too many)")
-    fn = _kernel_fn("fwd_solve", l.dtype)
+    fn = getattr(_lib(), f"linalg_fwd_solve_{_SUFFIX[l.dtype]}")
     out = torch.empty_like(b)
     with torch.cuda.device(dev):
         rc = fn(l.data_ptr(), b.data_ptr(), out.data_ptr(), n, nrhs,

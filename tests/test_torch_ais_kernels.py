@@ -127,8 +127,14 @@ def _spd(n, npdt, seed=3):
     return (a @ a.T + np.eye(n)).astype(npdt)
 
 
+# the CUDA factor's panel edges (32 columns a panel): a lone column, one
+# panel, one and a bit, the car's n = 100 (3 panels and 4 columns), the
+# Humanoid's H·nu = 136
+PANEL_EDGES = [1, 31, 32, 33, 136]
+
+
 @pytest.mark.parametrize("dt", ["f32", "f64"])
-@pytest.mark.parametrize("n", [4, 100])
+@pytest.mark.parametrize("n", [4, 100, *PANEL_EDGES])
 def test_cholesky_plain_matches_jax_kernel(n, dt):
     spd = _spd(n, DTYPES[dt][0])
     got = linalg.chol_kernel(torch.as_tensor(spd))
@@ -147,10 +153,34 @@ def test_cholesky_plain_gives_nans_where_not_positive_definite():
 
 
 @pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_cholesky_plain_gives_nans_from_a_later_panel(dt):
+    """n = 100 with its failing pivot at column 70, inside the third panel:
+    the same NaN pattern as the JAX kernel, finite before column 70."""
+    spd = _spd(100, DTYPES[dt][0])
+    spd[70, 70] = -1.0
+    got = linalg.chol_kernel(torch.as_tensor(spd)).numpy()
+    want = np.asarray(_chol_pallas(jnp.asarray(spd), interpret=True))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[70:, 70:][np.tril_indices(30)]).all()
+    assert not np.isnan(got[:, :70]).any()
+    _close(torch.as_tensor(got[:, :70]), want[:, :70], "linalg", dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_forward_solve_plain_matches_jax_kernel(dt):
     npdt, _ = DTYPES[dt]
     l = np.linalg.cholesky(_spd(100, np.float64, seed=4)).astype(npdt)
     b = np.random.default_rng(4).normal(size=(2, 100)).astype(npdt)
+    got = linalg.fwd_solve_kernel(torch.as_tensor(l), torch.as_tensor(b))
+    _close(got, _fwd_solve_pallas(jnp.asarray(l), jnp.asarray(b), interpret=True), "linalg", dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("n", PANEL_EDGES)
+def test_forward_solve_plain_matches_jax_kernel_at_panel_edges(n, dt):
+    npdt, _ = DTYPES[dt]
+    l = np.linalg.cholesky(_spd(n, np.float64, seed=5)).astype(npdt)
+    b = np.random.default_rng(5).normal(size=(2, n)).astype(npdt)
     got = linalg.fwd_solve_kernel(torch.as_tensor(l), torch.as_tensor(b))
     _close(got, _fwd_solve_pallas(jnp.asarray(l), jnp.asarray(b), interpret=True), "linalg", dt)
 

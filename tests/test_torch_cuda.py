@@ -540,7 +540,7 @@ def test_cma_kernel_matches_plain_version(cuda_device, dtype, update_chol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [4, 100, 600])
+@pytest.mark.parametrize("n", [4, 100, 600, 1, 31, 32, 33, 136, 1024])
 def test_cholesky_and_forward_solve_kernels_match_plain_versions(cuda_device, dtype, n):
     g = torch.Generator(device="cpu").manual_seed(n)
     a = torch.randn((n, n), generator=g, dtype=torch.float64) * 0.2
@@ -562,6 +562,54 @@ def test_cholesky_kernel_gives_nans_where_not_positive_definite(cuda_device):
     spd[3, 3] = -1.0
     l = linalg.chol_kernel(spd)
     assert bool(torch.isnan(l[3:, 3]).all()) and not bool(torch.isnan(l[:, :3]).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cholesky_kernel_gives_nans_from_a_later_panel(cuda_device, dtype):
+    """n = 100 with pivot 70 failing, inside the third panel of 32 columns:
+    the plain version's NaN pattern, finite and equal before column 70."""
+    g = torch.Generator(device="cpu").manual_seed(70)
+    a = torch.randn((100, 100), generator=g, dtype=torch.float64) * 0.2
+    spd = (a @ a.T + torch.eye(100, dtype=torch.float64)).to(device=cuda_device, dtype=dtype)
+    spd[70, 70] = -1.0
+    l, want = linalg.chol_kernel(spd), linalg.chol_reference(spd)
+    assert bool(torch.equal(torch.isnan(l), torch.isnan(want)))
+    low = torch.tril(torch.ones((30, 30), dtype=torch.bool, device=cuda_device))
+    assert bool(torch.isnan(l[70:, 70:][low]).all())
+    assert not bool(torch.isnan(l[:, :70]).any())
+    _ais_close(l[:, :70], want[:, :70], "refit", dtype)
+
+
+@pytest.mark.parametrize("dtype,n,lda", [
+    (torch.float32, 136, 140),  # 136 floats are 34 units of 16 bytes: padded to 35
+    (torch.float32, 31, 36),
+    (torch.float32, 100, 100),  # 25 units: no padding needed
+    (torch.float32, 240, 240),  # padded rows would not fit: unpadded in shared memory
+    (torch.float64, 100, 102),
+    (torch.float64, 170, 170),
+    (torch.float32, 241, 241),  # in device memory
+])
+def test_cholesky_kernel_row_stride(cuda_device, dtype, n, lda):
+    """The staged matrix's row stride: an odd number of 16-byte units where the
+    padded rows fit a block's shared memory, else n; the factor agrees with
+    the plain version at each."""
+    assert linalg.chol_lda(n, dtype) == lda
+    g = torch.Generator(device="cpu").manual_seed(lda)
+    a = torch.randn((n, n), generator=g, dtype=torch.float64) * 0.2
+    spd = (a @ a.T + torch.eye(n, dtype=torch.float64)).to(device=cuda_device, dtype=dtype)
+    _ais_close(linalg.chol_kernel(spd), linalg.chol_reference(spd), "refit", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,nrhs", [(33, 1), (33, 16), (1024, 5), (1024, 16)])
+def test_forward_solve_kernel_takes_up_to_max_rhs(cuda_device, dtype, n, nrhs):
+    assert linalg.fwd_solve_fits(n, nrhs, dtype)
+    g = torch.Generator(device="cpu").manual_seed(nrhs)
+    a = torch.randn((n, n), generator=g, dtype=torch.float64) * 0.2
+    l = torch.linalg.cholesky(a @ a.T + torch.eye(n, dtype=torch.float64))
+    b = torch.randn((nrhs, n), generator=g, dtype=torch.float64)
+    l, b = (t.to(device=cuda_device, dtype=dtype).contiguous() for t in (l, b))
+    _ais_close(linalg.fwd_solve_kernel(l, b), linalg.fwd_solve_reference(l, b), "solve", dtype)
 
 
 def test_ais_wrappers_reject_bad_inputs(cuda_device):
@@ -594,6 +642,8 @@ def test_ais_wrappers_reject_bad_inputs(cuda_device):
         linalg.fwd_solve_kernel(sig, torch.zeros((2, 7), device=cuda_device))
     with pytest.raises(ValueError, match="b is"):
         linalg.fwd_solve_kernel(sig, torch.zeros((2, 8), device=cuda_device, dtype=torch.float64))
+    with pytest.raises(ValueError, match="too many"):
+        linalg.fwd_solve_kernel(sig, torch.zeros((linalg.MAX_RHS + 1, 8), device=cuda_device))
     assert (ais_update.MASKED_LAUNCHES, ais_update.WEIGHTED_LAUNCHES, ais_update.CMA_LAUNCHES,
             linalg.CHOL_LAUNCHES, linalg.SOLVE_LAUNCHES) == before
 
