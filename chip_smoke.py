@@ -65,7 +65,12 @@ them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
   timings.
 
 The f64 comparisons of Ant and the Pusher at the main path's K run the
-first 3 of its T steps; each plain version is timed once.
+first 3 of its T steps; each plain version is timed once. Phases 19, 27, 31
+and 35 also replay ten of the main path's own rollout launches (launches
+20-29, their inputs recorded as the path ran) for their device time and its
+share of the control step, and print each path's reward beside the
+thread-per-sample kernel's; phases 17 and 25 (with 29 and 33) print the
+free device memory around each build's first launches.
 
 Every kernel's launch count is set to 0 just before each path and read
 just after. Every phase raises on failure; there is no CPU path. The
@@ -137,6 +142,9 @@ PUSHER_TOUCH = (-0.307, 0.068)
 # (3, 6), λ=1.0 (Humanoid) and 0.3 (Standup); 50 reported steps each
 HK, HH, HITS = 1024, 8, 2
 HUMANOID_STEPS = 50
+# the main path's own rollout launches timed by phases 19, 27, 31 and 35:
+# launches 20 .. 29, after the first steps' transient
+MAIN_WINDOW = (20, 10)
 # the paths `--only` selects, in the order of a full run
 PATHS = ("car", "planar", "ais", "ant", "swimmer", "pusher", "humanoid", "standup")
 # the H100's published peaks (float32 outside the tensor cores; HBM3)
@@ -335,6 +343,41 @@ def _device_ms(fn, reps: int):
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages())
     return us / 1e3 / reps, "torch.profiler kernel sum"
+
+
+@contextlib.contextmanager
+def _recording(module, name: str, first: int, count: int):
+    """Record (cloned) the arguments of calls first .. first + count - 1 of
+    `module.name`, which runs as before; yields the list of recorded calls."""
+    orig, calls, seen = getattr(module, name), [], [0]
+
+    def recording(env, *args):
+        if first <= seen[0] < first + count:
+            calls.append((env, *(a.clone() for a in args)))
+        seen[0] += 1
+        return orig(env, *args)
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _own_launch_ms(label, calls, kern, counts, rollout, step, steps_per_s, card) -> float:
+    """The device time (`_device_ms`) of the main path's own rollout launches
+    recorded in a window, replayed on their own inputs, and their share of
+    the control step: launches per executed step × mean ms over the step's
+    host time (1000 / control steps per second). Returns the mean ms."""
+    ms = [_device_ms(lambda c=c: kern(*c), 1)[0] for c in calls]
+    mean, per_step = float(np.mean(ms)), counts[rollout] / counts[step]
+    step_ms = 1e3 / steps_per_s
+    print(f"{label} the main path's own rollout launches ({len(ms)} recorded, from launch "
+          f"{MAIN_WINDOW[0]}): device {mean:.4f} ms mean (min {min(ms):.4f}, max {max(ms):.4f}; "
+          f"CUDA graph replay); {per_step:.3f} launches per control step make "
+          f"{per_step * mean:.3f} ms, {100 * per_step * mean / step_ms:.1f}% of the "
+          f"{step_ms:.3f} ms control step ({card})")
+    return mean
 
 
 def _rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1061,6 +1104,8 @@ def _spatial_path(card: str) -> list:
         return env, x
 
     # -- phase 17: kernel against its plain version --------------------------
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
     for start in ANT_Z:
         # f32, K=64 T=3: the JAX kernel tests' rtol 2e-4 / atol 2e-3
         env, x = env_x(torch.float32, start)
@@ -1088,6 +1133,11 @@ def _spatial_path(card: str) -> list:
               f"{rel_pert.max():.3e} median {np.median(rel_pert):.3e}")
         _hold(f"Ant f64 from {start}: kernel max relative error", float(rel.max()),
               float(rel_pert.max()), 1e-9)
+
+    # CUDA reserves local memory for every thread that can be resident at the
+    # largest stack launched so far: the first f64 launch's shows here
+    print(f"phase 17: free device memory {free0 / 2**30:.2f} GiB before the Ant build's first "
+          f"launch, {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB after its comparisons")
 
     # spatial_step_states against the plain step, 256 grounded states
     step_err = {}
@@ -1150,12 +1200,13 @@ def _spatial_path(card: str) -> list:
 
     # -- phase 19: the main path, simulate_mujoco_on_device at full width -----
     t_phase = time.perf_counter()
-    _zero_counts()
-    m = simulate_mujoco_on_device(
-        "Ant-v4", num_trials=1, num_steps=ANT_STEPS, num_samples=AK, horizon=AH, lam=ALAM,
-        ais_its=AITS, ce_sigma_est="mle", seed=SEED, device="cuda", dtype=torch.float32,
-    )
-    counts = _counts()
+    with _recording(spatial_step, "spatial_rollout_costs_tak", *MAIN_WINDOW) as calls:
+        _zero_counts()
+        m = simulate_mujoco_on_device(
+            "Ant-v4", num_trials=1, num_steps=ANT_STEPS, num_samples=AK, horizon=AH, lam=ALAM,
+            ais_its=AITS, ce_sigma_est="mle", seed=SEED, device="cuda", dtype=torch.float32,
+        )
+        counts = _counts()
     its = int(m["ais_iterations"][0])
     rew, rps = float(m["rewards"][0]), float(m["rewards_per_step"][0])
     launches = {k: v for k, v in counts.items() if v}
@@ -1169,6 +1220,9 @@ def _spatial_path(card: str) -> list:
     _require(set(launches) == {"spatial_rollout", "spatial_step_states"},
              f"Ant: other kernels launched: {launches}")
     _require(np.isfinite(rew), "Ant: non-finite reward")
+    own_ms = _own_launch_ms("phase 19: Ant", calls, kern, counts, "spatial_rollout",
+                            "spatial_step_states", float(m["control_steps_per_s"][0]), card)
+    _print_reward("phase 19:", "Ant-v4", m)
 
     # -- phase 20: the kernel against its plain version at the main path's K
     # (f32 at the main path's T, f64 over its first 3 steps), then timings by
@@ -1244,6 +1298,7 @@ def _spatial_path(card: str) -> list:
         "bound_by": roll_bound[1],
         "library_ms": None,
         "median_rel_err_f32": median32,
+        "main_path_ms": own_ms,
     }, {
         "name": "spatial_step_states",
         "route": "cuda",
@@ -1398,17 +1453,20 @@ def _cemppi_kernel_vs_plain(label, env_cls, k, horizon, its, lam, rollout, step)
     _hold(f"{label} CEMPPI step: U, kernel vs plain path", err_u, own_u, 1e-8)
 
 
-def _main_path(label, task, k, horizon, its, lam, steps, rollout, step):
+def _main_path(label, task, k, horizon, its, lam, steps, rollout, step, record=None):
     """`simulate_mujoco_on_device(task)` on the card, f32, seed 1, every count
     set to 0 just before and read just after; the executed actions (its CSV)
-    replayed through the env's step entry give the states. Returns
-    (metrics, the counts, the env, the states from the reset on)."""
+    replayed through the env's step entry give the states. `record` (module,
+    function name) records the MAIN_WINDOW calls of the rollout entry
+    (`_recording`). Returns (metrics, the counts, the env, the states from the
+    reset on, the recorded calls)."""
     import tempfile
 
     from mpopis_tpu_torch.harness.simulate import PORTED_MUJOCO_TASKS, simulate_mujoco_on_device
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as acts_dir:
+    with tempfile.TemporaryDirectory() as acts_dir, contextlib.ExitStack() as stack:
+        calls = stack.enter_context(_recording(*record, *MAIN_WINDOW)) if record else []
         _zero_counts()
         m = simulate_mujoco_on_device(
             task, num_trials=1, num_steps=steps, num_samples=k, horizon=horizon, lam=lam,
@@ -1434,7 +1492,18 @@ def _main_path(label, task, k, horizon, its, lam, steps, rollout, step):
     for a in acts:
         states.append(env.step(states[-1], torch.as_tensor(a, dtype=torch.float32,
                                                            device="cuda")))
-    return m, counts, env, states
+    return m, counts, env, states, calls
+
+
+# the main paths' rewards in the last run of the thread-per-sample kernel 4
+# (f32, seed 1; H100 80GB HBM3, 700.00 W)
+THREAD_KERNEL_REWARD = {"Ant-v4": 813.32, "Pusher-v4": -31.41, "Humanoid-v4": 318.4792,
+              "HumanoidStandup-v4": 8261.7322}
+
+
+def _print_reward(label, task, m):
+    print(f"{label} {task} reward {float(m['rewards'][0]):.4f} (thread-per-sample kernel 4: "
+          f"{THREAD_KERNEL_REWARD[task]})")
 
 
 def _timed(label, shape, run_k, reps_k, plain, card, reps_p=1):
@@ -1501,8 +1570,9 @@ def _swimmer_path(card: str) -> list:
                             "swimmer_rollout", "swimmer_step_states")
 
     # -- phase 23: the main path -----------------------------------------------
-    m, counts, env, (*_, s) = _main_path("phase 23:", "Swimmer-v4", SK, SH, SITS, SLAM, SWIMMER_STEPS,
-                                   "swimmer_rollout", "swimmer_step_states")
+    m, counts, env, (*_, s), _ = _main_path("phase 23:", "Swimmer-v4", SK, SH, SITS, SLAM,
+                                            SWIMMER_STEPS, "swimmer_rollout",
+                                            "swimmer_step_states")
     x_final = float(s.x[0])
     print(f"phase 23: the replayed actions leave the torso at x = {x_final:.4f} (from 0)")
     _require(x_final > 0, "the swimmer did not swim forward")
@@ -1589,6 +1659,8 @@ def _pusher_path(card: str) -> list:
             for ptx in log[i:i + 6]:
                 if "registers" in ptx or "spill" in ptx or "Compiling entry" in ptx:
                     print("  ptxas (Pusher build):", ptx.strip())
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
     env, x = make(torch.float32, "touch")
     n_lim, n_con, _ = spatial_step.first_substep_active_rows(env, x)
     print(f"phase 25: Pusher touching start: {n_lim} limit and {n_con} floor and pair rows "
@@ -1602,6 +1674,8 @@ def _pusher_path(card: str) -> list:
           f"{tally[1] - tally[2]} condim-1 floor rows and {tally[2]} capsule–cylinder pair rows "
           f"active (from reset: {res['reset']['tally'][1] - res['reset']['tally'][2]} and "
           f"{res['reset']['tally'][2]})")
+    print(f"phase 25: free device memory {free0 / 2**30:.2f} GiB before the Pusher build's "
+          f"first launch, {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB after its comparisons")
     _require(tally[1] - tally[2] > 0 and tally[2] > 0,
              "Pusher: no condim-1 or no pair row active in the compared rollouts")
     step_err = _step_vs_plain("phase 25: Pusher", spatial_step.spatial_step_states, make,
@@ -1614,8 +1688,12 @@ def _pusher_path(card: str) -> list:
                             "spatial_rollout", "spatial_step_states")
 
     # -- phase 27: the main path -----------------------------------------------
-    m, counts, env, (*_, s) = _main_path("phase 27:", "Pusher-v4", UK, UH, UITS, ULAM, PUSHER_STEPS,
-                                   "spatial_rollout", "spatial_step_states")
+    m, counts, env, (*_, s), calls = _main_path(
+        "phase 27:", "Pusher-v4", UK, UH, UITS, ULAM, PUSHER_STEPS, "spatial_rollout",
+        "spatial_step_states", record=(spatial_step, "spatial_rollout_costs_tak"))
+    own_ms = _own_launch_ms("phase 27: Pusher", calls, kern, counts, "spatial_rollout",
+                            "spatial_step_states", float(m["control_steps_per_s"][0]), card)
+    _print_reward("phase 27:", "Pusher-v4", m)
     r0, r1 = float(env.reward(env.reset())), float(env.reward(s))
     print(f"phase 27: the replayed actions take the shaped reward −|obj − goal| − "
           f"0.5·|obj − tips| from {r0:.4f} at reset to {r1:.4f}")
@@ -1659,6 +1737,7 @@ def _pusher_path(card: str) -> list:
         "bound_by": roll_bound[1],
         "library_ms": None,
         "median_rel_err_f32": res["touch"]["median_rel_err_f32"],
+        "main_path_ms": own_ms,
     }, {
         "name": "spatial_step_states_pusher",
         "route": "cuda",
@@ -1759,9 +1838,12 @@ def _humanoid_path(card: str, which: str) -> list:
     # Humanoid's objective (5 + 1.25·com-x velocity − 0.1·Σa², no
     # termination) pays for a forward dive, so its torso is only reported
     # there; the controller must beat the zero-action run's reward per step.
-    m, counts, env, states = _main_path(f"phase {first + 2}:", task, HK, HH, HITS, lam,
-                                        HUMANOID_STEPS, "spatial_rollout",
-                                        "spatial_step_states")
+    m, counts, env, states, calls = _main_path(
+        f"phase {first + 2}:", task, HK, HH, HITS, lam, HUMANOID_STEPS, "spatial_rollout",
+        "spatial_step_states", record=(spatial_step, "spatial_rollout_costs_tak"))
+    own_ms = _own_launch_ms(f"phase {first + 2}: {label}", calls, kern, counts, "spatial_rollout",
+                            "spatial_step_states", float(m["control_steps_per_s"][0]), card)
+    _print_reward(f"phase {first + 2}:", task, m)
     executed = 10 * -(-(HUMANOID_STEPS + 1) // 10)  # whole chunks of 10 steps
     _require(counts["spatial_step_states"] == executed,
              f"{task}: {counts['spatial_step_states']} step launches for {executed} steps")
@@ -1827,6 +1909,7 @@ def _humanoid_path(card: str, which: str) -> list:
         "bound_by": roll_bound[1],
         "library_ms": None,
         "median_rel_err_f32": res[touch]["median_rel_err_f32"],
+        "main_path_ms": own_ms,
     }, {
         "name": f"spatial_step_states_{which}",
         "route": "cuda",

@@ -1,7 +1,9 @@
 // Block-wide small linear algebra shared by csrc/linalg.cu and
 // csrc/ais_update.cu: one thread block works on one matrix that lies in
 // shared memory or, when it does not fit there, in global memory (the
-// functions take a plain pointer and __syncthreads() orders both). Every
+// functions take a plain pointer and __syncthreads() orders both).
+// csrc/spatial_dynamics.cuh factors each sample's mass matrix with one
+// warp's chol_diag_block. Every
 // function is called by all threads of the block and returns with the block
 // synchronised; blockDim.x is a multiple of 32, at most 1024.
 //

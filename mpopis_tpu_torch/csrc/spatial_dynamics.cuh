@@ -1,5 +1,6 @@
-// Spatial (3D) contact dynamics of one sample, for the rollout kernel in
-// spatial_rollout.cu: quaternion forward kinematics, the analytic mass matrix
+// Spatial (3D) contact dynamics of one sample, run by the W lanes of a warp,
+// for the rollout kernel in spatial_rollout.cu: quaternion forward
+// kinematics, the analytic mass matrix
 // and bias, joint springs, the joint-limit and floor-contact rows (condim-3
 // pyramids or one condim-1 normal row), the capsule-cylinder and the
 // capsule-capsule (self) pair rows, the warm-started box QP, the RK4 substep
@@ -17,10 +18,27 @@
 // pairs, springs and the `standup` family. The row capacity follows F too
 // (RowCap): 128 rows, or 248 with self pairs.
 //
-// A transcription of the plain PyTorch version
-// (mpopis_tpu_torch/models/spatial_contact.py), which keeps the JAX package's
-// association order of every sum; nvcc contracts multiply-adds into FMAs, so
-// the double instantiation agrees with it to rounding, not bit for bit.
+// The arithmetic of the plain PyTorch version
+// (mpopis_tpu_torch/models/spatial_contact.py) spread over the lanes: the
+// double instantiation agrees with it to rounding, not bit for bit (nvcc
+// contracts multiply-adds into FMAs, the lanes' sums are trees, and the QP
+// applies J M^-1 J^T as W^T W with W = L^-1 J^T).
+//
+// The lanes of one sample (Lanes<W>: a warp on the card, W = 32; one lane in
+// the host build of tests/spatial_host_check.cpp, W = 1, where every lane
+// primitive is the identity) share a workspace (Work) in shared memory:
+// - every lane carries the state, the actions and the per-dof vectors in
+//   registers and computes the same integration and reward;
+// - the first lane walks the body tree (the frames, the bodies' motion);
+// - lane b forms body b's com, inertia and wrench; the lanes take the mass
+//   matrix's lower-triangle entries and the bias entries;
+// - the factor of M is one warp's (block_linalg.cuh's chol_diag_block);
+// - lane l tests candidate rows l, l + W, ... of each kind and forms the
+//   valid ones, compacted in the model's order by a ballot and popcount;
+// - the QP's rows and iterates lie on the lanes, and every lane sums its
+//   scalars over the lanes in row order, as the plain version's serial
+//   association (the same bits on every lane).
+// There are no atomics: a sample's result does not depend on scheduling.
 //
 // The model is a POD struct read by every thread of a launch at the same
 // addresses (uniform loads). Bodies, joints, contacts and limits are run-time
@@ -33,6 +51,10 @@
 // version, so skipping it changes nothing, and a sample with no valid row
 // skips its QP (every iterate would stay 0).
 #pragma once
+
+#ifdef __CUDACC__
+#include "block_linalg.cuh"
+#endif
 
 namespace spatial {
 
@@ -61,7 +83,20 @@ constexpr int kMaxSelfPairs = 112;
 constexpr int kMaxRowsWide = 248;  // rows of a build with self pairs (Humanoid: 242)
 constexpr int kCarryBodies = 3;  // the `pusher` family's xpos bodies
 
-// the row capacity of a build: local arrays of every thread are this long
+// The phases of a forward pass that scripts/spatial_phase_times.py times: a
+// stamp charges the time since the previous one (or since the sample's
+// start) to its phase. The script builds a copy with SPATIAL_STAMP and
+// SPATIAL_STAMP_START defined; otherwise a stamp is nothing.
+enum Phase {
+  kPhFrames, kPhMass, kPhFactor, kPhLimits, kPhFloor, kPhCylinder, kPhSelf, kPhApply, kPhQp,
+  kPhIntegrate, kPhReward, kPhases
+};
+#ifndef SPATIAL_STAMP
+#define SPATIAL_STAMP(phase) ((void)0)
+#define SPATIAL_STAMP_START() ((void)0)
+#endif
+
+// the row capacity of a build: a sample's workspace holds this many rows
 template <int F>
 struct RowCap {
   static constexpr int n = (F & kSelfPairs) ? kMaxRowsWide : kMaxRows;
@@ -99,6 +134,7 @@ struct Contact {
   T radius, mu, margin, bw, rfac;
   Imp<T> imp;
   int body, has_axis, condim;
+  int row;  // its first row of the model
 };
 
 template <typename T>
@@ -149,6 +185,59 @@ struct Model {
   T inv_total_mass;
   int n_cap;
 };
+
+// The lanes that run one sample: a warp on the card (W = 32), one lane in the
+// host build (W = 1), where every primitive is the identity.
+template <int W>
+struct Lanes;
+
+template <>
+struct Lanes<1> {
+  __device__ __forceinline__ static int lane() { return 0; }
+  __device__ __forceinline__ static unsigned below() { return 0u; }  // the lanes under this one
+  __device__ __forceinline__ static unsigned ballot(bool p) { return p ? 1u : 0u; }
+  template <typename T>
+  __device__ __forceinline__ static T sum(T v, int) { return v; }
+  template <typename T>
+  __device__ __forceinline__ static void sum2(T&, T&, int) {}
+  __device__ __forceinline__ static void sync() {}
+};
+
+#ifdef __CUDACC__
+template <>
+struct Lanes<32> {
+  __device__ __forceinline__ static int lane() { return threadIdx.x & 31; }
+  __device__ __forceinline__ static unsigned below() { return (1u << lane()) - 1u; }
+  __device__ __forceinline__ static unsigned ballot(bool p) { return __ballot_sync(0xffffffffu, p); }
+  // the sum of v over lanes 0 .. n - 1 in lane order, on every lane (n the
+  // same on every lane, the lanes past it holding 0): with a row on each
+  // lane, the rows' sum in the plain version's serial order
+  template <typename T>
+  __device__ __forceinline__ static T sum(T v, int n) {
+    T s = T(0);
+    for (int l = 0; l < n; ++l) s = s + __shfl_sync(0xffffffffu, v, l);
+    return s;
+  }
+  // two sums at once, their shuffles interleaved
+  template <typename T>
+  __device__ __forceinline__ static void sum2(T& a, T& b, int n) {
+    T sa = T(0), sb = T(0);
+    for (int l = 0; l < n; ++l) {
+      const T xa = __shfl_sync(0xffffffffu, a, l);
+      const T xb = __shfl_sync(0xffffffffu, b, l);
+      sa = sa + xa;
+      sb = sb + xb;
+    }
+    a = sa;
+    b = sb;
+  }
+  __device__ __forceinline__ static void sync() { __syncwarp(); }
+};
+
+__device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
+#else
+inline int popc(unsigned x) { return __builtin_popcount(x); }
+#endif
 
 __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double d_sqrt(double x) { return sqrt(x); }
@@ -313,209 +402,337 @@ __device__ void compute_frames(const Model<T>& m, const T (&q)[NQ], Kin<T, N>& k
   }
 }
 
-// Jacobian columns of the point p fixed to body b: translation dofs give
-// their axis, rotational dofs a x (p - anchor); dofs off b's chain 0. Jw
-// (optional) gets a on the chain's rotational dofs.
+
+// The Jacobian columns of dof d (on the chain of the body that carries p) at
+// the point p: a translation dof gives its axis, a rotational dof a x (p -
+// anchor); jw gets a on a rotational dof, else 0.
 template <typename T, int N>
-__device__ __forceinline__ void point_jac(const Model<T>& m, const Kin<T, N>& kin, int b,
-                                          const T* p, T (&jv)[N][3], T (*jw)[3]) {
-  const unsigned chain = m.body[b].chain;
+__device__ __forceinline__ void dof_jac(const Model<T>& m, const Kin<T, N>& kin, int d, const T* p,
+                                        T (&jv)[3], T (&jw)[3]) {
+  const bool rot = m.dof_rot[d] != 0;
+  T rel[3], cr[3];
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
-    const bool on = (chain >> d) & 1u;
-    const bool rot = m.dof_rot[d] != 0;
-    T rel[3], cr[3];
+  for (int i = 0; i < 3; ++i) rel[i] = p[i] - kin.an[d][i];
+  cross(kin.ax[d], rel, cr);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) rel[i] = p[i] - kin.an[d][i];
-    cross(kin.ax[d], rel, cr);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      jv[d][i] = on ? (rot ? cr[i] : kin.ax[d][i]) : T(0);
-      if (jw) jw[d][i] = (on && rot) ? kin.ax[d][i] : T(0);
-    }
+  for (int i = 0; i < 3; ++i) {
+    jv[i] = rot ? cr[i] : kin.ax[d][i];
+    jw[i] = rot ? kin.ax[d][i] : T(0);
   }
 }
 
-// Mass matrix (lower triangle) and bias: q''=0 propagation of each body's
-// angular velocity and acceleration and its origin's velocity and
-// acceleration, then per body the com Jacobian, m Jv^T Jv + Jw^T Iw Jw and
-// the wrench m (a_com - g), Iw alpha + w x Iw w projected on the columns.
-template <typename T, int N, int F>
-__device__ void mass_and_bias(const Model<T>& m, const Kin<T, N>& kin, const T (&qv)[N],
-                              T (&M)[N][N], T (&bias)[N]) {
-  T om[kMaxBodies][3], al[kMaxBodies][3], vo[kMaxBodies][3], ao[kMaxBodies][3];
-  for (int b = 0; b < m.nb; ++b) {
-    const Body<T>& bd = m.body[b];
-    T w_[3], a_[3], v_[3], c_[3];
-    if (bd.parent < 0) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) w_[i] = a_[i] = v_[i] = c_[i] = T(0);
-    } else {
-      const int p = bd.parent;
-      T d[3], t1[3], t2[3], t3[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        w_[i] = om[p][i];
-        a_[i] = al[p][i];
-        d[i] = kin.o[b][i] - kin.o[p][i];
-      }
-      cross(w_, d, t1);
-      cross(a_, d, t2);
-      cross(w_, t1, t3);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        v_[i] = vo[p][i] + t1[i];
-        c_[i] = (ao[p][i] + t2[i]) + t3[i];
-      }
-    }
-    for (int jj = bd.j0; jj < bd.j0 + bd.nj; ++jj) {
-      const Joint<T>& J = m.jnt[jj];
-      const int d = J.dof;
-      if (J.kind == kFree) {
-        T wl[3] = {qv[d + 3], qv[d + 4], qv[d + 5]};
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          v_[i] = qv[d + i];
-          c_[i] = T(0);
-          a_[i] = T(0);  // d/dt(R w_local) = w x w = 0 at w' = 0
-        }
-        rvec(kin.R[b], wl, w_);  // a free joint is its body's only joint
-      } else if ((F & kSlideJoints) && J.kind == kSlide) {
-        T va[3], t1[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) va[i] = qv[d] * kin.ax[d][i];
-        cross(w_, va, t1);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          v_[i] = v_[i] + va[i];
-          c_[i] = c_[i] + t1[i];
-        }
-      } else {  // hinge: to the anchor, add the joint rate, back to the origin
-        T dw[3], dd[3], aq[3], t1[3], t2[3], t3[3], vw[3], aw[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) dw[i] = kin.an[d][i] - kin.o[b][i];
-        cross(w_, dw, t1);
-        cross(a_, dw, t2);
-        cross(w_, t1, t3);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          vw[i] = v_[i] + t1[i];
-          aw[i] = (c_[i] + t2[i]) + t3[i];
-          aq[i] = qv[d] * kin.ax[d][i];
-        }
-        cross(w_, aq, t1);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          a_[i] = a_[i] + t1[i];
-          w_[i] = w_[i] + aq[i];
-          dd[i] = kin.o[b][i] - kin.an[d][i];
-        }
-        cross(w_, dd, t1);
-        cross(a_, dd, t2);
-        cross(w_, t1, t3);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          v_[i] = vw[i] + t1[i];
-          c_[i] = (aw[i] + t2[i]) + t3[i];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      om[b][i] = w_[i];
-      al[b][i] = a_[i];
-      vo[b][i] = v_[i];
-      ao[b][i] = c_[i];
-    }
-  }
+// Row i and column j <= i of entry e of a lower triangle counted row by row
+// (e = i (i + 1) / 2 + j)
+__device__ __forceinline__ void tri_index(int e, int& i, int& j) {
+  int r = static_cast<int>((d_sqrt(8.0f * static_cast<float>(e) + 1.0f) - 1.0f) * 0.5f);
+  while (r * (r + 1) / 2 > e) --r;
+  while ((r + 1) * (r + 2) / 2 <= e) ++r;
+  i = r;
+  j = e - r * (r + 1) / 2;
+}
 
+// v[i] with i known only at run time, without indexing the register array
+template <typename T, int N>
+__device__ __forceinline__ T pick(const T (&v)[N], int i) {
+  T out = T(0);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    bias[i] = T(0);
+  for (int d = 0; d < N; ++d) out = d == i ? v[d] : out;
+  return out;
+}
+
+// Per body: the q''=0 motion of its frame (angular velocity and acceleration,
+// origin velocity and acceleration), its com in the world, its world inertia
+// and its wrench (m (a_com - g); Iw alpha + w x Iw w); and the columns of
+// the body in hand.
+template <typename T>
+struct BodyWork {
+  T om[kMaxBodies][3], al[kMaxBodies][3], vo[kMaxBodies][3], ao[kMaxBodies][3];
+  T com[kMaxBodies][3], iw[kMaxBodies][9], f[kMaxBodies][3], tq[kMaxBodies][3];
+  T jac[kMaxDof][9];  // one body's com Jacobian columns per dof: jv, jw, Iw jw
+};
+
+// One sample's workspace: its warp's slice of shared memory on the card, one
+// static instance in the host build. The rows valid at this state are
+// compacted in the model's row order: row i keeps its column w[i] of W =
+// L^-1 J^T (row stride S odd, so that the 32 lanes' rows meet distinct
+// banks), rhs = aref - J a_smooth, its regularizer and idx, its row of the
+// model (where its lambda warm start lies in lam_full). The body scratch of
+// the mass matrix shares w's space: it is dead before the rows are built.
+// With at most kDense valid rows, the QP's dense A lies in w's rows past
+// kDense (dense_rows).
+template <typename T, int N, int R, int F>
+struct alignas(16) Work {
+  static constexpr int S = N | 1;
+  union {
+    T w[R][S];
+    BodyWork<T> body;
+  };
+  T rhs[R], reg[R], lam_full[R];
+  int idx[R];
+  T L[N][N];                     // M's lower triangle, then its factor in place
+  T M[(F & kEuler) ? N : 1][N];  // M, for the Euler factor of M + h diag(damping)
+  T inv[N];                      // 1 / L[i][i]
+  T bias[N];
+  T u[N];  // the lanes' sums of a vector (lane_sums)
+  Kin<T, N> kin;
+};
+
+// The frames of q into kin, by the first lane; the other lanes wait.
+template <typename T, int N, int NQ, int F, int W>
+__device__ __forceinline__ void frames(const Model<T>& m, const T (&q)[NQ], Kin<T, N>& kin) {
+  Lanes<W>::sync();  // every lane is done with the previous frames
+  if (Lanes<W>::lane() == 0) compute_frames<T, N, NQ, F>(m, q, kin);
+  Lanes<W>::sync();
+}
+
+// Mass matrix (lower triangle, into M and, with kEuler, keep) and bias: the
+// first lane propagates each body's angular velocity and acceleration and
+// its origin's velocity and acceleration at q''=0 down the tree; lane b then
+// forms body b's com, world inertia and wrench; the lanes take the entries
+// M[i][j] = armature + sum_b (m Jv_i . Jv_j + Iw Jw_i . Jw_j) and the bias
+// entries sum_b (Jv_d . f + Jw_d . tq), each summed over the bodies in the
+// plain version's order.
+template <typename T, int N, int F, int W>
+__device__ void mass_and_bias(const Model<T>& m, const Kin<T, N>& kin, const T (&qv)[N],
+                              BodyWork<T>& bw, T (&M)[N][N], T (&keep)[(F & kEuler) ? N : 1][N],
+                              T (&bias)[N]) {
+  const int lane = Lanes<W>::lane();
+  if (lane == 0) {
+    for (int b = 0; b < m.nb; ++b) {
+      const Body<T>& bd = m.body[b];
+      T w_[3], a_[3], v_[3], c_[3];
+      if (bd.parent < 0) {
 #pragma unroll
-    for (int j = 0; j <= i; ++j) M[i][j] = (i == j) ? m.armature[i] : T(0);
+        for (int i = 0; i < 3; ++i) w_[i] = a_[i] = v_[i] = c_[i] = T(0);
+      } else {
+        const int p = bd.parent;
+        T d[3], t1[3], t2[3], t3[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          w_[i] = bw.om[p][i];
+          a_[i] = bw.al[p][i];
+          d[i] = kin.o[b][i] - kin.o[p][i];
+        }
+        cross(w_, d, t1);
+        cross(a_, d, t2);
+        cross(w_, t1, t3);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          v_[i] = bw.vo[p][i] + t1[i];
+          c_[i] = (bw.ao[p][i] + t2[i]) + t3[i];
+        }
+      }
+      for (int jj = bd.j0; jj < bd.j0 + bd.nj; ++jj) {
+        const Joint<T>& J = m.jnt[jj];
+        const int d = J.dof;
+        if (J.kind == kFree) {
+          T wl[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            wl[i] = pick(qv, d + 3 + i);
+            v_[i] = pick(qv, d + i);
+            c_[i] = T(0);
+            a_[i] = T(0);  // d/dt(R w_local) = w x w = 0 at w' = 0
+          }
+          rvec(kin.R[b], wl, w_);  // a free joint is its body's only joint
+        } else if ((F & kSlideJoints) && J.kind == kSlide) {
+          T va[3], t1[3];
+          const T qd = pick(qv, d);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) va[i] = qd * kin.ax[d][i];
+          cross(w_, va, t1);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            v_[i] = v_[i] + va[i];
+            c_[i] = c_[i] + t1[i];
+          }
+        } else {  // hinge: to the anchor, add the joint rate, back to the origin
+          T dw[3], dd[3], aq[3], t1[3], t2[3], t3[3], vw[3], aw[3];
+          const T qd = pick(qv, d);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) dw[i] = kin.an[d][i] - kin.o[b][i];
+          cross(w_, dw, t1);
+          cross(a_, dw, t2);
+          cross(w_, t1, t3);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            vw[i] = v_[i] + t1[i];
+            aw[i] = (c_[i] + t2[i]) + t3[i];
+            aq[i] = qd * kin.ax[d][i];
+          }
+          cross(w_, aq, t1);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            a_[i] = a_[i] + t1[i];
+            w_[i] = w_[i] + aq[i];
+            dd[i] = kin.o[b][i] - kin.an[d][i];
+          }
+          cross(w_, dd, t1);
+          cross(a_, dd, t2);
+          cross(w_, t1, t3);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            v_[i] = vw[i] + t1[i];
+            c_[i] = (aw[i] + t2[i]) + t3[i];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        bw.om[b][i] = w_[i];
+        bw.al[b][i] = a_[i];
+        bw.vo[b][i] = v_[i];
+        bw.ao[b][i] = c_[i];
+      }
+    }
   }
-  for (int b = 0; b < m.nb; ++b) {
+  Lanes<W>::sync();
+  for (int b = lane; b < m.nb; b += W) {
     const Body<T>& bd = m.body[b];
-    const unsigned chain = bd.chain;
-    T r_com[3], com_w[3], iw[9];
+    T r_com[3], vcom[3], acom[3], t1[3], t2[3], t3[3], iwa[3], iww[3];
     rvec(kin.R[b], bd.com, r_com);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) com_w[i] = kin.o[b][i] + r_com[i];
-    T jv[N][3], jw[N][3], iwj[N][3];
-    point_jac(m, kin, b, com_w, jv, jw);
-    sym_rotate(kin.R[b], bd.inertia, iw);
+    for (int i = 0; i < 3; ++i) bw.com[b][i] = kin.o[b][i] + r_com[i];
+    sym_rotate(kin.R[b], bd.inertia, bw.iw[b]);
+    cross(bw.om[b], r_com, t1);
 #pragma unroll
-    for (int d = 0; d < N; ++d) rvec(iw, jw[d], iwj[d]);
+    for (int i = 0; i < 3; ++i) vcom[i] = bw.vo[b][i] + t1[i];
+    cross(bw.al[b], r_com, t2);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (!((chain >> i) & 1u)) continue;
+    for (int i = 0; i < 3; ++i) t1[i] = vcom[i] - bw.vo[b][i];
+    cross(bw.om[b], t1, t3);
 #pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        if (!((chain >> j) & 1u)) continue;
-        M[i][j] = M[i][j] + (bd.mass * dot3(jv[i], jv[j]) + dot3(iwj[i], jw[j]));
+    for (int i = 0; i < 3; ++i) acom[i] = (bw.ao[b][i] + t2[i]) + t3[i];
+    bw.f[b][0] = bd.mass * acom[0];
+    bw.f[b][1] = bd.mass * acom[1];
+    bw.f[b][2] = bd.mass * (acom[2] + m.gravity);
+    rvec(bw.iw[b], bw.al[b], iwa);
+    rvec(bw.iw[b], bw.om[b], iww);
+    cross(bw.om[b], iww, t1);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) bw.tq[b][i] = iwa[i] + t1[i];
+  }
+  // Body by body, lane d forms dof d's com Jacobian columns (jv, jw, and Iw
+  // jw) into jac[d] and adds its bias term; then each lane adds the body's
+  // term to its entries of M, held in registers (entry e = lane + W t).
+  constexpr int kEntries = N * (N + 1) / 2;
+  constexpr int kPerLane = (kEntries + W - 1) / W;
+  T acc[kPerLane];
+  int ei[kPerLane], ej[kPerLane];
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) {
+    const int e = lane + W * t;
+    int i = 0, j = 0;
+    if (e < kEntries) tri_index(e, i, j);
+    ei[t] = i;
+    ej[t] = j;
+    acc[t] = (e < kEntries && i == j) ? m.armature[i] : T(0);
+  }
+  for (int d = lane; d < N; d += W) bias[d] = T(0);  // dof d's lane alone adds to bias[d]
+  for (int b = 0; b < m.nb; ++b) {
+    const unsigned chain = m.body[b].chain;
+    for (int d = lane; d < N; d += W) {
+      if ((chain >> d) & 1u) {
+        T jv[3], jw[3];
+        dof_jac(m, kin, d, bw.com[b], jv, jw);
+        bias[d] = bias[d] + (dot3(jv, bw.f[b]) + dot3(jw, bw.tq[b]));
+        rvec(bw.iw[b], jw, bw.jac[d] + 6);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          bw.jac[d][c] = jv[c];
+          bw.jac[d][3 + c] = jw[c];
+        }
       }
     }
-    T vcom[3], acom[3], t1[3], t2[3], t3[3], f[3], tq[3], iwa[3], iww[3];
-    cross(om[b], r_com, t1);
+    Lanes<W>::sync();
+    const T mass = m.body[b].mass;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) vcom[i] = vo[b][i] + t1[i];
-    cross(al[b], r_com, t2);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) t1[i] = vcom[i] - vo[b][i];
-    cross(om[b], t1, t3);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) acom[i] = (ao[b][i] + t2[i]) + t3[i];
-    f[0] = bd.mass * acom[0];
-    f[1] = bd.mass * acom[1];
-    f[2] = bd.mass * (acom[2] + m.gravity);
-    rvec(iw, al[b], iwa);
-    rvec(iw, om[b], iww);
-    cross(om[b], iww, t1);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) tq[i] = iwa[i] + t1[i];
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      if ((chain >> d) & 1u) bias[d] = bias[d] + (dot3(jv[d], f) + dot3(jw[d], tq));
+    for (int t = 0; t < kPerLane; ++t) {
+      const int i = ei[t], j = ej[t];
+      if (lane + W * t < kEntries && ((chain >> i) & 1u) && ((chain >> j) & 1u)) {
+        const T* a = bw.jac[i];
+        const T* c = bw.jac[j];
+        acc[t] = acc[t] + (mass * dot3(a, c) + dot3(a + 6, c + 3));
+      }
     }
+    Lanes<W>::sync();  // every lane is done with this body's columns
+  }
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) {
+    if (lane + W * t < kEntries) {
+      M[ei[t]][ej[t]] = acc[t];
+      if constexpr ((F & kEuler) != 0) keep[ei[t]][ej[t]] = acc[t];
+    }
+  }
+  Lanes<W>::sync();
+}
+
+// L L^T = the matrix in a's lower triangle, in place, and inv[i] = 1 /
+// L[i][i]. On a warp it is block_linalg.cuh's chol_diag_block (lane i holds
+// row i in registers; the columns move by shuffles); the host build's one
+// lane runs the columns in turn.
+template <typename T, int N, int W>
+__device__ __forceinline__ void factor(T (&a)[N][N], T (&inv)[N]) {
+  static_assert(N <= 32, "a factor is one warp's rows");
+  if constexpr (W == 1) {
+    for (int j = 0; j < N; ++j) {
+      T d = a[j][j];
+      for (int k = 0; k < j; ++k) d = d - a[j][k] * a[j][k];
+      a[j][j] = d_sqrt(d);
+      inv[j] = T(1) / a[j][j];
+      for (int i = j + 1; i < N; ++i) {
+        T s = a[i][j];
+        for (int k = 0; k < j; ++k) s = s - a[i][k] * a[j][k];
+        a[i][j] = s * inv[j];
+      }
+    }
+  } else {
+#ifdef __CUDACC__
+    __syncwarp();  // a is complete
+    mpopis::chol_diag_block(&a[0][0], N, 0, N, inv);
+    __syncwarp();
+#endif
   }
 }
 
-template <typename T, int N>
-__device__ __forceinline__ void cholesky(const T (&M)[N][N], T (&L)[N][N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    T d = M[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) d = d - L[j][k] * L[j][k];
-    L[j][j] = d_sqrt(d);
-#pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      T s = M[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
-      L[i][j] = s / L[j][j];
+// x = (L L^T)^-1 b, on every lane (b the same on every lane). On a warp,
+// lane i keeps the partial sum of row i: at step k lane k's sum is final,
+// its quotient goes to every lane by a shuffle and the rows below lose it,
+// the forward sweep in the serial order of terms; one lane substitutes row
+// by row.
+template <typename T, int N, int W>
+__device__ __forceinline__ void chol_solve(const T (&L)[N][N], const T (&inv)[N], const T (&b)[N],
+                                           T (&x)[N]) {
+  if constexpr (W == 1) {
+    T y[N];
+    for (int i = 0; i < N; ++i) {
+      T s = b[i];
+      for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
+      y[i] = s * inv[i];
     }
-  }
-}
-
-// x = (L L^T)^-1 b
-template <typename T, int N>
-__device__ __forceinline__ void chol_solve(const T (&L)[N][N], const T (&b)[N], T (&x)[N]) {
-  T y[N];
+    for (int i = N - 1; i >= 0; --i) {
+      T s = y[i];
+      for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k];
+      x[i] = s * inv[i];
+    }
+  } else {
+#ifdef __CUDACC__
+    const int lane = threadIdx.x & 31;
+    const int row = lane < N ? lane : N - 1;
+    T y[N];
+    T c = pick(b, lane);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    T s = b[i];
+    for (int k = 0; k < N; ++k) {
+      y[k] = __shfl_sync(0xffffffffu, c * inv[k], k);
+      if (lane > k && lane < N) c = c - L[row][k] * y[k];
+    }
+    c = pick(y, lane);
 #pragma unroll
-    for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    T s = y[i];
-#pragma unroll
-    for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    for (int k = N - 1; k >= 0; --k) {
+      x[k] = __shfl_sync(0xffffffffu, c * inv[k], k);
+      if (lane < k) c = c - L[k][lane] * x[k];
+    }
+#endif
   }
 }
 
@@ -527,15 +744,51 @@ __device__ __forceinline__ T dot_row(const T (&j)[N], const T (&v)[N]) {
   return s;
 }
 
-// The rows valid at this state, compacted, up to R of them; idx maps each to
-// its row of the model (the index of its lambda warm start).
-template <typename T, int N, int R>
-struct Rows {
-  T J[R][N];
-  T aref[R], reg[R];
-  int idx[R];
-  int nv;
-};
+#ifdef __CUDACC__
+// One step of lane_sums' recursive halving and the steps after it: a lane
+// keeps half of v[0 .. 2H) (the upper half where lane & H) in v[0 .. H) and
+// adds its partner's copy of that half. H is a template parameter, so every
+// index is known at compile time and v stays in registers.
+template <int H, typename T, int P>
+__device__ __forceinline__ void halve(T (&v)[P], int lane) {
+  if constexpr (H >= 1) {
+    const bool up = (lane & H) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const T send = up ? v[i] : v[i + H];
+      const T keep = up ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+    }
+    halve<H / 2>(v, lane);
+  }
+}
+#endif
+
+// out[d] = the sum over the lanes of part[d], d < N, into shared memory,
+// visible to every lane on return. On a warp, recursive halving: at each of
+// log2(P) steps (P = 16 or 32 >= N) a lane keeps half of its values and adds
+// its partner's copy of that half, 31 shuffles for P = 32 against 5 N for N
+// butterflies; lane l ends with component l mod P, and the groups of P < 32
+// lanes then add across. The order is fixed: no atomics.
+template <typename T, int N, int W>
+__device__ __forceinline__ void lane_sums(const T (&part)[N], T* out) {
+  Lanes<W>::sync();  // every lane has read the previous sums
+  if constexpr (W == 1) {
+    for (int d = 0; d < N; ++d) out[d] = part[d];
+  } else {
+#ifdef __CUDACC__
+    constexpr int P = N <= 16 ? 16 : 32;
+    const int lane = Lanes<W>::lane();
+    T v[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = i < N ? part[i] : T(0);
+    halve<P / 2>(v, lane);
+    if constexpr (P < 32) v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+    if (lane < N) out[lane] = v[0];
+#endif
+  }
+  Lanes<W>::sync();
+}
 
 // Capsule (body1) against an upright solid cylinder (body2): the distance,
 // the normal from body1 to body2 and the contact point, as the plain
@@ -681,160 +934,334 @@ __device__ void capsule_capsule(const Kin<T, N>& kin, const CapPair<T>& pr, T& d
   }
 }
 
-template <typename T, int N, int NQ, int F, int R>
-__device__ void contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[N],
-                             const Kin<T, N>& kin, Rows<T, N, R>& rows) {
-  int nv = 0, r = 0;
-  for (int l = 0; l < m.n_limits; ++l, ++r) {
-    const Limit<T>& lm = m.lim[l];
-    const T qd = q[lm.qadr];
-    const T d_lo = (qd - lm.lo) - lm.margin;
-    const T d_hi = (lm.hi - qd) - lm.margin;
-    const bool lower = d_lo < d_hi;
-    const T pos = lower ? d_lo : d_hi;
-    if (!(pos < T(0))) continue;
-    const T sgn = lower ? T(1) : T(-1);
-    const T imp = impedance(pos, lm.imp);
+// Appends the valid row with Jacobian j at compacted position `at`: its
+// column of W = L^-1 J^T by forward substitution against the factor in
+// shared memory (every lane of the warp reads the same L entry at once),
+// rhs = aref - j . a_smooth, its regularizer and its row of the model.
+template <typename T, int N, int R, int F>
+__device__ __forceinline__ void put_row(Work<T, N, R, F>& wk, int at, const T (&j)[N], T aref,
+                                        T reg, int model_row, const T (&a_smooth)[N]) {
+  T y[N];
 #pragma unroll
-    for (int d = 0; d < N; ++d) rows.J[nv][d] = (d == lm.dof) ? sgn : T(0);
-    rows.aref[nv] = (-lm.imp.bc) * (sgn * qv[lm.dof]) - lm.imp.kc * imp * pos;
-    rows.reg[nv] = (T(1) - imp) / imp * lm.invweight;
-    rows.idx[nv] = r;
-    ++nv;
+  for (int i = 0; i < N; ++i) {
+    T s = j[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - wk.L[i][k] * y[k];
+    y[i] = s * wk.inv[i];
   }
-  for (int ci = 0; ci < m.n_contacts; ++ci) {
-    const Contact<T>& ct = m.con[ci];
-    T p[3];
-    rvec(kin.R[ct.body], ct.local, p);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) p[i] = kin.o[ct.body][i] + p[i];
-    const T dist = (p[2] - m.floor_z) - ct.radius;
-    const bool normal_only = (F & kCondim1) && ct.condim == 1;
-    if (!(dist < ct.margin)) {
-      r += normal_only ? 1 : 4;
-      continue;
-    }
-    const T cp[3] = {p[0], p[1], m.floor_z + T(0.5) * dist};
-    T jv[N][3];
-    point_jac(m, kin, ct.body, cp, jv, static_cast<T(*)[3]>(nullptr));
-    T jn[N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) jn[d] = jv[d][2];
-    const T pos_m = dist - ct.margin;
-    const T imp = impedance(pos_m, ct.imp);
-    const T jv_n = dot_row(jn, qv);
-    const T base = (-ct.imp.kc) * imp * pos_m;
-    const T nbc = -ct.imp.bc;
-    if (normal_only) {  // frictionless: the normal row, no pyramid factor in R
-#pragma unroll
-      for (int d = 0; d < N; ++d) rows.J[nv][d] = jn[d];
-      rows.aref[nv] = nbc * jv_n + base;
-      rows.reg[nv] = (T(1) - imp) / imp * ct.bw;
-      rows.idx[nv] = r;
-      ++nv;
-      ++r;
-      continue;
-    }
-    // tangents: t1 = normalized xy-projection of the world capsule axis,
-    // (0, 1, 0) for a sphere; t2 = n x t1 = (-t1y, t1x, 0)
-    T t1x = T(0), t1y = T(1);
-    if (ct.has_axis) {
-      T a[3];
-      rvec(kin.R[ct.body], ct.axis, a);
-      const T n2 = a[0] * a[0] + a[1] * a[1];
-      const T nrm = d_sqrt(n2 < T(1e-24) ? T(1e-24) : n2);
-      t1x = a[0] / nrm;
-      t1y = a[1] / nrm;
-    }
-    T jt1[N], jt2[N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      jt1[d] = jv[d][0] * t1x + jv[d][1] * t1y;
-      jt2[d] = jv[d][0] * (-t1y) + jv[d][1] * t1x;
-    }
-    const T jv_t1 = dot_row(jt1, qv);
-    const T jv_t2 = dot_row(jt2, qv);
-    const T reg = (T(1) - imp) / imp * ct.bw * ct.rfac;
-    const T mus[2] = {ct.mu, -ct.mu};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const T mu = mus[k & 1];
-      const T(&jt)[N] = k < 2 ? jt1 : jt2;
-      const T jv_t = k < 2 ? jv_t1 : jv_t2;
-#pragma unroll
-      for (int d = 0; d < N; ++d) rows.J[nv][d] = jn[d] + mu * jt[d];
-      rows.aref[nv] = nbc * (jv_n + mu * jv_t) + base;
-      rows.reg[nv] = reg;
-      rows.idx[nv] = r + k;
-      ++nv;
-    }
-    r += 4;
-  }
-  if (F & kCylinder) {
-    for (int pi = 0; pi < m.n_cyl; ++pi, ++r) {
-      const CylPair<T>& pr = m.cyl[pi];
-      T dist, nvec[3], cp[3];
-      capsule_cylinder(kin, pr, dist, nvec, cp);
-      if (!(dist < pr.margin)) continue;
-      // J = n . (v2(cp) - v1(cp)) over both bodies' dof columns
-      T jv1[N][3], jv2[N][3];
-      point_jac(m, kin, pr.body1, cp, jv1, static_cast<T(*)[3]>(nullptr));
-      point_jac(m, kin, pr.body2, cp, jv2, static_cast<T(*)[3]>(nullptr));
-#pragma unroll
-      for (int d = 0; d < N; ++d) rows.J[nv][d] = -dot3(jv1[d], nvec) + dot3(jv2[d], nvec);
-      const T pos_m = dist - pr.margin;
-      const T imp = impedance(pos_m, pr.imp);
-      rows.aref[nv] = (-pr.imp.bc) * dot_row(rows.J[nv], qv) - pr.imp.kc * imp * pos_m;
-      rows.reg[nv] = (T(1) - imp) / imp * pr.bw;
-      rows.idx[nv] = r;
-      ++nv;
-    }
-  }
-  if (F & kSelfPairs) {  // the same rows for the self pairs
-    for (int pi = 0; pi < m.n_cap; ++pi, ++r) {
-      const CapPair<T>& pr = m.cap[pi];
-      T dist, nvec[3], cp[3];
-      capsule_capsule(kin, pr, dist, nvec, cp);
-      if (!(dist < pr.margin)) continue;
-      T jv1[N][3], jv2[N][3];
-      point_jac(m, kin, pr.body1, cp, jv1, static_cast<T(*)[3]>(nullptr));
-      point_jac(m, kin, pr.body2, cp, jv2, static_cast<T(*)[3]>(nullptr));
-#pragma unroll
-      for (int d = 0; d < N; ++d) rows.J[nv][d] = -dot3(jv1[d], nvec) + dot3(jv2[d], nvec);
-      const T pos_m = dist - pr.margin;
-      const T imp = impedance(pos_m, pr.imp);
-      rows.aref[nv] = (-pr.imp.bc) * dot_row(rows.J[nv], qv) - pr.imp.kc * imp * pos_m;
-      rows.reg[nv] = (T(1) - imp) / imp * pr.bw;
-      rows.idx[nv] = r;
-      ++nv;
-    }
-  }
-  rows.nv = nv;
+  for (int i = 0; i < N; ++i) wk.w[at][i] = y[i];
+  wk.rhs[at] = aref - dot_row(j, a_smooth);
+  wk.reg[at] = reg;
+  wk.idx[at] = model_row;
 }
 
-// out = mask ? J (L L^T)^-1 J^T (mask ? v : 0) + R (mask ? v : 0) : 0 over the
-// compacted rows; a null mask means every row
-template <typename T, int N, int R>
-__device__ void ar_apply(const Rows<T, N, R>& rows, const T (&L)[N][N], const T* v, const bool* mask,
-                         T* out) {
-  const int nv = rows.nv;
+// A pair row (cylinder or self pair): J = n . (v2(cp) - v1(cp)) over both
+// bodies' dof columns, as the plain version's -Jv1 n + Jv2 n.
+template <typename T, int N, int R, int F>
+__device__ __forceinline__ void pair_row(const Model<T>& m, Work<T, N, R, F>& wk, int at, int body1,
+                                         int body2, T dist, const T (&nvec)[3], const T (&cp)[3],
+                                         T margin, const Imp<T>& im, T bw, int model_row,
+                                         const T (&qv)[N], const T (&a_smooth)[N]) {
+  const unsigned c1 = m.body[body1].chain, c2 = m.body[body2].chain;
+  T j[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    T jv[3], jw[3];
+    dof_jac(m, wk.kin, d, cp, jv, jw);
+    const T dn = dot3(jv, nvec);
+    j[d] = -(((c1 >> d) & 1u) ? dn : T(0)) + (((c2 >> d) & 1u) ? dn : T(0));
+  }
+  const T pos_m = dist - margin;
+  const T imp = impedance(pos_m, im);
+  put_row(wk, at, j, (-im.bc) * dot_row(j, qv) - im.kc * imp * pos_m, (T(1) - imp) / imp * bw,
+          model_row, a_smooth);
+}
+
+// The rows valid at this state into wk, compacted in the model's row order
+// (limits, floor contacts, cylinder pairs, self pairs); returns their count,
+// the same on every lane. Lane l takes candidates l, l + W, ... of each
+// kind; a ballot of the valid ones and the popcount of the lanes below give
+// each its place.
+template <typename T, int N, int NQ, int F, int R, int W>
+__device__ int contact_rows(const Model<T>& m, const T (&q)[NQ], const T (&qv)[N],
+                            const T (&a_smooth)[N], Work<T, N, R, F>& wk) {
+  const Kin<T, N>& kin = wk.kin;
+  const int lane = Lanes<W>::lane();
+  const unsigned below = Lanes<W>::below();
+  int nv = 0;
+  for (int c0 = 0; c0 < m.n_limits; c0 += W) {
+    const int l = c0 + lane;
+    bool valid = false;
+    T pos = T(0), sgn = T(1);
+    if (l < m.n_limits) {
+      const Limit<T>& lm = m.lim[l];
+      const T qd = pick(q, lm.qadr);
+      const T d_lo = (qd - lm.lo) - lm.margin;
+      const T d_hi = (lm.hi - qd) - lm.margin;
+      const bool lower = d_lo < d_hi;
+      pos = lower ? d_lo : d_hi;
+      sgn = lower ? T(1) : T(-1);
+      valid = pos < T(0);
+    }
+    const unsigned bal = Lanes<W>::ballot(valid);
+    if (valid) {
+      const Limit<T>& lm = m.lim[l];
+      const T imp = impedance(pos, lm.imp);
+      T j[N];
+#pragma unroll
+      for (int d = 0; d < N; ++d) j[d] = (d == lm.dof) ? sgn : T(0);
+      put_row(wk, nv + popc(bal & below), j,
+              (-lm.imp.bc) * (sgn * pick(qv, lm.dof)) - lm.imp.kc * imp * pos,
+              (T(1) - imp) / imp * lm.invweight, l, a_smooth);
+    }
+    nv += popc(bal);
+  }
+  SPATIAL_STAMP(kPhLimits);
+  for (int c0 = 0; c0 < m.n_contacts; c0 += W) {
+    const int ci = c0 + lane;
+    bool valid = false, normal_only = false;
+    T dist = T(0), p[3] = {T(0), T(0), T(0)};
+    if (ci < m.n_contacts) {
+      const Contact<T>& ct = m.con[ci];
+      rvec(kin.R[ct.body], ct.local, p);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) p[i] = kin.o[ct.body][i] + p[i];
+      dist = (p[2] - m.floor_z) - ct.radius;
+      normal_only = (F & kCondim1) && ct.condim == 1;
+      valid = dist < ct.margin;
+    }
+    const unsigned b4 = Lanes<W>::ballot(valid && !normal_only);
+    const unsigned b1 = (F & kCondim1) ? Lanes<W>::ballot(valid && normal_only) : 0u;
+    if (valid) {
+      const Contact<T>& ct = m.con[ci];
+      const int at = nv + 4 * popc(b4 & below) + popc(b1 & below);
+      const T cp[3] = {p[0], p[1], m.floor_z + T(0.5) * dist};
+      const unsigned chain = m.body[ct.body].chain;
+      T jx[N], jy[N], jn[N];  // the point's Jacobian rows
+#pragma unroll
+      for (int d = 0; d < N; ++d) {
+        T jv[3], jw[3];
+        dof_jac(m, kin, d, cp, jv, jw);
+        const bool on = (chain >> d) & 1u;
+        jx[d] = on ? jv[0] : T(0);
+        jy[d] = on ? jv[1] : T(0);
+        jn[d] = on ? jv[2] : T(0);
+      }
+      const T pos_m = dist - ct.margin;
+      const T imp = impedance(pos_m, ct.imp);
+      const T jv_n = dot_row(jn, qv);
+      const T base = (-ct.imp.kc) * imp * pos_m;
+      const T nbc = -ct.imp.bc;
+      if (normal_only) {  // frictionless: the normal row, no pyramid factor in R
+        put_row(wk, at, jn, nbc * jv_n + base, (T(1) - imp) / imp * ct.bw, ct.row, a_smooth);
+      } else {
+        // tangents: t1 = normalized xy-projection of the world capsule axis,
+        // (0, 1, 0) for a sphere; t2 = n x t1 = (-t1y, t1x, 0)
+        T t1x = T(0), t1y = T(1);
+        if (ct.has_axis) {
+          T a[3];
+          rvec(kin.R[ct.body], ct.axis, a);
+          const T n2 = a[0] * a[0] + a[1] * a[1];
+          const T nrm = d_sqrt(n2 < T(1e-24) ? T(1e-24) : n2);
+          t1x = a[0] / nrm;
+          t1y = a[1] / nrm;
+        }
+        T jt1[N], jt2[N];
+#pragma unroll
+        for (int d = 0; d < N; ++d) {
+          jt1[d] = jx[d] * t1x + jy[d] * t1y;
+          jt2[d] = jx[d] * (-t1y) + jy[d] * t1x;
+        }
+        const T jv_t1 = dot_row(jt1, qv);
+        const T jv_t2 = dot_row(jt2, qv);
+        const T reg = (T(1) - imp) / imp * ct.bw * ct.rfac;
+#pragma unroll 1
+        for (int k = 0; k < 4; ++k) {
+          const T mu = (k & 1) ? -ct.mu : ct.mu;
+          T j[N];
+#pragma unroll
+          for (int d = 0; d < N; ++d) j[d] = jn[d] + mu * (k < 2 ? jt1[d] : jt2[d]);
+          put_row(wk, at + k, j, nbc * (jv_n + mu * (k < 2 ? jv_t1 : jv_t2)) + base, reg,
+                  ct.row + k, a_smooth);
+        }
+      }
+    }
+    nv += 4 * popc(b4) + popc(b1);
+  }
+  SPATIAL_STAMP(kPhFloor);
+  if (F & kCylinder) {
+    const int row0 = m.n_rows - m.n_cap - m.n_cyl;
+    for (int c0 = 0; c0 < m.n_cyl; c0 += W) {
+      const int pi = c0 + lane;
+      bool valid = false;
+      T dist = T(0), nvec[3], cp[3];
+      if (pi < m.n_cyl) {
+        capsule_cylinder(kin, m.cyl[pi], dist, nvec, cp);
+        valid = dist < m.cyl[pi].margin;
+      }
+      const unsigned bal = Lanes<W>::ballot(valid);
+      if (valid) {
+        const CylPair<T>& pr = m.cyl[pi];
+        pair_row(m, wk, nv + popc(bal & below), pr.body1, pr.body2, dist, nvec, cp, pr.margin,
+                 pr.imp, pr.bw, row0 + pi, qv, a_smooth);
+      }
+      nv += popc(bal);
+    }
+    SPATIAL_STAMP(kPhCylinder);
+  }
+  if (F & kSelfPairs) {
+    const int row0 = m.n_rows - m.n_cap;
+    for (int c0 = 0; c0 < m.n_cap; c0 += W) {
+      const int pi = c0 + lane;
+      bool valid = false;
+      T dist = T(0), nvec[3], cp[3];
+      if (pi < m.n_cap) {
+        capsule_capsule(kin, m.cap[pi], dist, nvec, cp);
+        valid = dist < m.cap[pi].margin;
+      }
+      const unsigned bal = Lanes<W>::ballot(valid);
+      if (valid) {
+        const CapPair<T>& pr = m.cap[pi];
+        pair_row(m, wk, nv + popc(bal & below), pr.body1, pr.body2, dist, nvec, cp, pr.margin,
+                 pr.imp, pr.bw, row0 + pi, qv, a_smooth);
+      }
+      nv += popc(bal);
+    }
+    SPATIAL_STAMP(kPhSelf);
+  }
+  Lanes<W>::sync();  // the rows are visible to every lane
+  return nv;
+}
+
+// out = mask ? W^T W (mask ? v : 0) + R (mask ? v : 0) : 0 = (J M^-1 J^T +
+// diag R) v over the compacted rows, which lie on the lanes: slot s of lane
+// l is row l + s W. Each lane sums W v over its rows, lane_sums adds the
+// lanes' N partial sums, and each lane dots its rows' columns with that sum.
+// MASK false: every row.
+template <bool MASK, int W, typename T, int N, int R, int F, int RW>
+__device__ __forceinline__ void apply(const Work<T, N, R, F>& wk, T* u_out, int nv,
+                                      const T (&v)[RW], const bool (&act)[RW], T (&out)[RW]) {
+  SPATIAL_STAMP(kPhQp);
+  const int lane = Lanes<W>::lane();
+  T part[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) part[d] = T(0);
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    if (s * W < nv && r < nv && (!MASK || act[s])) {  // s * W < nv: the same on every lane
+      const T vr = v[s];
+#pragma unroll
+      for (int d = 0; d < N; ++d) part[d] = part[d] + wk.w[r][d] * vr;
+    }
+  }
+  lane_sums<T, N, W>(part, u_out);
   T u[N];
 #pragma unroll
-  for (int d = 0; d < N; ++d) u[d] = T(0);
-  for (int r = 0; r < nv; ++r) {
-    if (mask && !mask[r]) continue;
-    const T vr = v[r];
+  for (int d = 0; d < N; ++d) u[d] = u_out[d];
 #pragma unroll
-    for (int d = 0; d < N; ++d) u[d] = u[d] + rows.J[r][d] * vr;
-  }
-  T w[N];
-  chol_solve(L, u, w);
-  for (int r = 0; r < nv; ++r) {
-    if (mask && !mask[r]) {
-      out[r] = T(0);
-      continue;
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    T o = T(0);
+    if (s * W < nv && r < nv && (!MASK || act[s])) {
+#pragma unroll
+      for (int d = 0; d < N; ++d) o = o + wk.w[r][d] * u[d];
+      o = o + wk.reg[r] * v[s];
     }
-    out[r] = dot_row(rows.J[r], w) + rows.reg[r] * v[r];
+    out[s] = o;
+  }
+  SPATIAL_STAMP(kPhApply);
+}
+
+// At most kDense valid rows (the common case) the QP applies the dense
+// A = W^T W + diag R, formed once per forward pass: row i of A lies at
+// dense + i kDenseStride in w's rows kDense and beyond, which hold no row
+// then. An application is then one dot of A's row with v per row, v's
+// entries gathered from their lanes, instead of W^T (W v) with its lane sums.
+constexpr int kDense = 32;
+constexpr int kDenseStride = kDense + 1;  // odd: the lanes' rows meet distinct banks
+
+template <typename T, int N, int R, int F>
+__device__ __forceinline__ T* dense_rows(Work<T, N, R, F>& wk) {
+  static_assert((R - kDense) * Work<T, N, R, F>::S >= kDense * kDenseStride,
+                "A fits in w's rows past kDense");
+  return &wk.w[kDense][0];
+}
+
+// Row i of A = W^T W + diag R by the lane of row i, for the nv <= kDense rows
+template <int W, typename T, int N, int R, int F>
+__device__ void form_dense(Work<T, N, R, F>& wk, int nv) {
+  constexpr int RW = (R + W - 1) / W;
+  T* a = dense_rows(wk);
+  const int lane = Lanes<W>::lane();
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    if (s * W < nv && r < nv) {
+      T wr[N];
+#pragma unroll
+      for (int d = 0; d < N; ++d) wr[d] = wk.w[r][d];
+      for (int c = 0; c < nv; ++c) {
+        T acc = T(0);
+#pragma unroll
+        for (int d = 0; d < N; ++d) acc = acc + wr[d] * wk.w[c][d];
+        a[r * kDenseStride + c] = c == r ? acc + wk.reg[r] : acc;
+      }
+    }
+  }
+  Lanes<W>::sync();
+}
+
+// Entry c (< nv <= kDense) of a vector whose row i lies in slot i / W of
+// lane i mod W: a shuffle from lane c on a warp (every lane calls it), the
+// slot itself on one lane.
+template <int W, typename T, int RW>
+__device__ __forceinline__ T row_value(const T (&v)[RW], int c) {
+  if constexpr (W == 1) {
+    return v[c];
+  } else {
+#ifdef __CUDACC__
+    return __shfl_sync(0xffffffffu, v[0], c);
+#else
+    return v[0];
+#endif
+  }
+}
+
+// out = mask ? A (mask ? v : 0) : 0 over the nv <= kDense rows
+template <bool MASK, int W, typename T, int N, int R, int F, int RW>
+__device__ __forceinline__ void apply_dense(Work<T, N, R, F>& wk, int nv, const T (&v)[RW],
+                                            const bool (&act)[RW], T (&out)[RW]) {
+  SPATIAL_STAMP(kPhQp);
+  const T* a = dense_rows(wk);
+  const int lane = Lanes<W>::lane();
+  T vm[RW];
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    vm[s] = (s * W < nv && lane + s * W < nv && (!MASK || act[s])) ? v[s] : T(0);
+  }
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    if (s * W < nv) {
+      const int r = lane + s * W;
+      const T* ar = a + (r < nv ? r : 0) * kDenseStride;
+      T acc = T(0);
+      for (int c = 0; c < nv; ++c) acc = acc + ar[c] * row_value<W>(vm, c);
+      out[s] = (r < nv && (!MASK || act[s])) ? acc : T(0);
+    }
+  }
+  SPATIAL_STAMP(kPhApply);
+}
+
+// The operator on the rows: dense A where nv <= kDense, else W^T W v + R v
+template <bool MASK, int W, typename T, int N, int R, int F, int RW>
+__device__ __forceinline__ void apply_rows(Work<T, N, R, F>& wk, int nv, const T (&v)[RW],
+                                           const bool (&act)[RW], T (&out)[RW]) {
+  if (nv <= kDense) {
+    apply_dense<MASK, W>(wk, nv, v, act, out);
+  } else {
+    apply<MASK, W>(wk, wk.u, nv, v, act, out);
   }
 }
 
@@ -842,125 +1269,213 @@ __constant__ double kArc[6] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search 
 
 // Box QP min 1/2 lam^T (J M^-1 J^T + diag R) lam - rhs^T lam, lam >= 0, over
 // the valid rows: the fixed-iteration active set / CG / projected arc search
-// of the plain version's _qp_iterate. lam_full holds the warm start of every
-// model row on entry and the solution (0 on rows not valid) on exit. Returns
-// J^T lam.
-template <typename T, int N, int R>
-__device__ void solve_qp(const Model<T>& m, const Rows<T, N, R>& rows, const T (&L)[N][N],
-                         const T (&a_smooth)[N], T* lam_full, T (&qfrc)[N]) {
-  const int nv = rows.nv;
-  T lam[R], rhs[R], g[R], x[R], res[R], p[R];
-  T ap[R], best[R];
-  bool act[R];
-  for (int r = 0; r < nv; ++r) {
-    lam[r] = lam_full[rows.idx[r]];
-    rhs[r] = rows.aref[r] - dot_row(rows.J[r], a_smooth);
+// of the plain version's _qp_iterate, each lane holding its rows' iterates in
+// registers and every scalar (f_lg, f_rl, rs, denom, f_a, f_b) summed over
+// the lanes in row order (Lanes::sum) with the same bits on every lane, so
+// that all lanes take every branch alike. Near a contact switch the QP turns
+// rounding into other iterates, so the order of these sums shows: with tree
+// sums the Standup's f64 CEMPPI step lay 11x further from the plain path
+// than the plain path moves under a nudge of its inputs, with the row order
+// 4.5x (chip_smoke.py phase 34; H100 80GB HBM3, 700 W). wk.lam_full holds the warm start of every model row on entry and
+// the solution (0 on rows not valid) on exit. Returns J^T lam = L (W lam).
+template <typename T, int N, int R, int F, int W>
+__device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qfrc)[N]) {
+  constexpr int RW = (R + W - 1) / W;
+  const int lane = Lanes<W>::lane();
+  // slot s of a lane holds row lane + s W; slots with s W >= nv hold no row
+  // on any lane and are skipped (their values stay 0)
+  T lam[RW], rhs[RW], x[RW], res[RW], p[RW], ap[RW];
+  bool act[RW];
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    const bool live = r < nv;
+    lam[s] = live ? wk.lam_full[wk.idx[r]] : T(0);
+    rhs[s] = live ? wk.rhs[r] : T(0);
+    x[s] = res[s] = p[s] = ap[s] = T(0);
+    act[s] = false;
   }
-  for (int r = 0; r < m.n_rows; ++r) lam_full[r] = T(0);
+  Lanes<W>::sync();  // every warm start is read
+  for (int r = lane; r < m.n_rows; r += W) wk.lam_full[r] = T(0);
+  Lanes<W>::sync();
 #pragma unroll
   for (int d = 0; d < N; ++d) qfrc[d] = T(0);
   if (nv == 0) return;  // every iterate would stay 0
+  if (nv <= kDense) form_dense<W>(wk, nv);
+  const int nl = nv < W ? nv : W;  // the lanes that hold rows
 
   for (int it = 0; it < m.outer; ++it) {
-    ar_apply(rows, L, lam, static_cast<const bool*>(nullptr), g);
+    apply_rows<false, W>(wk, nv, lam, act, ap);
     T f_lg = T(0), f_rl = T(0);
-    for (int r = 0; r < nv; ++r) {
-      g[r] = g[r] - rhs[r];
-      act[r] = lam[r] > T(0) || g[r] < T(0);
-      x[r] = act[r] ? lam[r] : T(0);
-      f_lg = f_lg + lam[r] * g[r];
-      f_rl = f_rl + rhs[r] * lam[r];
+#pragma unroll
+    for (int s = 0; s < RW; ++s) {
+      if (s * W < nv) {
+        const T g = ap[s] - rhs[s];
+        act[s] = lane + s * W < nv && (lam[s] > T(0) || g < T(0));
+        x[s] = act[s] ? lam[s] : T(0);
+        f_lg = f_lg + lam[s] * g;
+        f_rl = f_rl + rhs[s] * lam[s];
+      }
     }
+    Lanes<W>::sum2(f_lg, f_rl, nl);
     T best_f = T(0.5) * f_lg - T(0.5) * f_rl;
-    ar_apply(rows, L, x, act, ap);
+    apply_rows<true, W>(wk, nv, x, act, ap);
     T rs = T(0);
-    for (int r = 0; r < nv; ++r) {
-      res[r] = act[r] ? rhs[r] - ap[r] : T(0);
-      p[r] = res[r];
-      rs = rs + res[r] * res[r];
+#pragma unroll
+    for (int s = 0; s < RW; ++s) {
+      if (s * W < nv) {
+        res[s] = act[s] ? rhs[s] - ap[s] : T(0);
+        p[s] = res[s];
+        rs = rs + res[s] * res[s];
+      }
     }
+    rs = Lanes<W>::sum(rs, nl);
     for (int k = 0; k < m.cg; ++k) {
-      ar_apply(rows, L, p, act, ap);
+      apply_rows<true, W>(wk, nv, p, act, ap);
       T denom = T(0);
-      for (int r = 0; r < nv; ++r) denom = denom + p[r] * ap[r];
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) denom = denom + p[s] * ap[s];
+      }
+      denom = Lanes<W>::sum(denom, nl);
       const T alpha = denom > T(1e-30) ? rs / (denom < T(1e-30) ? T(1e-30) : denom) : T(0);
       T rs_new = T(0);
-      for (int r = 0; r < nv; ++r) {
-        x[r] = x[r] + alpha * p[r];
-        res[r] = res[r] - alpha * ap[r];
-        rs_new = rs_new + res[r] * res[r];
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) {
+          x[s] = x[s] + alpha * p[s];
+          res[s] = res[s] - alpha * ap[s];
+          rs_new = rs_new + res[s] * res[s];
+        }
       }
+      rs_new = Lanes<W>::sum(rs_new, nl);
       const T beta = rs > T(1e-30) ? rs_new / (rs < T(1e-30) ? T(1e-30) : rs) : T(0);
-      for (int r = 0; r < nv; ++r) p[r] = res[r] + beta * p[r];
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) p[s] = res[s] + beta * p[s];
+      }
       rs = rs_new;
     }
-    // projected arc search over the fixed ladder; x becomes delta, p lam(t)
-    for (int r = 0; r < nv; ++r) {
-      x[r] = act[r] ? x[r] - lam[r] : T(0);
-      best[r] = lam[r];
+    // projected arc search over the fixed ladder; x becomes delta, p lam(t);
+    // the best t is kept by its index and lam(t) formed again from it
+#pragma unroll
+    for (int s = 0; s < RW; ++s) {
+      if (s * W < nv) x[s] = act[s] ? x[s] - lam[s] : T(0);
     }
+    int best_a = -1;
 #pragma unroll 1
     for (int a = 0; a < 6; ++a) {
       const T t = static_cast<T>(kArc[a]);
-      for (int r = 0; r < nv; ++r) {
-        const T v = lam[r] + t * x[r];
-        p[r] = v < T(0) ? T(0) : v;
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) {
+          const T v = lam[s] + t * x[s];
+          p[s] = v < T(0) ? T(0) : v;
+        }
       }
-      ar_apply(rows, L, p, act, ap);
+      apply_rows<true, W>(wk, nv, p, act, ap);
       T f_a = T(0), f_b = T(0);
-      for (int r = 0; r < nv; ++r) {
-        f_a = f_a + p[r] * ap[r];
-        f_b = f_b + rhs[r] * p[r];
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) {
+          f_a = f_a + p[s] * ap[s];
+          f_b = f_b + rhs[s] * p[s];
+        }
       }
+      Lanes<W>::sum2(f_a, f_b, nl);
       const T f_t = T(0.5) * f_a - f_b;
       if (f_t < best_f) {
         best_f = f_t;
-        for (int r = 0; r < nv; ++r) best[r] = p[r];
+        best_a = a;
       }
     }
-    for (int r = 0; r < nv; ++r) lam[r] = best[r];
-  }
-  for (int r = 0; r < nv; ++r) {
-    lam_full[rows.idx[r]] = lam[r];
+    if (best_a >= 0) {
+      const T t = static_cast<T>(kArc[best_a]);
 #pragma unroll
-    for (int d = 0; d < N; ++d) qfrc[d] = qfrc[d] + rows.J[r][d] * lam[r];
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) {
+          const T v = lam[s] + t * x[s];
+          lam[s] = v < T(0) ? T(0) : v;
+        }
+      }
+    }
   }
+  T part[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) part[d] = T(0);
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    if (s * W < nv && r < nv) {
+      wk.lam_full[wk.idx[r]] = lam[s];
+#pragma unroll
+      for (int d = 0; d < N; ++d) part[d] = part[d] + wk.w[r][d] * lam[s];
+    }
+  }
+  lane_sums<T, N, W>(part, wk.u);  // its barriers order the lam_full writes too
+  if constexpr (W == 1) {
+    for (int i = 0; i < N; ++i) {
+      T s = T(0);
+      for (int k = 0; k <= i; ++k) s = s + wk.L[i][k] * wk.u[k];
+      qfrc[i] = s;
+    }
+  } else {
+#ifdef __CUDACC__
+    T mine = T(0);  // lane i: row i of L (W lam)
+    if (lane < N) {
+      for (int k = 0; k <= lane; ++k) mine = mine + wk.L[lane][k] * wk.u[k];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) qfrc[i] = __shfl_sync(0xffffffffu, mine, i);
+#endif
+  }
+  SPATIAL_STAMP(kPhQp);
 }
 
-// One constrained forward pass (mj_forward) at (q, qv): the acceleration;
-// lam_full warm-starts the QP and returns its solution. With kEuler the QP
-// sees the undamped M and the acceleration solves (M + h diag(damping)) acc =
-// smooth + qfrc (the implicit damping of mj_Euler). With kSprings the smooth
-// force pulls each sprung hinge toward its springref. Kept out of line: RK4
-// calls it 4 times per substep.
-template <typename T, int N, int NQ, int F, int R>
+// One constrained forward pass (mj_forward) at (q, qv), run by the sample's
+// lanes together: the acceleration, the same on every lane; wk.lam_full
+// warm-starts the QP and returns its solution. With kEuler the QP sees the
+// undamped M and the acceleration solves (M + h diag(damping)) acc = smooth +
+// qfrc (the implicit damping of mj_Euler). With kSprings the smooth force
+// pulls each sprung hinge toward its springref. Kept out of line: RK4 calls
+// it 4 times per substep.
+template <typename T, int N, int NQ, int F, int R, int W>
 __device__ __noinline__ void forward_acc(const Model<T>& m, const T (&q)[NQ], const T (&qv)[N],
-                                         const T (&tau)[N], T* lam_full, Rows<T, N, R>& rows,
-                                         T (&acc)[N]) {
-  Kin<T, N> kin;
-  compute_frames<T, N, NQ, F>(m, q, kin);
-  T M[N][N], L[N][N], bias[N], smooth[N], a_smooth[N], qfrc[N];
-  mass_and_bias<T, N, F>(m, kin, qv, M, bias);
-  cholesky(M, L);
+                                         const T (&tau)[N], Work<T, N, R, F>& wk, T (&acc)[N]) {
+  SPATIAL_STAMP(kPhIntegrate);
+  frames<T, N, NQ, F, W>(m, q, wk.kin);
+  SPATIAL_STAMP(kPhFrames);
+  mass_and_bias<T, N, F, W>(m, wk.kin, qv, wk.body, wk.L, wk.M, wk.bias);
+  SPATIAL_STAMP(kPhMass);
+  factor<T, N, W>(wk.L, wk.inv);
+  T smooth[N], a_smooth[N], qfrc[N];
 #pragma unroll
-  for (int d = 0; d < N; ++d) smooth[d] = tau[d] - bias[d] - m.damping[d] * qv[d];
+  for (int d = 0; d < N; ++d) smooth[d] = tau[d] - wk.bias[d] - m.damping[d] * qv[d];
   if (F & kSprings) {
 #pragma unroll
     for (int d = 0; d < N; ++d)
       if (m.stiffness[d] != T(0))
-        smooth[d] = smooth[d] - m.stiffness[d] * (q[m.spring_qadr[d]] - m.springref[d]);
+        smooth[d] = smooth[d] - m.stiffness[d] * (pick(q, m.spring_qadr[d]) - m.springref[d]);
   }
-  chol_solve(L, smooth, a_smooth);
-  contact_rows<T, N, NQ, F, R>(m, q, qv, kin, rows);
-  solve_qp(m, rows, L, a_smooth, lam_full, qfrc);
+  chol_solve<T, N, W>(wk.L, wk.inv, smooth, a_smooth);
+  SPATIAL_STAMP(kPhFactor);
+  const int nv = contact_rows<T, N, NQ, F, R, W>(m, q, qv, a_smooth, wk);
+  solve_qp<T, N, R, F, W>(m, wk, nv, qfrc);
 #pragma unroll
   for (int d = 0; d < N; ++d) smooth[d] = smooth[d] + qfrc[d];
-  if (F & kEuler) {
-#pragma unroll
-    for (int d = 0; d < N; ++d) M[d][d] = M[d][d] + m.h_damping[d];
-    cholesky(M, L);
+  if constexpr ((F & kEuler) != 0) {
+    Lanes<W>::sync();  // every lane is done with the first factor
+    constexpr int kEntries = N * (N + 1) / 2;
+    for (int e = Lanes<W>::lane(); e < kEntries; e += W) {
+      int i, j;
+      tri_index(e, i, j);
+      wk.L[i][j] = i == j ? wk.M[i][i] + m.h_damping[i] : wk.M[i][j];
+    }
+    Lanes<W>::sync();
+    factor<T, N, W>(wk.L, wk.inv);
   }
-  chol_solve(L, smooth, acc);
+  chol_solve<T, N, W>(wk.L, wk.inv, smooth, acc);
+  SPATIAL_STAMP(kPhFactor);
 }
 
 // qpos (+) hh v (mj_integratePos); half_hh = hh / 2
@@ -1015,9 +1530,9 @@ __device__ void normalize_quats(const Model<T>& m, T (&q)[NQ]) {
 // previous stage's velocity, the weighted velocities accumulated stage by
 // stage, lambda chained through the stages; q_snap gets the last stage's
 // qpos (what mj_step leaves in data.xpos).
-template <typename T, int N, int NQ, int F, int R>
+template <typename T, int N, int NQ, int F, int R, int W>
 __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (&tau)[N],
-                            T* lam_full, Rows<T, N, R>& rows, T (&q_snap)[NQ]) {
+                            Work<T, N, R, F>& wk, T (&q_snap)[NQ]) {
   normalize_quats(m, q);
   T kq[N], kv[N], accq[N], accv[N], vs[N], acc[N];
 #pragma unroll
@@ -1030,7 +1545,7 @@ __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (
     integrate_pos(m, q, kq, m.ch[s], m.half_ch[s], q_snap);
 #pragma unroll
     for (int d = 0; d < N; ++d) vs[d] = qv[d] + m.ch[s] * kv[d];
-    forward_acc<T, N, NQ, F, R>(m, q_snap, vs, tau, lam_full, rows, acc);
+    forward_acc<T, N, NQ, F, R, W>(m, q_snap, vs, tau, wk, acc);
 #pragma unroll
     for (int d = 0; d < N; ++d) {
       accq[d] = accq[d] + m.w[s] * vs[d];
@@ -1050,12 +1565,12 @@ __device__ void rk4_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (
 // One Euler-implicit substep: the velocity by the implicitly damped
 // acceleration, then the positions by the new velocity; q_snap gets the
 // pre-integration (normalized) qpos, which mj_step leaves in data.xpos.
-template <typename T, int N, int NQ, int F, int R>
+template <typename T, int N, int NQ, int F, int R, int W>
 __device__ void euler_substep(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T (&tau)[N],
-                              T* lam_full, Rows<T, N, R>& rows, T (&q_snap)[NQ]) {
+                              Work<T, N, R, F>& wk, T (&q_snap)[NQ]) {
   normalize_quats(m, q);
   T acc[N];
-  forward_acc<T, N, NQ, F, R>(m, q, qv, tau, lam_full, rows, acc);
+  forward_acc<T, N, NQ, F, R, W>(m, q, qv, tau, wk, acc);
 #pragma unroll
   for (int d = 0; d < N; ++d) qv[d] = qv[d] + m.h * acc[d];
 #pragma unroll
@@ -1074,9 +1589,9 @@ constexpr int kDoublesPerSelfPair = 26, kDoublesPerSpring = 2;
 // One control step from the state (q, qv) under the actions a (clamped to
 // +-act_clip for the torque): frame_skip substeps from lambda = 0, lambda
 // chained; q_snap gets the snapshot of the last substep.
-template <typename T, int N, int NQ, int F, int R>
-__device__ void control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T* a, T* lam_full,
-                             Rows<T, N, R>& rows, T (&q_snap)[NQ]) {
+template <typename T, int N, int NQ, int F, int R, int W>
+__device__ void control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T* a,
+                             Work<T, N, R, F>& wk, T (&q_snap)[NQ]) {
   T tau[N];
 #pragma unroll
   for (int d = 0; d < N; ++d) tau[d] = T(0);
@@ -1086,14 +1601,15 @@ __device__ void control_step(const Model<T>& m, T (&q)[NQ], T (&qv)[N], const T*
     for (int d = 0; d < N; ++d)
       if (d == dof) tau[d] = m.gear[i] * clip(a[i], -m.act_clip, m.act_clip);
   }
-  for (int r = 0; r < m.n_rows; ++r) lam_full[r] = T(0);
+  Lanes<W>::sync();  // every lane is done with the last step's lambda
+  for (int r = Lanes<W>::lane(); r < m.n_rows; r += W) wk.lam_full[r] = T(0);
 #pragma unroll
   for (int i = 0; i < NQ; ++i) q_snap[i] = q[i];
   for (int s = 0; s < m.frame_skip; ++s) {
     if (F & kEuler)
-      euler_substep<T, N, NQ, F, R>(m, q, qv, tau, lam_full, rows, q_snap);
+      euler_substep<T, N, NQ, F, R, W>(m, q, qv, tau, wk, q_snap);
     else
-      rk4_substep<T, N, NQ, F, R>(m, q, qv, tau, lam_full, rows, q_snap);
+      rk4_substep<T, N, NQ, F, R, W>(m, q, qv, tau, wk, q_snap);
   }
 }
 
@@ -1138,8 +1654,10 @@ __device__ __forceinline__ void add_wrench(T (*acc)[6], int body, const T* cp, c
 // the frames, as the plain version's contact_force_ssq: per body the world
 // (torque about the whole robot's com, force); a pyramid's force is
 // n sum(lam) + mu t1 (lam0 - lam1) + mu t2 (lam2 - lam3), a condim-1 or pair
-// row's n lam, +f on body2 and -f on body1; limit rows carry no force.
-template <typename T, int N, int F>
+// row's n lam, +f on body2 and -f on body1; limit rows carry no force. Lane
+// l takes contacts and pairs l, l + W, ...; each body's wrench is summed
+// over the lanes in lane order, so every lane returns the same value.
+template <typename T, int N, int F, int W>
 __device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T* lam) {
   T com[3] = {T(0), T(0), T(0)}, acc[kMaxBodies][6];
   for (int b = 0; b < m.nb; ++b) {
@@ -1154,9 +1672,10 @@ __device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T*
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) com[i] = m.inv_total_mass * com[i];
-  int r = m.n_limits;
-  for (int ci = 0; ci < m.n_contacts; ++ci) {
+  const int lane = Lanes<W>::lane();
+  for (int ci = lane; ci < m.n_contacts; ci += W) {
     const Contact<T>& ct = m.con[ci];
+    const int r = ct.row;
     T p[3], f[3];
     rvec(kin.R[ct.body], ct.local, p);
 #pragma unroll
@@ -1166,7 +1685,6 @@ __device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T*
     if ((F & kCondim1) && ct.condim == 1) {
       f[0] = f[1] = T(0);
       f[2] = lam[r];
-      r += 1;
     } else {
       T t1x = T(0), t1y = T(1);
       if (ct.has_axis) {
@@ -1183,13 +1701,13 @@ __device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T*
       f[0] = ft1 * t1x + ft2 * (-t1y);
       f[1] = ft1 * t1y + ft2 * t1x;
       f[2] = fn;
-      r += 4;
     }
     add_wrench(acc, ct.body, cp, com, f, T(1));
   }
   if (F & kCylinder) {
-    for (int pi = 0; pi < m.n_cyl; ++pi, ++r) {
+    for (int pi = lane; pi < m.n_cyl; pi += W) {
       const CylPair<T>& pr = m.cyl[pi];
+      const int r = m.n_rows - m.n_cap - m.n_cyl + pi;
       T dist, nvec[3], cp[3], f[3];
       capsule_cylinder(kin, pr, dist, nvec, cp);
 #pragma unroll
@@ -1199,8 +1717,9 @@ __device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T*
     }
   }
   if (F & kSelfPairs) {
-    for (int pi = 0; pi < m.n_cap; ++pi, ++r) {
+    for (int pi = lane; pi < m.n_cap; pi += W) {
       const CapPair<T>& pr = m.cap[pi];
+      const int r = m.n_rows - m.n_cap + pi;
       T dist, nvec[3], cp[3], f[3];
       capsule_capsule(kin, pr, dist, nvec, cp);
 #pragma unroll
@@ -1212,12 +1731,15 @@ __device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T*
   T s = T(0);
   for (int b = 0; b < m.nb; ++b) {
 #pragma unroll
-    for (int c = 0; c < 6; ++c) s = s + acc[b][c] * acc[b][c];
+    for (int c = 0; c < 6; ++c) {
+      const T a = Lanes<W>::sum(acc[b][c], W);
+      s = s + a * a;
+    }
   }
   return s;
 }
 
-// What one thread of the kernel does for sample k: from x0 + k * x_stride
+// What the W lanes of the kernel do for sample k: from x0 + k * x_stride
 // (qpos, qvel, the family's carry) it applies `horizon` control steps; action
 // i of step t is controls[t * c_t + i * c_i + k * c_k]. Per step the family
 // reads the snapshot into the new carry and rewards:
@@ -1231,12 +1753,14 @@ __device__ T contact_force_ssq(const Model<T>& m, const Kin<T, N>& kin, const T*
 //     lambda; reward = q'[2] / h - ctrl_w sum a^2 - min(0.5e-6 carry', 10)
 //     + healthy.
 // The reward reads the action as given, or clipped to +-act_clip with kComX
-// and in the `standup` family. Writes costs[k] (the rollout entry) or the
+// and in the `standup` family. Every lane carries the state (each computes
+// the same values); the first writes costs[k] (the rollout entry) or the
 // state to x_out (the step entry, horizon 1) where not null.
-template <typename T, int N, int NQ, int F, int R>
+template <typename T, int N, int NQ, int F, int R, int W>
 __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_stride,
                            const T* controls, long long c_t, long long c_i, long long c_k,
-                           int horizon, T* costs, T* x_out, T* lam_full, Rows<T, N, R>& rows) {
+                           int horizon, T* costs, T* x_out, Work<T, N, R, F>& wk) {
+  SPATIAL_STAMP_START();
   constexpr int NC = Carry<F>::n;
   T a[kMaxAct], q[NQ], qv[N], carry[NC], q_snap[NQ];
   const T* xk = x0 + k * x_stride;
@@ -1249,14 +1773,14 @@ __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_st
   T cost = T(0);
   for (int t = 0; t < horizon; ++t) {
     for (int i = 0; i < m.n_act; ++i) a[i] = controls[t * c_t + i * c_i + k * c_k];
-    control_step<T, N, NQ, F, R>(m, q, qv, a, lam_full, rows, q_snap);
+    control_step<T, N, NQ, F, R, W>(m, q, qv, a, wk, q_snap);
+    SPATIAL_STAMP(kPhIntegrate);
     T ssq = T(0);
     for (int i = 0; i < m.n_act; ++i) ssq = ssq + a[i] * a[i];
     T rew;
     if (F & kStandup) {
-      Kin<T, N> kin;
-      compute_frames<T, N, NQ, F>(m, q_snap, kin);
-      const T cfrc = contact_force_ssq<T, N, F>(m, kin, lam_full);
+      frames<T, N, NQ, F, W>(m, q_snap, wk.kin);
+      const T cfrc = contact_force_ssq<T, N, F, W>(m, wk.kin, wk.lam_full);
       T ssq_c = T(0);
       for (int i = 0; i < m.n_act; ++i) {
         const T ai = clip(a[i], -m.act_clip, m.act_clip);
@@ -1266,9 +1790,8 @@ __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_st
       rew = ((q[2] / m.h - m.ctrl_w * ssq_c) - (impact < T(10) ? impact : T(10))) + m.healthy;
       carry[0] = cfrc;
     } else if (F & kComX) {
-      Kin<T, N> kin;
-      compute_frames<T, N, NQ, F>(m, q_snap, kin);
-      const T track = com_x(m, kin);
+      frames<T, N, NQ, F, W>(m, q_snap, wk.kin);
+      const T track = com_x(m, wk.kin);
       rew = m.healthy + (track - carry[0]) * m.fwd_inv_dt;
       for (int i = 0; i < m.n_act; ++i) {
         const T ai = clip(a[i], -m.act_clip, m.act_clip);
@@ -1277,12 +1800,11 @@ __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_st
       carry[0] = track;
     } else if (F & kPusher) {
       rew = -dist3(carry, 3, 6) - m.ctrl_w * ssq - T(0.5) * dist3(carry, 3, 0);
-      Kin<T, N> kin;
-      compute_frames<T, N, NQ, F>(m, q_snap, kin);
+      frames<T, N, NQ, F, W>(m, q_snap, wk.kin);
 #pragma unroll
       for (int b = 0; b < kCarryBodies; ++b) {
 #pragma unroll
-        for (int i = 0; i < 3; ++i) carry[3 * b + i] = kin.o[m.carry_body[b]][i];
+        for (int i = 0; i < 3; ++i) carry[3 * b + i] = wk.kin.o[m.carry_body[b]][i];
       }
     } else {
       rew = m.healthy + (q_snap[0] - carry[0]) * m.fwd_inv_dt;
@@ -1290,7 +1812,9 @@ __device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_st
       carry[0] = q_snap[0];
     }
     cost = cost - rew;
+    SPATIAL_STAMP(kPhReward);
   }
+  if (Lanes<W>::lane() != 0) return;
   if (costs) costs[k] = cost;
   if (x_out) {
     T* xo = x_out + static_cast<long long>(k) * (NQ + N + NC);
@@ -1453,6 +1977,7 @@ bool make_model(const int* ip, int n_int, const double* dp, int n_double, Model<
     ct.body = ic[0];
     ct.has_axis = ic[1];
     ct.condim = ic[2];
+    ct.row = nl + m.n_rows;
     if (ct.body < 0 || ct.body >= nb || (ct.condim != 3 && ct.condim != 1) ||
         (ct.condim == 1 && !(fx & kCondim1)))
       return false;

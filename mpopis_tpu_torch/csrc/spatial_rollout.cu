@@ -1,5 +1,5 @@
 // Spatial-contact MuJoCo rollout costs (Ant, Pusher, Humanoid,
-// HumanoidStandup), one thread per sample, and the same control step applied
+// HumanoidStandup), one warp per sample, and the same control step applied
 // to a batch of states.
 //
 // Replaces the Pallas TPU kernel mpopis_tpu/kernels/spatial_step.py::_make_kernel
@@ -24,40 +24,46 @@
 // chained through the stages and substeps, reset to 0 at every control step).
 //
 // Design
-// - One thread per sample, as the planar kernel (planar_rollout.cu). The
-//   alternative, a warp per sample with J in shared memory and the rows over
-//   the lanes, spends shuffles on every J^T lambda; it is later work. For the
-//   Humanoid's 242 rows x 23 dofs one thread keeps ~40 KB (f32) / ~80 KB
-//   (f64) of rows and QP vectors in local memory, and the row capacity is a
-//   template parameter (RowCap), so Ant and the Pusher keep their 128.
-// - Only the rows valid at the current state enter the QP, compacted
-//   (spatial_dynamics.cuh): the work follows the contacts that are live, and
-//   a sample with none skips its QP.
-// - q, qv and the per-dof vectors are register arrays (the dof count is a
-//   template parameter: 14 for Ant, 11 for the Pusher, 23 for the two
-//   humanoids); the compacted rows (up to 128 x 14 or 248 x 23), the
-//   QP vectors, the frames and the mass matrix and its factor live in local
-//   memory, i.e. L1/L2.
-// - Blocks are as small as fill the card: 1 thread per block up to ~8 blocks
-//   per SM, then wider, so that K = 1024 samples spread over all SMs with 8
-//   independent warps on each instead of 32 packed lanes on 32 SMs.
+// - One warp per sample (spatial_dynamics.cuh spreads its work over the 32
+//   lanes). On one thread per sample the kernel was a serial chain on one
+//   live lane of each warp: the QP's 42 applications of J M^-1 J^T per
+//   forward pass (each two dependent 23-step substitutions), the 242 row
+//   tests and the mass matrix, with ~41 KB (f32) / ~82 KB (f64) of rows and
+//   QP vectors in local memory per thread. scripts/spatial_phase_times.py
+//   put 36-47% of its time in those applications and 7-15% in the rest of
+//   the QP, 19-28% in the mass matrix and bias, 6-14% in the factor and
+//   solves, 9-14% in the pair geometry (H100 80GB HBM3, 700 W).
+// - A warp's per-sample arrays lie in its slice of dynamic shared memory
+//   (spatial::Work): the valid rows' columns of W = L^-1 J^T, formed once
+//   per forward pass by one lane per row against the factor, so that no
+//   triangular solve is left in the QP's loop; their rhs, regularizer and
+//   model row; lambda's warm starts; M and its factor; the frames and the
+//   bodies' motion. At most 32 valid rows (the common case) the QP applies
+//   the dense A = W^T W + diag R, formed once per pass, one dot per row;
+//   beyond, W^T (W v) with a reduce-scatter over the lanes. The row
+//   capacity is a template parameter (RowCap), so Ant (128 x 14) and the
+//   Pusher (128 x 11) hold only their own rows. Per-lane state (q, qv, the
+//   RK4 stages, the QP iterates of the lane's rows) stays in registers.
+// - Blocks are the number of warps (1 to 8) that keeps the most warps
+//   resident on an SM under the build's shared memory (30.6 KB a warp for
+//   the humanoids in f32) and registers, the fewer on a tie; a warp past
+//   num_k exits whole.
 // - What a build runs is fixed at compile time by its feature mask, so the
 //   Ant build holds none of the Pusher's branches.
 // - The model (spatial::Model, built on the host from the flat arrays the
 //   wrapper packs, in double, rounded once) lives in device memory the
 //   wrapper owns; every thread reads it at the same addresses.
 //
-// What bounds it on an H100: latency. A substep is a long dependent chain
-// (4 stages x (frames, an n x n Cholesky, ~40 applications of J M^-1 J^T over
-// the valid rows)), mostly through local memory, and K = 1024 gives one
-// sample per thread with no more threads to hide it.
+// What bounds it on an H100: the warp's chain of dependent steps, and the
+// schedulers' issue once two warps share one. A sample alone takes about a
+// third or more of the whole launch at K = 1024; up to four warps an SM (one a
+// scheduler) the time barely grows, beyond that it grows with the warps
+// that share a scheduler, and the humanoids' 7 resident warps an SM (their
+// shared memory) leave K = 1024 a second, partial wave
+// (scripts/spatial_k_scan.py). Per forward pass the QP is about half, the
+// mass matrix and bias an eighth, the factor and solves a tenth and the
+// frames (one lane) a fifteenth (scripts/spatial_phase_times.py).
 //
-// Interface: plain C functions, loaded with ctypes (kernels/spatial_step.py).
-// The wrapper packs the model as a flat int array and a flat double array
-// (layout: make_model in spatial_dynamics.cuh), has spatial_pack_model turn them into the
-// device struct's bytes and copies those to the card once. A launch does not
-// synchronise and returns cudaGetLastError().
-
 #include <cuda_runtime.h>
 
 #include "spatial_dynamics.cuh"
@@ -66,20 +72,25 @@ namespace {
 
 using namespace spatial;
 
-// The one kernel behind both entries: thread k runs sample k (run_sample in
-// spatial_dynamics.cuh) with the build's feature mask F and row capacity.
+constexpr int kMaxWarps = 8;  // warps of a block at most
+
+// The one kernel behind both entries: warp w of the block runs sample
+// blockIdx.x * warps + w (run_sample in spatial_dynamics.cuh, W = 32) with
+// the build's feature mask F and row capacity, its workspace the warp's
+// slice of dynamic shared memory.
 template <typename T, int N, int NQ, int F>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 spatial_kernel(const Model<T>* __restrict__ model, const T* __restrict__ x0, long long x_stride,
                const T* __restrict__ controls, long long c_t, long long c_i, long long c_k,
                int num_k, int horizon, T* __restrict__ costs, T* __restrict__ x_out) {
-  constexpr int R = RowCap<F>::n;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= num_k) return;
-  Rows<T, N, R> rows;
-  T lam_full[R];
-  run_sample<T, N, NQ, F, R>(*model, k, x0, x_stride, controls, c_t, c_i, c_k, horizon, costs,
-                             x_out, lam_full, rows);
+  using Ws = Work<T, N, RowCap<F>::n, F>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (k >= num_k) return;  // the whole warp
+  Ws& wk = reinterpret_cast<Ws*>(smem)[warp];
+  run_sample<T, N, NQ, F, RowCap<F>::n, 32>(*model, k, x0, x_stride, controls, c_t, c_i, c_k,
+                                            horizon, costs, x_out, wk);
 }
 
 // The builds: (n_dof, n_q, feature mask) of Ant, the Pusher, the Humanoid and
@@ -93,16 +104,56 @@ int carry_of(int features) {
   return (features & kPusher) ? Carry<kPusher>::n : Carry<0>::n;
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
+// The warps of a block for this build: of 1 .. kMaxWarps (as many as fit
+// in one block's shared memory), the count that keeps the most warps
+// resident on an SM, the smaller on a tie (a finer last wave). Chosen once
+// per build; the first call also lets the kernel take the dynamic shared
+// memory it needs.
+template <typename T, int N, int NQ, int F>
+int block_warps() {
+  static int warps = 0;
+  if (warps == 0) {
+    const auto kern = spatial_kernel<T, N, NQ, F>;
+    constexpr int per_warp = static_cast<int>(sizeof(Work<T, N, RowCap<F>::n, F>));
+    int dev = 0, smem_max = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        count < 1)
-      count = 132;
+        cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess)
+      return 0;
+    const int fit = smem_max / per_warp < kMaxWarps ? smem_max / per_warp : kMaxWarps;
+    if (fit < 1 || cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        fit * per_warp) != cudaSuccess)
+      return 0;
+    int best = 0, best_resident = 0;
+    for (int w = 1; w <= fit; ++w) {
+      int blocks = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, 32 * w, w * per_warp) !=
+          cudaSuccess)
+        return 0;
+      if (blocks * w > best_resident) {
+        best_resident = blocks * w;
+        best = w;
+      }
+    }
+    warps = best;
   }
-  return count;
+  return warps;
+}
+
+template <typename T, int N, int NQ, int F>
+int launch_build(const Model<T>* m, const T* xs, long long x_stride, const T* ctrl, long long c_t,
+                 long long c_i, long long c_k, int num_k, int horizon, T* c, T* xo,
+                 cudaStream_t s) {
+  const int warps = block_warps<T, N, NQ, F>();
+  if (warps < 1) {
+    const cudaError_t e = cudaGetLastError();
+    return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+  }
+  const int per_warp = static_cast<int>(sizeof(Work<T, N, RowCap<F>::n, F>));
+  const dim3 grid((num_k + warps - 1) / warps);
+  spatial_kernel<T, N, NQ, F><<<grid, 32 * warps, warps * per_warp, s>>>(
+      m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k, horizon, c, xo);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -110,10 +161,6 @@ int launch(const void* model, int n_dof, int n_q, int features, const void* x0,
            long long x_stride, const void* controls, long long c_t, long long c_i, long long c_k,
            int num_k, int horizon, void* costs, void* x_out, void* stream) {
   if (num_k < 1 || horizon < 0 || model == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  // 1 thread a block while that leaves at most ~8 blocks an SM, then wider
-  int threads = 1;
-  while (threads < 32 && static_cast<long long>(threads) * 8 * sm_count() < num_k) threads *= 2;
-  const dim3 grid((num_k + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Model<T>* m = static_cast<const Model<T>*>(model);
   const T* xs = static_cast<const T*>(x0);
@@ -121,20 +168,18 @@ int launch(const void* model, int n_dof, int n_q, int features, const void* x0,
   T* c = static_cast<T*>(costs);
   T* xo = static_cast<T*>(x_out);
   if (n_dof == 14 && n_q == 15 && features == kAntFeatures)
-    spatial_kernel<T, 14, 15, kAntFeatures><<<grid, threads, 0, s>>>(
-        m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k, horizon, c, xo);
-  else if (n_dof == 11 && n_q == 11 && features == kPusherFeatures)
-    spatial_kernel<T, 11, 11, kPusherFeatures><<<grid, threads, 0, s>>>(
-        m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k, horizon, c, xo);
-  else if (n_dof == 23 && n_q == 24 && features == kHumanoidFeatures)
-    spatial_kernel<T, 23, 24, kHumanoidFeatures><<<grid, threads, 0, s>>>(
-        m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k, horizon, c, xo);
-  else if (n_dof == 23 && n_q == 24 && features == kStandupFeatures)
-    spatial_kernel<T, 23, 24, kStandupFeatures><<<grid, threads, 0, s>>>(
-        m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k, horizon, c, xo);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_build<T, 14, 15, kAntFeatures>(m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k,
+                                                 horizon, c, xo, s);
+  if (n_dof == 11 && n_q == 11 && features == kPusherFeatures)
+    return launch_build<T, 11, 11, kPusherFeatures>(m, xs, x_stride, ctrl, c_t, c_i, c_k, num_k,
+                                                    horizon, c, xo, s);
+  if (n_dof == 23 && n_q == 24 && features == kHumanoidFeatures)
+    return launch_build<T, 23, 24, kHumanoidFeatures>(m, xs, x_stride, ctrl, c_t, c_i, c_k,
+                                                      num_k, horizon, c, xo, s);
+  if (n_dof == 23 && n_q == 24 && features == kStandupFeatures)
+    return launch_build<T, 23, 24, kStandupFeatures>(m, xs, x_stride, ctrl, c_t, c_i, c_k,
+                                                     num_k, horizon, c, xo, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

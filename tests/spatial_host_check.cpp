@@ -3,7 +3,8 @@
 // tests/test_torch_pusher_kernel.py (the Pusher's),
 // tests/test_torch_humanoid_kernel.py (the Humanoid's) and
 // tests/test_torch_standup_models.py (the Standup's): runs the kernel's
-// per-sample function on the CPU, so that its arithmetic is held against the
+// per-sample function on the CPU with one lane (W = 1, where the warp's lane
+// primitives are identities), so that its arithmetic is held against the
 // plain PyTorch version where there is no card. HOST_BUILDS picks the builds
 // compiled in (1: Ant and the Pusher, the default; 2: the Humanoid; 4: the
 // Standup), so that each test compiles only its own.
@@ -59,17 +60,16 @@ static int run(FILE* f, const std::vector<int>& ip, const std::vector<double>& d
   const std::vector<double> ctrl = read<double>(f, (mode == 0 ? horizon : 1) * na * num_k);
   std::vector<T> xs(x0.begin(), x0.end()), cs(ctrl.begin(), ctrl.end());
   std::vector<T> costs(num_k), out(static_cast<size_t>(NX) * num_k);
-  static Rows<T, N, R> rows;
-  static T lam_full[R];
+  static Work<T, N, R, F> wk;  // the workspace of the sample's one lane
   for (int k = 0; k < num_k; ++k) {
     if (mode == 0) {  // the rollout entry's strides: controls (T, na, K)
-      run_sample<T, N, NQ, F, R>(m, k, xs.data(), 0, cs.data(),
-                                 static_cast<long long>(na) * num_k, num_k, 1, horizon,
-                                 costs.data(), static_cast<T*>(nullptr), lam_full, rows);
+      run_sample<T, N, NQ, F, R, 1>(m, k, xs.data(), 0, cs.data(),
+                                    static_cast<long long>(na) * num_k, num_k, 1, horizon,
+                                    costs.data(), static_cast<T*>(nullptr), wk);
       printf("%.17g\n", static_cast<double>(costs[k]));
     } else {  // the step entry's: states (K, NX), actions (K, na)
-      run_sample<T, N, NQ, F, R>(m, k, xs.data(), NX, cs.data(), 0, 1, na, 1,
-                                 static_cast<T*>(nullptr), out.data(), lam_full, rows);
+      run_sample<T, N, NQ, F, R, 1>(m, k, xs.data(), NX, cs.data(), 0, 1, na, 1,
+                                    static_cast<T*>(nullptr), out.data(), wk);
       for (int i = 0; i < NX; ++i) printf("%.17g ", static_cast<double>(out[k * NX + i]));
       printf("\n");
     }

@@ -465,6 +465,95 @@ def test_spatial_wrappers_refuse_what_no_build_takes(cuda_device):
     assert (spatial_step.LAUNCHES, spatial_step.STEP_LAUNCHES) == before
 
 
+# -- kernel 4's warp per sample: partial blocks, empty QPs, rows over the lanes --
+def _hold_f64(env, x0, ctrl, got, bound=1e-9):
+    """The median over the samples of |kernel − plain| / |plain| within
+    `bound`, or within 10× the plain version's own median spread under
+    controls·(1 + 1e-15) (the nudge rule), as chip_smoke.py holds the f64
+    rollouts: the QP turns rounding into another iterate near a contact
+    switch, so a single sample may differ by more (Ant, K = 33: one sample
+    of 33 at 1.4e-9 on an H100 80GB HBM3)."""
+    ref = spatial_step.spatial_rollout_costs_tak_reference
+    want = ref(env, x0, ctrl)
+    med = float(((got - want) / want).abs().median())
+    if med > bound:
+        own = float(((ref(env, x0, ctrl * (1 + 1e-15)) - want) / want).abs().median())
+        bound = max(bound, 10 * own)
+    assert bool(torch.all(torch.isfinite(got))) and med <= bound
+
+
+def _supine_pressed(which, device):
+    """The Standup's supine reset pressed 2 cm into the floor, with the
+    build's carry: 82 rows valid in the first substep on the Humanoid's
+    model, 36 on the Standup's, more than a warp's 32 lanes, so that the
+    rows wrap over the lanes."""
+    env = HUMANOIDS[which](dtype=torch.float64, device=device)
+    x = HumanoidStandupDeviceEnv(dtype=torch.float64, device=device).reset().x.clone()
+    x[2] -= 0.02
+    if which == "humanoid":
+        x[-1] = humanoid_device.com_x(x[:24].cpu())
+    return env, x
+
+
+@pytest.mark.parametrize("k", [1, 33, 1023])
+@pytest.mark.parametrize("which", ["ant", "humanoid"])
+def test_spatial_kernel_partial_warp_counts_match_plain_version(cuda_device, which, k):
+    """K = 1, 33 and 1023: a block or a grid that the samples do not fill."""
+    if which == "ant":
+        env, x0 = _ant(torch.float64, cuda_device, "grounded")
+        hi = 1.0
+    else:
+        env, x0 = _humanoid("humanoid", torch.float64, cuda_device, "crouch")
+        hi = 0.4
+    ctrl = torch.as_tensor(np.random.default_rng(k).uniform(-hi, hi, (2, env.action_dim, k)),
+                           dtype=torch.float64, device=cuda_device)
+    before = spatial_step.LAUNCHES
+    got = spatial_step.spatial_rollout_costs_tak(env, x0, ctrl)
+    assert spatial_step.LAUNCHES == before + 1 and got.shape == (k,)
+    _hold_f64(env, x0, ctrl, got)
+
+
+def test_spatial_kernel_sample_with_no_valid_row(cuda_device):
+    """Ant 2 m above the floor with every joint inside its range: no limit or
+    contact row is valid, so the QP is skipped on every lane."""
+    env, x0 = _ant(torch.float64, cuda_device, "reset")
+    x0[2] = 2.0
+    for lm in env.MODEL.limits:
+        x0[lm.dof + 1] = 0.5 * (lm.lo + lm.hi)  # a hinge's qpos follows its dof by one
+    assert spatial_step.first_substep_active_rows(env, x0) == (0, 0, 0)
+    ctrl = torch.zeros((1, 8, 5), dtype=torch.float64, device=cuda_device)
+    _hold_f64(env, x0, ctrl, spatial_step.spatial_rollout_costs_tak(env, x0, ctrl))
+
+
+@pytest.mark.parametrize("which", sorted(HUMANOIDS))
+def test_humanoid_kernel_rows_wrap_over_the_lanes(cuda_device, which):
+    env, x0 = _supine_pressed(which, cuda_device)
+    assert sum(spatial_step.first_substep_active_rows(env, x0)) > 32
+    ctrl = torch.as_tensor(np.random.default_rng(8).uniform(-0.4, 0.4, (2, 17, 64)),
+                           dtype=torch.float64, device=cuda_device)
+    _hold_f64(env, x0, ctrl, spatial_step.spatial_rollout_costs_tak(env, x0, ctrl))
+
+
+@pytest.mark.parametrize("which", sorted(HUMANOIDS))
+def test_humanoid_step_kernel_batch_of_three(cuda_device, which):
+    """The step entry for 3 states (the crouch, the pressed supine pose and
+    the reset): per state within 1e-9 of the plain step, or the nudge rule."""
+    states = [_humanoid(which, torch.float64, cuda_device, start)[1] for start in ("crouch",
+                                                                                    "reset")]
+    env, pressed = _supine_pressed(which, cuda_device)
+    xs = torch.stack([states[0], pressed, states[1]])
+    acts = torch.as_tensor(np.random.default_rng(3).uniform(-0.5, 0.5, (3, 17)),
+                           dtype=torch.float64, device=cuda_device)
+    before = spatial_step.STEP_LAUNCHES
+    got = spatial_step.spatial_step_states(env, xs, acts)
+    assert spatial_step.STEP_LAUNCHES == before + 1
+    want = env.plain_step(make_state(xs), acts).x
+    err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    own = (env.plain_step(make_state(xs), acts * (1 + 1e-15)).x - want).abs().amax(-1)
+    bound = torch.clamp(10 * own / want.abs().amax(-1), min=1e-9)
+    assert bool(torch.all(torch.isfinite(got))) and bool(torch.all(err <= bound))
+
+
 # -- AIS updates and small linear algebra --------------------------------------
 # float32 at the JAX kernel tests' tolerances (refits and Cholesky rtol 5e-4 /
 # atol 5e-5, CMA rtol 5e-3 / atol 5e-4, forward solve rtol 5e-5 / atol 5e-6);

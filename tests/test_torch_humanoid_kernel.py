@@ -33,7 +33,7 @@ from mpopis_tpu.utils.fastjit import fast_jit
 from mpopis_tpu_torch.harness.cli import main
 from mpopis_tpu_torch.kernels import spatial_step
 from mpopis_tpu_torch.kernels.build import CSRC_DIR
-from mpopis_tpu_torch.models import HumanoidDeviceEnv, humanoid_device as hd
+from mpopis_tpu_torch.models import HumanoidDeviceEnv, HumanoidStandupDeviceEnv, humanoid_device as hd
 from mpopis_tpu_torch.models.base import make_state
 from mpopis_tpu_torch.policies import PolicyConfig, make_policy
 
@@ -59,11 +59,18 @@ def _close(got, want, rtol):
 
 
 def humanoid_state(name, dtype=torch.float64):
-    """The standing reset, or the crouch (floor and self-pair rows active)
-    with velocities from a numpy seed and its com x as the carry."""
+    """The standing reset, the crouch (floor and self-pair rows active) with
+    velocities from a numpy seed and its com x as the carry, or (`pressed`)
+    the Standup's supine reset 2 cm into the floor, where more rows are valid
+    (82) than a warp has lanes."""
     env = HumanoidDeviceEnv(dtype=dtype, device="cpu")
     if name == "reset":
         return env, env.reset().x
+    if name == "pressed":
+        x = HumanoidStandupDeviceEnv(dtype=dtype, device="cpu").reset().x.clone()
+        x[2] -= 0.02
+        x[-1] = hd.com_x(x[:24].double()).to(dtype)
+        return env, x
     q = hd.crouched_qpos()
     qv = torch.as_tensor(np.random.default_rng(4).uniform(-0.3, 0.3, 23))
     return env, torch.cat([q, qv, hd.com_x(q)[None]]).to(dtype)
@@ -286,6 +293,30 @@ def test_kernel_code_built_for_the_host_matches_the_plain_version(host_check, na
     want = env.plain_step(make_state(xs), acts).x.double().numpy()
     got = run_host(host_check, env, 1, xs.double().numpy(), acts.double().numpy(), K, 1)
     np.testing.assert_allclose(got, want, rtol=rtol, atol=max(atol, rtol) * np.abs(want).max())
+
+
+def test_kernel_code_built_for_the_host_wraps_rows_over_the_lanes(host_check):
+    """From the pressed supine pose (82 valid rows, more than the 32 of the
+    dense QP operator, so the QP applies W^T W v), f64 costs and one control
+    step against the plain version: within 1e-9, or within 10x the plain
+    version's own spread under controls·(1 + 1e-15) (the nudge rule; eighty
+    floor rows turn rounding into other QP iterates)."""
+    env, x = humanoid_state("pressed")
+    rng = np.random.default_rng(31)
+    ctrl = torch.as_tensor(rng.uniform(-0.4, 0.4, (T, 17, K)), dtype=torch.float64)
+    ref = spatial_step.spatial_rollout_costs_tak_reference
+    want = ref(env, x, ctrl).numpy()
+    own = np.abs(ref(env, x, ctrl * (1 + 1e-15)).numpy() / want - 1).max()
+    got = run_host(host_check, env, 0, x.numpy(), ctrl.numpy(), K, T)[:, 0]
+    assert np.abs(got / want - 1).max() <= max(1e-9, 10 * own)
+
+    acts = torch.as_tensor(rng.uniform(-0.6, 0.6, (K, 17)), dtype=torch.float64)
+    xs = x.expand(K, -1).clone()
+    want = env.plain_step(make_state(xs), acts).x.numpy()
+    scale = np.abs(want).max()
+    own = np.abs(env.plain_step(make_state(xs), acts * (1 + 1e-15)).x.numpy() - want).max()
+    got = run_host(host_check, env, 1, xs.numpy(), acts.numpy(), K, 1)
+    assert np.abs(got - want).max() / scale <= max(1e-9, 10 * own / scale)
 
 
 def test_cli_runs_the_humanoid_on_the_cpu(capsys):
