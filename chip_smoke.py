@@ -368,13 +368,17 @@ def _own_launch_ms(label, calls, kern, counts, rollout, step, steps_per_s, card)
     """The device time (`_device_ms`) of the main path's own rollout launches
     recorded in a window, replayed on their own inputs, and their share of
     the control step: launches per executed step × mean ms over the step's
-    host time (1000 / control steps per second). Returns the mean ms."""
-    ms = [_device_ms(lambda c=c: kern(*c), 1)[0] for c in calls]
+    host time (1000 / control steps per second). The time is the whole
+    wrapper's device work: the kernel and any PyTorch op the wrapper
+    launches beside it. Returns the mean ms."""
+    timed = [_device_ms(lambda c=c: kern(*c), 1) for c in calls]
+    ms = [t for t, _ in timed]
+    how = ", ".join(sorted({h for _, h in timed}))
     mean, per_step = float(np.mean(ms)), counts[rollout] / counts[step]
     step_ms = 1e3 / steps_per_s
     print(f"{label} the main path's own rollout launches ({len(ms)} recorded, from launch "
           f"{MAIN_WINDOW[0]}): device {mean:.4f} ms mean (min {min(ms):.4f}, max {max(ms):.4f}; "
-          f"CUDA graph replay); {per_step:.3f} launches per control step make "
+          f"{how}, the wrapper's device work); {per_step:.3f} launches per control step make "
           f"{per_step * mean:.3f} ms, {100 * per_step * mean / step_ms:.1f}% of the "
           f"{step_ms:.3f} ms control step ({card})")
     return mean

@@ -21,8 +21,9 @@
 // The arithmetic of the plain PyTorch version
 // (mpopis_tpu_torch/models/spatial_contact.py) spread over the lanes: the
 // double instantiation agrees with it to rounding, not bit for bit (nvcc
-// contracts multiply-adds into FMAs, the lanes' sums are trees, and the QP
-// applies J M^-1 J^T as W^T W with W = L^-1 J^T).
+// contracts multiply-adds into FMAs, the lanes' sums of per-dof vectors are
+// trees, the QP's scalars follow the row order only up to kDense rows, and
+// the QP applies J M^-1 J^T as W^T W with W = L^-1 J^T).
 //
 // The lanes of one sample (Lanes<W>: a warp on the card, W = 32; one lane in
 // the host build of tests/spatial_host_check.cpp, W = 1, where every lane
@@ -36,8 +37,11 @@
 // - lane l tests candidate rows l, l + W, ... of each kind and forms the
 //   valid ones, compacted in the model's order by a ballot and popcount;
 // - the QP's rows and iterates lie on the lanes, and every lane sums its
-//   scalars over the lanes in row order, as the plain version's serial
-//   association (the same bits on every lane).
+//   scalars over the lanes in lane order (the same bits on every lane): up
+//   to kDense = 32 valid rows, one row a lane, that is the plain version's
+//   serial row order; beyond, each lane first adds its own rows (l, l + 32,
+//   ...), then the lanes are added in order, and the operator W^T W v sums
+//   its per-dof vector over the lanes as a tree (lane_sums).
 // There are no atomics: a sample's result does not depend on scheduling.
 //
 // The model is a POD struct read by every thread of a launch at the same
@@ -1271,8 +1275,10 @@ __constant__ double kArc[6] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search 
 // the valid rows: the fixed-iteration active set / CG / projected arc search
 // of the plain version's _qp_iterate, each lane holding its rows' iterates in
 // registers and every scalar (f_lg, f_rl, rs, denom, f_a, f_b) summed over
-// the lanes in row order (Lanes::sum) with the same bits on every lane, so
-// that all lanes take every branch alike. Near a contact switch the QP turns
+// the lanes in lane order (Lanes::sum) with the same bits on every lane, so
+// that all lanes take every branch alike. Up to kDense valid rows that is
+// the row order; beyond, each lane's slots (rows l, l + W, ...) are added
+// first, then the lanes in order. Near a contact switch the QP turns
 // rounding into other iterates, so the order of these sums shows: with tree
 // sums the Standup's f64 CEMPPI step lay 11x further from the plain path
 // than the plain path moves under a nudge of its inputs, with the row order

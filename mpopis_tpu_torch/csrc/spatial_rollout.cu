@@ -60,9 +60,11 @@
 // scheduler) the time barely grows, beyond that it grows with the warps
 // that share a scheduler, and the humanoids' 7 resident warps an SM (their
 // shared memory) leave K = 1024 a second, partial wave
-// (scripts/spatial_k_scan.py). Per forward pass the QP is about half, the
-// mass matrix and bias an eighth, the factor and solves a tenth and the
-// frames (one lane) a fifteenth (scripts/spatial_phase_times.py).
+// (scripts/spatial_k_scan.py). Per forward pass the QP is 52-62% on Ant and
+// the humanoids (30% on the Pusher, whose cylinder pairs take 16%), the mass
+// matrix and bias 13-18%, the factor and solves 6-11% and the frames (one
+// lane) 6-11% (scripts/spatial_phase_times.py, the stamped kernel at K =
+// 1024 from chip_smoke's timed starts).
 //
 #include <cuda_runtime.h>
 

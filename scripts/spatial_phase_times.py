@@ -50,21 +50,21 @@ from mpopis_tpu_torch.policies import PolicyConfig, make_policy  # noqa: E402
 OUT = build.BUILD_DIR / "phase_times"
 PRELUDE = """#include <cuda_runtime.h>
 __device__ unsigned long long* g_phase_ns;  // [slots][phases]
-__device__ int g_phase_stride, g_phase_lanes, g_phase_slots, g_phase_count;
-// The recording slot of this thread's sample, or -1: the first lane of every
-// g_phase_stride-th sample.
+__device__ int g_phase_stride, g_phase_slots, g_phase_count;
+// The recording slot of this thread's sample, or -1: lane 0 of every
+// g_phase_stride-th sample. Warp w of block b runs sample b * warps + w, as
+// in spatial_kernel.
 __device__ __forceinline__ int spatial_stamp_slot() {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t % g_phase_lanes != 0) return -1;
-  const int k = t / g_phase_lanes;
+  if ((threadIdx.x & 31) != 0) return -1;
+  const int k = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (k % g_phase_stride != 0 || k / g_phase_stride >= g_phase_slots) return -1;
   return k / g_phase_stride;
 }
-// The previous stamp of each sample of the block in shared memory, the sums in
+// The previous stamp of each warp's sample in shared memory, the sums in
 // global memory by reductions that do not wait for their result.
 __device__ __forceinline__ unsigned long long* spatial_stamp_last() {
   __shared__ unsigned long long last[32];
-  return last + (threadIdx.x / g_phase_lanes) % 32;
+  return last + (threadIdx.x >> 5);
 }
 __device__ __forceinline__ void spatial_stamp(int phase, bool start) {
   const int s = spatial_stamp_slot();
@@ -79,10 +79,9 @@ __device__ __forceinline__ void spatial_stamp(int phase, bool start) {
 #define SPATIAL_STAMP_START() spatial_stamp(0, true)
 """
 SETUP = """
-extern "C" int phase_setup(void* ns, int stride, int lanes, int slots, int count) {
+extern "C" int phase_setup(void* ns, int stride, int slots, int count) {
   cudaError_t e = cudaMemcpyToSymbol(g_phase_ns, &ns, sizeof(ns));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_stride, &stride, sizeof(int));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_lanes, &lanes, sizeof(int));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_slots, &slots, sizeof(int));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_count, &count, sizeof(int));
   return static_cast<int>(e);
@@ -121,7 +120,7 @@ def stamped_library() -> tuple[ctypes.CDLL, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.phase_setup.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    lib.phase_setup.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
     lib.phase_setup.restype = ctypes.c_int
     lib.spatial_model_bytes.argtypes = [ctypes.c_int]
     lib.spatial_model_bytes.restype = ctypes.c_int
@@ -163,7 +162,6 @@ def main() -> None:
     ap.add_argument("--only", default=",".join(BUILDS), help="builds, comma-separated")
     ap.add_argument("--steps", type=int, default=10,
                     help="main-path control steps before the second start")
-    ap.add_argument("--lanes", type=int, default=32, help="threads that run one sample")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("spatial_phase_times: needs a CUDA card")
@@ -191,7 +189,7 @@ def main() -> None:
         stride = max(k // n_sm, 1)
         slots = (k + stride - 1) // stride
         ns = torch.zeros((slots, len(names)), dtype=torch.int64, device="cuda")
-        if lib.phase_setup(ns.data_ptr(), stride, args.lanes, slots, len(names)) != 0:
+        if lib.phase_setup(ns.data_ptr(), stride, slots, len(names)) != 0:
             raise RuntimeError("could not point the kernel at the stamp buffers")
         passes = horizon * env.FRAME_SKIP * (1 if env.MODEL.integrator == "euler_implicit"
                                              else 4)

@@ -467,19 +467,31 @@ def test_spatial_wrappers_refuse_what_no_build_takes(cuda_device):
 
 # -- kernel 4's warp per sample: partial blocks, empty QPs, rows over the lanes --
 def _hold_f64(env, x0, ctrl, got, bound=1e-9):
-    """The median over the samples of |kernel − plain| / |plain| within
-    `bound`, or within 10× the plain version's own median spread under
-    controls·(1 + 1e-15) (the nudge rule), as chip_smoke.py holds the f64
-    rollouts: the QP turns rounding into another iterate near a contact
-    switch, so a single sample may differ by more (Ant, K = 33: one sample
-    of 33 at 1.4e-9 on an H100 80GB HBM3)."""
+    """Every sample: |kernel − plain| / |plain| within `bound`, or within 10×
+    that sample's own spread, the most the plain version's cost moves under
+    controls·(1 ± 1e-15), x0·(1 + 1e-15) or on the CPU (another association
+    of its sums). Over two control steps through contact switches no single
+    nudge stands for a new association: on the pressed pose the plain
+    version on the CPU lies up to 1.5e-7 from itself on the card where
+    controls·(1 + 1e-15) moves it by 1e-9 (scripts/spatial_f64_spread.py).
+    A fault in a grid the samples do not fill (a wrong sample index, a stray
+    write, a stale slot) hits a few samples, so no sample is left out."""
     ref = spatial_step.spatial_rollout_costs_tak_reference
     want = ref(env, x0, ctrl)
-    med = float(((got - want) / want).abs().median())
-    if med > bound:
-        own = float(((ref(env, x0, ctrl * (1 + 1e-15)) - want) / want).abs().median())
-        bound = max(bound, 10 * own)
-    assert bool(torch.all(torch.isfinite(got))) and med <= bound
+    err = ((got - want) / want).abs()
+    assert bool(torch.all(torch.isfinite(got))), "non-finite costs"
+    far = (err > bound).nonzero().flatten()
+    if len(far) == 0:
+        return
+    runs = [ref(env, x0, ctrl * (1 + 1e-15)), ref(env, x0, ctrl * (1 - 1e-15)),
+            ref(env, x0 * (1 + 1e-15), ctrl)]
+    own = torch.stack([((r[far] - want[far]) / want[far]).abs() for r in runs]).amax(0)
+    cpu = ref(type(env)(dtype=torch.float64, device="cpu"), x0.cpu(), ctrl[..., far].cpu())
+    own = torch.maximum(own, ((cpu.to(want.device) - want[far]) / want[far]).abs())
+    bad = err[far] > 10 * own
+    assert not bool(bad.any()), (
+        f"samples {far[bad].tolist()}: errors {err[far][bad].tolist()}, "
+        f"own spreads {own[bad].tolist()}")
 
 
 def _supine_pressed(which, device):
