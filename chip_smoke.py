@@ -65,12 +65,15 @@ them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
   timings.
 
 The f64 comparisons of Ant and the Pusher at the main path's K run the
-first 3 of its T steps; each plain version is timed once. Phases 19, 27, 31
-and 35 also replay ten of the main path's own rollout launches (launches
-20-29, their inputs recorded as the path ran) for their device time and its
-share of the control step, and print each path's reward beside the
-thread-per-sample kernel's; phases 17 and 25 (with 29 and 33) print the
-free device memory around each build's first launches.
+first 3 of its T steps; each plain version is timed once. Phases 9
+(HalfCheetah), 19, 23 (the Swimmer), 27, 31 and 35 also replay ten of the
+main path's own rollout launches (launches 20-29, their inputs recorded as
+the path ran) for their device time and its share of the control step;
+phases 10 and 24 split HalfCheetah's and the Swimmer's control step into the
+policy step and the env step; phases 6 and 21 print each planar build's
+lanes a sample and warps a block. Phases 19-35 print each path's reward
+beside the thread-per-sample kernel 4's; phases 17 and 25 (with 29 and 33)
+print the free device memory around each build's first launches.
 
 Every kernel's launch count is set to 0 just before each path and read
 just after. Every phase raises on failure; there is no CPU path. The
@@ -384,6 +387,48 @@ def _own_launch_ms(label, calls, kern, counts, rollout, step, steps_per_s, card)
     return mean
 
 
+def _step_split(label, env_cls, k, horizon, its, lam, rollout_ms) -> None:
+    """A main path's control step split into the policy step and the env
+    step: host clock around synchronised calls, CEMPPI (`mle`, Σ = 0.25·I)
+    at the path's configuration, 20 steps after 3 of warm-up, f32."""
+    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+
+    env = env_cls(dtype=torch.float32, device="cuda")
+    pol = make_policy(env, PolicyConfig(kind="cemppi", num_samples=k, horizon=horizon, lam=lam,
+                                        opt_its=its, sigma_est="mle"),
+                      cov_mat=0.25 * np.eye(env.action_dim))
+    s, pstate = env.reset(), pol.init_state(SEED)
+    split = {"policy": [], "env": []}
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, pstate, _ = pol.step(s, pstate)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, _ = env.step_reward(s, a)
+        torch.cuda.synchronize()
+        if i >= 3:
+            split["policy"].append((t1 - t0) * 1e3)
+            split["env"].append((time.perf_counter() - t1) * 1e3)
+    print(f"{label} control step over 20 steps (host clock, synchronised): policy step median "
+          f"{np.median(split['policy']):.3f} ms (range {min(split['policy']):.3f}-"
+          f"{max(split['policy']):.3f}; up to {its} rollout launches of {rollout_ms:.3f} ms), env "
+          f"step median {np.median(split['env']):.3f} ms (range {min(split['env']):.3f}-"
+          f"{max(split['env']):.3f})")
+
+
+def _print_launch_shapes(label, envs) -> None:
+    """Each planar build's lanes a sample and warps a block, f32 and f64."""
+    from mpopis_tpu_torch.kernels import planar_step
+
+    for task, cls in envs.items():
+        shapes = {str(dt)[6:]: planar_step.launch_shape(cls(dtype=dt, device="cuda"), dt)
+                  for dt in (torch.float32, torch.float64)}
+        print(f"{label} {task} build: " + ", ".join(
+            f"{name} W = {w} lanes a sample, {nw} warps a block" for name, (w, nw) in
+            shapes.items()))
+
+
 def _rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got − want| / max |want|."""
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-300))
@@ -417,6 +462,7 @@ def _planar_path(card: str) -> list:
     print(f"phase 6: {info['so']} built in {info['seconds']:.1f} s (in parallel with the car's)")
     for line in _ptxas_lines(info["log"]):
         print("  ptxas:", line)
+    _print_launch_shapes("phase 6:", envs)
 
     def env_x(task, dtype, drop=False, **kw):
         env = envs[task](dtype=dtype, device="cuda", **kw)
@@ -561,22 +607,27 @@ def _planar_path(card: str) -> list:
     _hold("CEMPPI step: U, kernel vs plain path", err_u, own_u, 1e-8)
 
     # -- phase 9: the main path, simulate_mujoco_on_device ----------------------
+    # HalfCheetah's own rollout launches MAIN_WINDOW are recorded as it runs
     counts = {}
     for task, steps in (("HalfCheetah-v4", CHEETAH_STEPS), ("Hopper-v4", OTHER_STEPS),
                         ("Walker2d-v4", OTHER_STEPS)):
         t_phase = time.perf_counter()
-        _zero_counts()
-        m = simulate_mujoco_on_device(
-            task, num_trials=1, num_steps=steps, num_samples=PK, horizon=PH, lam=PLAM,
-            ais_its=PITS, ce_sigma_est="mle", seed=SEED, device="cuda", dtype=torch.float32,
-        )
-        counts[task] = _counts()
+        with contextlib.ExitStack() as stack:
+            calls = (stack.enter_context(_recording(planar_step, "planar_rollout_costs_tak",
+                                                    *MAIN_WINDOW))
+                     if task == "HalfCheetah-v4" else [])
+            _zero_counts()
+            m = simulate_mujoco_on_device(
+                task, num_trials=1, num_steps=steps, num_samples=PK, horizon=PH, lam=PLAM,
+                ais_its=PITS, ce_sigma_est="mle", seed=SEED, device="cuda", dtype=torch.float32,
+            )
+            counts[task] = _counts()
         its = int(m["ais_iterations"][0])
         rew, rps = float(m["rewards"][0]), float(m["rewards_per_step"][0])
+        sps = float(m["control_steps_per_s"][0])
         print(f"phase 9: {task} K={PK} H={PH} {PITS} its: reward {rew:.4f} over "
-              f"{int(m['steps'][0])} steps ({rps:.4f} per step), "
-              f"{float(m['control_steps_per_s'][0]):.3f} control steps/s, ais_iterations {its}, "
-              f"kernel launches {json.dumps(counts[task])} "
+              f"{int(m['steps'][0])} steps ({rps:.4f} per step), {sps:.3f} control steps/s, "
+              f"ais_iterations {its}, kernel launches {json.dumps(counts[task])} "
               f"({time.perf_counter() - t_phase:.1f} s)")
         _require(counts[task]["planar_rollout"] == its > 0,
                  f"{task}: not every rollout ran on the kernel")
@@ -585,6 +636,8 @@ def _planar_path(card: str) -> list:
         _require(np.isfinite(rew), f"{task}: non-finite reward")
         if task == "HalfCheetah-v4":
             _require(rps > 0, "the cheetah did not run forward")
+            own_ms = _own_launch_ms("phase 9: HalfCheetah", calls, kern, counts[task],
+                                    "planar_rollout", "planar_step_states", sps, card)
 
     # -- phase 10: timings by CUDA events ------------------------------------------
     t_phase = time.perf_counter()
@@ -603,30 +656,7 @@ def _planar_path(card: str) -> list:
             lambda: env.plain_step(make_state(xs), act), card, reps_p=5)
     k_ms, p_ms = times[("HalfCheetah-v4", "rollout")]
 
-    # HalfCheetah's control step split in the main path's configuration:
-    # host clock around synchronised calls, 20 steps after 3 of warm-up
-    env = CheetahDeviceEnv(dtype=torch.float32, device="cuda")
-    pol = make_policy(env, PolicyConfig(kind="cemppi", num_samples=PK, horizon=PH, lam=PLAM,
-                                        opt_its=PITS, sigma_est="mle"),
-                      cov_mat=0.25 * np.eye(6))
-    s, pstate = env.reset(), pol.init_state(SEED)
-    split = {"policy": [], "env": []}
-    for i in range(23):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a, pstate, _ = pol.step(s, pstate)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        s, _ = env.step_reward(s, a)
-        torch.cuda.synchronize()
-        if i >= 3:
-            split["policy"].append((t1 - t0) * 1e3)
-            split["env"].append((time.perf_counter() - t1) * 1e3)
-    print(f"phase 10: HalfCheetah control step over 20 steps (host clock, synchronised): "
-          f"policy step median {np.median(split['policy']):.3f} ms (range "
-          f"{min(split['policy']):.3f}-{max(split['policy']):.3f}; {PITS} rollout launches of "
-          f"{k_ms:.3f} ms), env step median {np.median(split['env']):.3f} ms (range "
-          f"{min(split['env']):.3f}-{max(split['env']):.3f})")
+    _step_split("phase 10: HalfCheetah", CheetahDeviceEnv, PK, PH, PITS, PLAM, k_ms)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
     cheetah = counts["HalfCheetah-v4"]
@@ -664,6 +694,7 @@ def _planar_path(card: str) -> list:
         "bound_by": roll_bound[1],
         "library_ms": None,
         "median_rel_err_f32": results["HalfCheetah-v4"]["median_rel_err_f32"],
+        "main_path_ms": own_ms,
     }, {
         "name": "planar_step_states",
         "route": "cuda",
@@ -1552,6 +1583,7 @@ def _swimmer_path(card: str) -> list:
     print(f"phase 21: {info['so']} built in {info['seconds']:.1f} s (in parallel with the others)")
     for line in _ptxas_lines(info["log"]):
         print("  ptxas:", line)
+    _print_launch_shapes("phase 21:", {"Swimmer-v4": SwimmerDeviceEnv})
     env, x = make(torch.float32, "limits")
     print(f"phase 21: Swimmer limit start: {planar_step.first_substep_active_rows(env, x)[0]} "
           f"limit rows active in the first substep")
@@ -1574,9 +1606,11 @@ def _swimmer_path(card: str) -> list:
                             "swimmer_rollout", "swimmer_step_states")
 
     # -- phase 23: the main path -----------------------------------------------
-    m, counts, env, (*_, s), _ = _main_path("phase 23:", "Swimmer-v4", SK, SH, SITS, SLAM,
-                                            SWIMMER_STEPS, "swimmer_rollout",
-                                            "swimmer_step_states")
+    m, counts, env, (*_, s), calls = _main_path(
+        "phase 23:", "Swimmer-v4", SK, SH, SITS, SLAM, SWIMMER_STEPS, "swimmer_rollout",
+        "swimmer_step_states", record=(planar_step, "swimmer_rollout_costs_tak"))
+    own_ms = _own_launch_ms("phase 23: Swimmer", calls, kern, counts, "swimmer_rollout",
+                            "swimmer_step_states", float(m["control_steps_per_s"][0]), card)
     x_final = float(s.x[0])
     print(f"phase 23: the replayed actions leave the torso at x = {x_final:.4f} (from 0)")
     _require(x_final > 0, "the swimmer did not swim forward")
@@ -1604,6 +1638,7 @@ def _swimmer_path(card: str) -> list:
     stp = _timed("phase 24: Swimmer step", "one state",
                  lambda: planar_step.swimmer_step_states(env, xs, act), 50,
                  lambda: env.plain_step(make_state(xs), act), card, reps_p=2)
+    _step_split("phase 24: Swimmer", SwimmerDeviceEnv, SK, SH, SITS, SLAM, roll[0])
     print(f"phase 24: bounds, Swimmer rollout {roll_bound[0]:.6f} ms ({roll_bound[1]}), step "
           f"{step_bound[0]:.3e} ms ({step_bound[1]}) ({time.perf_counter() - t_phase:.1f} s)")
     return [{
@@ -1619,6 +1654,7 @@ def _swimmer_path(card: str) -> list:
         "bound_by": roll_bound[1],
         "library_ms": None,
         "median_rel_err_f32": res["reset"]["median_rel_err_f32"],
+        "main_path_ms": own_ms,
     }, {
         "name": "swimmer_step_states",
         "route": "cuda",

@@ -1,26 +1,68 @@
-// Planar contact dynamics of one sample, for the rollout kernels in
-// planar_rollout.cu (HalfCheetah, Hopper, Walker2d) and swimmer_rollout.cu
-// (Swimmer): frames, the analytic mass matrix and bias, the constraint rows
-// (joint limits; three rows per plane-capsule contact, the merged normal row
-// at R/2; capsule-capsule pairs by Ericson's closest points), the
-// warm-started box QP (fixed-iteration active set / CG / projected arc
-// search), the Euler-implicit and RK4 substeps, the control step with its
-// locomotion reward, and the host-side reader of the packed model.
+// Planar contact dynamics of one sample, run by the W lanes of a group, for
+// the rollout kernels in planar_rollout.cu (HalfCheetah, Hopper, Walker2d:
+// TPU kernel 2, mpopis_tpu/kernels/planar_step.py:47 `_make_kernel` with
+// `_contact_advance` :92, pallas_call :159) and swimmer_rollout.cu (the
+// Swimmer: TPU kernel 3, `_swimmer_rollout_impl` :182, pallas_call :228):
+// frames, the analytic mass matrix and bias, the constraint rows (joint
+// limits; three rows per plane-capsule contact, the merged normal row at
+// R/2; capsule-capsule pairs by Ericson's closest points), the warm-started
+// box QP (fixed-iteration active set / CG / projected arc search), the
+// Euler-implicit and RK4 substeps, the control step with its locomotion
+// reward, the launch of a build, and the host-side reader of the packed
+// model.
 //
-// A transcription of the plain PyTorch version
+// The arithmetic of the plain PyTorch version
 // (mpopis_tpu_torch/models/planar_contact.py). The dof count N is a template
 // parameter (5 for the Swimmer, 6 for Hopper, 9 for HalfCheetah and
-// Walker2d), so every dof loop unrolls; body b owns hinge dof b + 2. FLUID, a
-// compile-time flag, adds the Swimmer's inertia-box fluid force
-// (models/swimmer_device.py::fluid_force) to the smooth force at every
-// integrator stage; without it the code is the contact tasks' alone.
+// Walker2d), so every dof loop unrolls; body b owns hinge dof b + 2. So are
+// the integrator (EULER), FLUID (the Swimmer's inertia-box fluid force,
+// models/swimmer_device.py::fluid_force, in the smooth force at every
+// stage), the row capacity R and the group's width W: a build is one
+// model's code alone.
+//
+// The lanes of one sample (lanes.cuh: an aligned slice of W = 4, 8, 16 or
+// 32 lanes of a warp on the card; one lane in the host build of
+// tests/planar_host_check.cpp, W = 1, where every lane primitive is the
+// identity) share a workspace (Work) in shared memory:
+// - every lane carries the state and the actions in registers and computes
+//   the same integration and reward;
+// - the first lane walks the body chain (the frames) and factors M (at most
+//   9 dofs: a chain of square roots that lanes would not shorten);
+// - the lanes take the mass matrix's lower-triangle entries and the bias
+//   entries, each summed over the bodies in the plain version's order;
+// - lane l tests candidate rows l, l + W, ... of each kind and forms the
+//   valid ones (J and W = L^-1 J^T, so that no triangular solve is left in
+//   the QP), compacted in the model's order by a ballot and popcount;
+// - the QP's rows and iterates lie on the lanes; up to kDense = 32 valid
+//   rows it applies the dense A = W^T W + diag R, formed once a forward pass
+//   (one dot per row an application), beyond that W^T (W v); its scalars
+//   are summed in the plain version's row order with the same bits on every
+//   lane, and J^T lambda dof by dof in row order.
+// There are no atomics: a sample's result does not depend on scheduling.
+// The double instantiation agrees with the plain version to rounding, not
+// bit for bit (nvcc contracts multiply-adds into FMAs; the operator is
+// W^T W, not J (L L^T)^-1 J^T): near a contact switch the QP turns rounding
+// into other iterates, so the contact cases are held by the nudge rule
+// (chip_smoke.py, tests/test_torch_cuda.py).
+//
+// What bounds the kernels on an H100, and what their forward passes spend
+// their time on, is in the headers of planar_rollout.cu and
+// swimmer_rollout.cu; the thread-per-sample design this replaced kept every
+// row array in local memory and spent 62-91% of a contact pass in a QP that
+// swept every candidate row (scripts/planar_phase_times.py).
 //
 // The header compiles as host C++ too (tests/planar_host_check.cpp defines
 // the CUDA keywords away), so its arithmetic is checked where there is no
 // card.
 #pragma once
 
+#include "lanes.cuh"
+
 namespace planar {
+
+using mpopis::Lanes;
+using mpopis::lane_value;
+using mpopis::popc;
 
 constexpr int kMaxBodies = 7;
 constexpr int kMaxDof = kMaxBodies + 2;
@@ -28,9 +70,25 @@ constexpr int kMaxContacts = 16;
 constexpr int kMaxLimits = 6;
 constexpr int kMaxPairs = 3;
 constexpr int kMaxRows = kMaxLimits + 3 * kMaxContacts + kMaxPairs;
-constexpr int kBlock = 32;
+// the builds' row capacities: the model's own rows (HalfCheetah 6 limits and
+// 16 contacts, Walker2d 6 and 14, Hopper 3, 8 and 3 capsule pairs, the
+// Swimmer 2 limits)
+constexpr int kCheetahRows = 54, kWalkerRows = 48, kHopperRows = 30, kSwimmerRows = 2;
+constexpr int kDense = 32;  // valid rows up to which the QP applies a dense A
 constexpr int kIntHeader = 10;
 constexpr int kDoubleHeader = 9;
+
+// The phases of a forward pass that scripts/planar_phase_times.py times: a
+// stamp charges the time since the previous one (or since the sample's
+// start) to its phase. The script builds a copy with PLANAR_STAMP and
+// PLANAR_STAMP_START defined; otherwise a stamp is nothing.
+enum Phase {
+  kPhFrames, kPhMass, kPhFluid, kPhFactor, kPhRows, kPhApply, kPhQp, kPhIntegrate, kPhases
+};
+#ifndef PLANAR_STAMP
+#define PLANAR_STAMP(phase) ((void)0)
+#define PLANAR_STAMP_START() ((void)0)
+#endif
 
 template <typename T>
 struct Imp {  // solimp impedance and solref stiffness/damping of one row kind
@@ -109,23 +167,36 @@ __device__ __forceinline__ T impedance(T pos, const Imp<T>& im) {
   return im.d0e + im.dspan * y;
 }
 
+// v[i] with i known only at run time, without indexing the register array
+template <typename T, int N>
+__device__ __forceinline__ T pick(const T (&v)[N], int i) {
+  T out = T(0);
+#pragma unroll
+  for (int d = 0; d < N; ++d) out = d == i ? v[d] : out;
+  return out;
+}
+
+template <typename T, int N>
+__device__ __forceinline__ T dot_row(const T (&j)[N], const T (&v)[N]) {
+  T s = T(0);
+#pragma unroll
+  for (int d = 0; d < N; ++d) s = s + j[d] * v[d];
+  return s;
+}
+
+// Row i and column j <= i of entry e of a lower triangle counted row by row
+// (e = i (i + 1) / 2 + j)
+__device__ __forceinline__ void tri_index(int e, int& i, int& j) {
+  i = 0;
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  j = e - i * (i + 1) / 2;
+}
+
+// The world frames of the bodies: origin, angle, hinge anchor, cos and sin
 template <typename T, int N>
 struct Frames {
   static constexpr int NB = N - 2;
   T ox[NB], oz[NB], th[NB], awx[NB], awz[NB], c[NB], s[NB];
-
-  // (origin x, origin z, cos, sin) of a body given at run time
-  __device__ __forceinline__ void of(int b, T& x, T& z, T& cb, T& sb) const {
-#pragma unroll
-    for (int e = 0; e < NB; ++e) {
-      if (e == b) {
-        x = ox[e];
-        z = oz[e];
-        cb = c[e];
-        sb = s[e];
-      }
-    }
-  }
 };
 
 template <typename T, int N>
@@ -152,18 +223,9 @@ __device__ __forceinline__ void compute_frames(const Model<T>& m, const T (&q)[N
         f.oz[b] = f.awz[b] - (-s * bd.ax + c * bd.az);
       }
     } else {
-      T pox = T(0), poz = T(0), pth = T(0), cp = T(0), sp = T(0);
-#pragma unroll
-      for (int p = 0; p < b; ++p) {
-        if (p == bd.parent) {
-          pox = f.ox[p];
-          poz = f.oz[p];
-          pth = f.th[p];
-          cp = f.c[p];
-          sp = f.s[p];
-        }
-      }
-      f.th[b] = pth + bd.sign * q[b + 2];
+      const int p = bd.parent;
+      const T pox = f.ox[p], poz = f.oz[p], cp = f.c[p], sp = f.s[p];
+      f.th[b] = f.th[p] + bd.sign * q[b + 2];
       f.awx[b] = pox + cp * bd.pax + sp * bd.paz;
       f.awz[b] = poz - sp * bd.pax + cp * bd.paz;
       if (!off) {
@@ -180,13 +242,69 @@ __device__ __forceinline__ void compute_frames(const Model<T>& m, const T (&q)[N
   }
 }
 
-// Mass matrix (lower triangle) and bias, body by body in the plain version's
-// order: armature, then per body m (Jx Jx^T + Jz Jz^T) and I w w^T.
+// One sample's workspace: its group's slice of dynamic shared memory on the
+// card, one static instance in the host build. R is the build's row
+// capacity. The rows valid at this state are compacted in the model's row
+// order: row i keeps its Jacobian J[i], its column w[i] of W = L^-1 J^T,
+// rhs = aref - J a_smooth, its regularizer and idx, its row of the model
+// (where its lambda warm start lies in lam_full); the row stride S is odd,
+// so that the lanes' rows meet distinct banks. With at most D valid rows the
+// QP applies the dense A = W^T W + diag R; vbuf holds the vector an
+// application multiplies, u the W^T-side sums of a wider one.
+template <typename T, int N, int R>
+struct alignas(16) Work {
+  static constexpr int S = N | 1;
+  static constexpr int D = R < kDense ? R : kDense;
+  T J[R][S];
+  T w[R][S];
+  T A[D][D + 1];
+  T rhs[R], reg[R], lam_full[R], vbuf[R];
+  int idx[R];
+  T M[N][N];  // the mass matrix's lower triangle
+  T L[N][N];  // its factor, or that of M + h diag(damping)
+  T inv[N];   // 1 / L[i][i]
+  T bias[N], u[N], qfrc[N];
+  Frames<T, N> f;
+};
+
+// The frames of q into wk.f, by the first lane; the other lanes wait.
+template <typename T, int N, int R, int W>
+__device__ __forceinline__ void frames(const Model<T>& m, const T (&q)[N], Work<T, N, R>& wk) {
+  Lanes<W>::sync();  // every lane is done with the previous forward pass
+  if (Lanes<W>::lane() == 0) compute_frames(m, q, wk.f);
+  Lanes<W>::sync();
+}
+
+// Column i of the com Jacobian of a body (chain mask `chain`, com (px, pz)):
+// its x and z rows and its angular row.
 template <typename T, int N>
-__device__ __forceinline__ void mass_and_bias(const Model<T>& m, const T (&qv)[N],
-                                              const Frames<T, N>& f, T (&M)[N][N],
-                                              T (&bias)[N]) {
+__device__ __forceinline__ void com_column(const Model<T>& m, const Frames<T, N>& f,
+                                          unsigned chain, int i, T px, T pz, T& jx, T& jz,
+                                          T& w) {
+  if (i < 2) {
+    jx = i == 0 ? T(1) : T(0);
+    jz = i == 1 ? T(1) : T(0);
+    w = T(0);
+    return;
+  }
+  const int e = i - 2;
+  const bool on = (chain >> e) & 1u;
+  const T se = m.body[e].sign;
+  jx = on ? se * (pz - f.awz[e]) : T(0);
+  jz = on ? (-se) * (px - f.awx[e]) : T(0);
+  w = on ? se : T(0);
+}
+
+// Mass matrix (lower triangle, into wk.M) and bias (wk.bias), each summed
+// over the bodies in the plain version's order: armature, then per body
+// m (Jx Jx^T + Jz Jz^T) and I w w^T. Every lane propagates the bodies'
+// velocities and accelerations at q''=0 down the chain and forms their coms
+// and forces; lane l then takes the entries l, l + W, ... of the lower
+// triangle (45 at 9 dofs) and the bias entries l, l + W, ...
+template <typename T, int N, int R, int W>
+__device__ void mass_and_bias(const Model<T>& m, const T (&qv)[N], Work<T, N, R>& wk) {
   constexpr int NB = N - 2;
+  const Frames<T, N>& f = wk.f;
   T omega[NB], vax[NB], vaz[NB], aax[NB], aaz[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
@@ -198,7 +316,7 @@ __device__ __forceinline__ void mass_and_bias(const Model<T>& m, const T (&qv)[N
       aax[b] = T(0);
       aaz[b] = T(0);
     } else {
-      T po = T(0), pvx = T(0), pvz = T(0), pax = T(0), paz = T(0), pwx = T(0), pwz = T(0);
+      T po = T(0), pvx = T(0), pvz = T(0), pax = T(0), paz = T(0);
 #pragma unroll
       for (int p = 0; p < b; ++p) {
         if (p == bd.parent) {
@@ -207,12 +325,11 @@ __device__ __forceinline__ void mass_and_bias(const Model<T>& m, const T (&qv)[N
           pvz = vaz[p];
           pax = aax[p];
           paz = aaz[p];
-          pwx = f.awx[p];
-          pwz = f.awz[p];
         }
       }
+      const int p = bd.parent;
       omega[b] = po + bd.sign * qv[b + 2];
-      const T dx = f.awx[b] - pwx, dz = f.awz[b] - pwz;
+      const T dx = f.awx[b] - f.awx[p], dz = f.awz[b] - f.awz[p];
       vax[b] = pvx + po * dz;
       vaz[b] = pvz - po * dx;
       const T vdx = vax[b] - pvx, vdz = vaz[b] - pvz;
@@ -220,57 +337,53 @@ __device__ __forceinline__ void mass_and_bias(const Model<T>& m, const T (&qv)[N
       aaz[b] = paz - po * vdx;
     }
   }
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    bias[i] = T(0);
-#pragma unroll
-    for (int j = 0; j <= i; ++j) M[i][j] = (i == j) ? m.armature[i] : T(0);
-  }
+  T px[NB], pz[NB], fx[NB], fz[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     const Body<T>& bd = m.body[b];
-    const T px = f.ox[b] + f.c[b] * bd.comx + f.s[b] * bd.comz;
-    const T pz = f.oz[b] - f.s[b] * bd.comx + f.c[b] * bd.comz;
-    T jx[N], jz[N], w[N];
-    jx[0] = T(1);
-    jz[0] = T(0);
-    jx[1] = T(0);
-    jz[1] = T(1);
-    w[0] = T(0);
-    w[1] = T(0);
-#pragma unroll
-    for (int e = 0; e < NB; ++e) {
-      const bool on = (bd.chain >> e) & 1u;
-      const T se = m.body[e].sign;
-      jx[e + 2] = on ? se * (pz - f.awz[e]) : T(0);
-      jz[e + 2] = on ? (-se) * (px - f.awx[e]) : T(0);
-      w[e + 2] = on ? se : T(0);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) M[i][j] = M[i][j] + bd.mass * (jx[i] * jx[j] + jz[i] * jz[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) M[i][j] = M[i][j] + bd.iyy * w[i] * w[j];
-    }
-    const T rx = px - f.awx[b], rz = pz - f.awz[b];
+    px[b] = f.ox[b] + f.c[b] * bd.comx + f.s[b] * bd.comz;
+    pz[b] = f.oz[b] - f.s[b] * bd.comx + f.c[b] * bd.comz;
+    const T rx = px[b] - f.awx[b], rz = pz[b] - f.awz[b];
     const T vpx = vax[b] + omega[b] * rz;
     const T vpz = vaz[b] - omega[b] * rx;
     const T apx = aax[b] + omega[b] * (vpz - vaz[b]);
     const T apz = aaz[b] - omega[b] * (vpx - vax[b]);
-    const T fx = bd.mass * apx;
-    const T fz = bd.mass * (apz + m.gravity);
-#pragma unroll
-    for (int i = 0; i < N; ++i) bias[i] = bias[i] + (jx[i] * fx + jz[i] * fz);
+    fx[b] = bd.mass * apx;
+    fz[b] = bd.mass * (apz + m.gravity);
   }
+  constexpr int kEntries = N * (N + 1) / 2;
+  const int lane = Lanes<W>::lane();
+  for (int e = lane; e < kEntries; e += W) {
+    int i, j;
+    tri_index(e, i, j);
+    T acc = i == j ? m.armature[i] : T(0);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const Body<T>& bd = m.body[b];
+      T jxi, jzi, wi, jxj, jzj, wj;
+      com_column(m, f, bd.chain, i, px[b], pz[b], jxi, jzi, wi);
+      com_column(m, f, bd.chain, j, px[b], pz[b], jxj, jzj, wj);
+      acc = acc + bd.mass * (jxi * jxj + jzi * jzj);
+      acc = acc + bd.iyy * wi * wj;
+    }
+    wk.M[i][j] = acc;
+  }
+  for (int d = lane; d < N; d += W) {
+    T acc = T(0);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      T jx, jz, w;
+      com_column(m, f, m.body[b].chain, d, px[b], pz[b], jx, jz, w);
+      acc = acc + (jx * fx[b] + jz * fz[b]);
+    }
+    wk.bias[d] = acc;
+  }
+  Lanes<W>::sync();
 }
 
 // The inertia-box fluid force of each link pulled back through its com
 // Jacobian, added to out; in z-convention (theta_z = -theta, w_z = -w), as
-// the plain version's fluid_force.
+// the plain version's fluid_force. Every lane computes it.
 template <typename T, int N>
 __device__ __forceinline__ void add_fluid_force(const FluidModel<T>& m, const T (&qv)[N],
                                                 const Frames<T, N>& f, T (&out)[N]) {
@@ -284,20 +397,19 @@ __device__ __forceinline__ void add_fluid_force(const FluidModel<T>& m, const T 
       vax[b] = qv[0];
       vaz[b] = qv[1];
     } else {
-      T po = T(0), pvx = T(0), pvz = T(0), pwx = T(0), pwz = T(0);
+      T po = T(0), pvx = T(0), pvz = T(0);
 #pragma unroll
       for (int p = 0; p < b; ++p) {
         if (p == bd.parent) {
           po = omega[p];
           pvx = vax[p];
           pvz = vaz[p];
-          pwx = f.awx[p];
-          pwz = f.awz[p];
         }
       }
+      const int p = bd.parent;
       omega[b] = po + bd.sign * qv[b + 2];
-      vax[b] = pvx + po * (f.awz[b] - pwz);
-      vaz[b] = pvz - po * (f.awx[b] - pwx);
+      vax[b] = pvx + po * (f.awz[b] - f.awz[p]);
+      vaz[b] = pvz - po * (f.awx[b] - f.awx[p]);
     }
   }
 #pragma unroll
@@ -334,409 +446,616 @@ __device__ __forceinline__ void add_fluid_force(const FluidModel<T>& m, const T 
   for (int d = 0; d < N; ++d) out[d] = out[d] + fq[d];
 }
 
-template <typename T, int N>
-__device__ __forceinline__ void cholesky(const T (&M)[N][N], T (&L)[N][N]) {
+// wk.L L^T = wk.M (plus h diag(damping) with DAMPED: the Euler-implicit
+// velocity update) and wk.inv = 1 / diag(L), by the first lane in registers
+// (at most 9 dofs: 45 entries, a chain of N square roots that no lane could
+// shorten), column by column as the plain version's unrolled factor, each
+// column scaled by its pivot's reciprocal; the other lanes wait.
+template <bool DAMPED, typename T, int N, int R, int W>
+__device__ __forceinline__ void factor(const Model<T>& m, Work<T, N, R>& wk) {
+  if (Lanes<W>::lane() == 0) {
+    T a[N][N];
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    T d = M[j][j];
+    for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int k = 0; k < j; ++k) d = d - L[j][k] * L[j][k];
-    L[j][j] = d_sqrt(d);
+      for (int j = 0; j <= i; ++j) a[i][j] = wk.M[i][j];
+      if (DAMPED) a[i][i] = a[i][i] + m.h_damping[i];
+    }
+    T inv[N];
 #pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      T s = M[i][j];
+    for (int j = 0; j < N; ++j) {
+      T d = a[j][j];
 #pragma unroll
-      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
-      L[i][j] = s / L[j][j];
+      for (int k = 0; k < j; ++k) d = d - a[j][k] * a[j][k];
+      a[j][j] = d_sqrt(d);
+      inv[j] = T(1) / a[j][j];
+#pragma unroll
+      for (int i = j + 1; i < N; ++i) {
+        T s = a[i][j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) s = s - a[i][k] * a[j][k];
+        a[i][j] = s * inv[j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) wk.L[i][j] = a[i][j];
+      wk.inv[i] = inv[i];
     }
   }
+  Lanes<W>::sync();
 }
 
-// x = (L L^T)^-1 b
-template <typename T, int N>
-__device__ __forceinline__ void chol_solve(const T (&L)[N][N], const T (&b)[N], T (&x)[N]) {
+// x = (L L^T)^-1 b on every lane, L and 1 / diag(L) read from the workspace
+template <typename T, int N, int R>
+__device__ __forceinline__ void chol_solve(const Work<T, N, R>& wk, const T (&b)[N], T (&x)[N]) {
   T y[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     T s = b[i];
 #pragma unroll
-    for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    for (int k = 0; k < i; ++k) s = s - wk.L[i][k] * y[k];
+    y[i] = s * wk.inv[i];
   }
 #pragma unroll
   for (int i = N - 1; i >= 0; --i) {
     T s = y[i];
 #pragma unroll
-    for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    for (int k = i + 1; k < N; ++k) s = s - wk.L[k][i] * x[k];
+    x[i] = s * wk.inv[i];
   }
 }
 
-template <typename T, int N>
-struct Rows {
-  T J[kMaxRows][N];
-  T aref[kMaxRows], reg[kMaxRows];
-  bool valid[kMaxRows];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ T dot_row(const T (&j)[N], const T (&v)[N]) {
-  T s = T(0);
+// Appends the valid row with Jacobian j at compacted position `at`: J, its
+// column of W = L^-1 J^T by forward substitution against the factor (every
+// lane of the group reads the same L entry at once), rhs = aref - j .
+// a_smooth, its regularizer and its row of the model.
+template <typename T, int N, int R>
+__device__ __forceinline__ void put_row(Work<T, N, R>& wk, int at, const T (&j)[N], T aref, T reg,
+                                        int model_row, const T (&a_smooth)[N]) {
+  T y[N];
 #pragma unroll
-  for (int d = 0; d < N; ++d) s = s + j[d] * v[d];
-  return s;
+  for (int i = 0; i < N; ++i) {
+    T s = j[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - wk.L[i][k] * y[k];
+    y[i] = s * wk.inv[i];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    wk.w[at][i] = y[i];
+    wk.J[at][i] = j[i];
+  }
+  wk.rhs[at] = aref - dot_row(j, a_smooth);
+  wk.reg[at] = reg;
+  wk.idx[at] = model_row;
 }
 
-template <typename T, int N>
-__device__ void contact_rows(const Model<T>& m, const T (&q)[N], const T (&qv)[N],
-                             const Frames<T, N>& f, Rows<T, N>& rows) {
+// The rows valid at (q, qv), compacted in the model's order into the
+// workspace (put_row); returns their count. Lane l tests the candidates l,
+// l + W, ... of each kind (joint limits; plane-capsule contacts, three rows
+// each: the two pyramid rows and the merged normal row at R/2; capsule
+// pairs by Ericson's closest points); a ballot and a popcount give each
+// valid one its place.
+template <typename T, int N, int R, int W>
+__device__ int contact_rows(const Model<T>& m, const T (&q)[N], const T (&qv)[N],
+                            const T (&a_smooth)[N], Work<T, N, R>& wk) {
   constexpr int NB = N - 2;
-  int r = 0;
-  for (int l = 0; l < m.n_limits; ++l, ++r) {
-    const Limit<T>& lm = m.lim[l];
-    T qd = T(0), qvd = T(0);
+  const Frames<T, N>& f = wk.f;
+  const int lane = Lanes<W>::lane();
+  const unsigned below = Lanes<W>::below();
+  int nv = 0;
+  for (int c0 = 0; c0 < m.n_limits; c0 += W) {
+    const int l = c0 + lane;
+    bool valid = false;
+    T pos = T(0), sgn = T(1);
+    if (l < m.n_limits) {
+      const Limit<T>& lm = m.lim[l];
+      const T qd = pick(q, lm.dof);
+      const T d_lo = qd - lm.lo;
+      const T d_hi = lm.hi - qd;
+      const bool lower = d_lo < d_hi;
+      pos = lower ? d_lo : d_hi;
+      sgn = lower ? T(1) : T(-1);
+      valid = pos < T(0);
+    }
+    const unsigned bal = Lanes<W>::ballot(valid);
+    if (valid) {
+      const Limit<T>& lm = m.lim[l];
+      const T imp = impedance(pos, lm.imp);
+      T j[N];
 #pragma unroll
-    for (int d = 0; d < N; ++d) {
-      if (d == lm.dof) {
-        qd = q[d];
-        qvd = qv[d];
+      for (int d = 0; d < N; ++d) j[d] = (d == lm.dof) ? sgn : T(0);
+      put_row(wk, nv + popc(bal & below), j,
+              (-lm.imp.bc) * (sgn * pick(qv, lm.dof)) - lm.imp.kc * imp * pos,
+              (T(1) - imp) / imp * lm.invweight, l, a_smooth);
+    }
+    nv += popc(bal);
+  }
+  const int row_c = m.n_limits;
+  for (int c0 = 0; c0 < m.n_contacts; c0 += W) {
+    const int ci = c0 + lane;
+    bool active = false;
+    T px = T(0), dist = T(0);
+    if (ci < m.n_contacts) {
+      const Contact<T>& ct = m.con[ci];
+      const int b = ct.body;
+      px = f.ox[b] + f.c[b] * ct.lx + f.s[b] * ct.lz;
+      const T pz = f.oz[b] - f.s[b] * ct.lx + f.c[b] * ct.lz;
+      dist = pz - ct.radius;
+      active = dist < ct.margin;
+    }
+    const unsigned bal = Lanes<W>::ballot(active);
+    if (active) {
+      const Contact<T>& ct = m.con[ci];
+      const unsigned chain = m.body[ct.body].chain;
+      const T cpz = T(0.5) * dist;  // contact point z (midpoint of the overlap)
+      T jn[N], jt[N];
+      jn[0] = T(0);
+      jn[1] = T(1);
+      jt[0] = T(1);
+      jt[1] = T(0);
+#pragma unroll
+      for (int e = 0; e < NB; ++e) {
+        const bool on = (chain >> e) & 1u;
+        const T se = m.body[e].sign;
+        jn[e + 2] = on ? (-se) * (px - f.awx[e]) : T(0);
+        jt[e + 2] = on ? se * (cpz - f.awz[e]) : T(0);
+      }
+      const T pos_m = dist - ct.margin;
+      const T imp = impedance(pos_m, ct.imp);
+      const T reg = (T(1) - imp) / imp * ct.bw * ct.rfac;
+      const T jv_n = dot_row(jn, qv);
+      const T jv_t = dot_row(jt, qv);
+      const T base = (-ct.imp.kc) * imp * pos_m;
+      const T nbc = -ct.imp.bc;
+      const int at = nv + 3 * popc(bal & below);
+      const int row = row_c + 3 * ci;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const T mu = k == 0 ? ct.mu : -ct.mu;
+        T j[N];
+#pragma unroll
+        for (int d = 0; d < N; ++d) j[d] = jn[d] + mu * jt[d];
+        put_row(wk, at + k, j, nbc * (jv_n + mu * jv_t) + base, reg, row + k, a_smooth);
+      }
+      put_row(wk, at + 2, jn, nbc * jv_n + base, T(0.5) * reg, row + 2, a_smooth);
+    }
+    nv += 3 * popc(bal);
+  }
+  const int row_p = row_c + 3 * m.n_contacts;
+  for (int c0 = 0; c0 < m.n_pairs; c0 += W) {
+    const int pi = c0 + lane;
+    bool valid = false;
+    T nx = T(0), nz = T(0), cx = T(0), cz = T(0), dist = T(0);
+    if (pi < m.n_pairs) {
+      const Pair<T>& pr = m.pair[pi];
+      const int b1 = pr.body1, b2 = pr.body2;
+      const T o1x = f.ox[b1], o1z = f.oz[b1], c1 = f.c[b1], s1 = f.s[b1];
+      const T o2x = f.ox[b2], o2z = f.oz[b2], c2 = f.c[b2], s2 = f.s[b2];
+      const T p1x = o1x + c1 * pr.a1x + s1 * pr.a1z, p1z = o1z - s1 * pr.a1x + c1 * pr.a1z;
+      const T q1x = o1x + c1 * pr.b1x + s1 * pr.b1z, q1z = o1z - s1 * pr.b1x + c1 * pr.b1z;
+      const T p2x = o2x + c2 * pr.a2x + s2 * pr.a2z, p2z = o2z - s2 * pr.a2x + c2 * pr.a2z;
+      const T q2x = o2x + c2 * pr.b2x + s2 * pr.b2z, q2z = o2z - s2 * pr.b2x + c2 * pr.b2z;
+      // closest points between the two segments (Ericson's algorithm)
+      const T d1x = q1x - p1x, d1z = q1z - p1z;
+      const T d2x = q2x - p2x, d2z = q2z - p2z;
+      const T rx = p1x - p2x, rz = p1z - p2z;
+      const T la = d1x * d1x + d1z * d1z;
+      const T le = d2x * d2x + d2z * d2z;
+      const T lf = d2x * rx + d2z * rz;
+      const T lc = d1x * rx + d1z * rz;
+      const T lb = d1x * d2x + d1z * d2z;
+      const T denom = la * le - lb * lb;
+      const T den = denom < T(1e-30) ? T(1e-30) : denom;
+      T s_seg = denom > T(1e-12) * la * le ? clip((lb * lf - lc * le) / den, T(0), T(1)) : T(0);
+      const T t_raw = (lb * s_seg + lf) / le;
+      const T t_seg = clip(t_raw, T(0), T(1));
+      s_seg = t_raw < T(0) ? clip(-lc / la, T(0), T(1))
+                           : (t_raw > T(1) ? clip((lb - lc) / la, T(0), T(1)) : s_seg);
+      const T c1x = p1x + s_seg * d1x, c1z = p1z + s_seg * d1z;
+      const T c2x = p2x + t_seg * d2x, c2z = p2z + t_seg * d2z;
+      const T dx = c2x - c1x, dz = c2z - c1z;
+      const T l2 = dx * dx + dz * dz;
+      const T seg_len = d_sqrt(l2 < T(1e-24) ? T(1e-24) : l2);
+      nx = dx / seg_len;  // normal: geom1 -> geom2
+      nz = dz / seg_len;
+      dist = seg_len - pr.r1 - pr.r2;
+      cx = c1x + nx * (pr.r1 + T(0.5) * dist);
+      cz = c1z + nz * (pr.r1 + T(0.5) * dist);
+      valid = dist < pr.margin;
+    }
+    const unsigned bal = Lanes<W>::ballot(valid);
+    if (valid) {
+      const Pair<T>& pr = m.pair[pi];
+      T j[N];
+      j[0] = T(0);
+      j[1] = T(0);
+#pragma unroll
+      for (int e = 0; e < NB; ++e) {
+        const T se = m.body[e].sign;
+        const T coef = ((pr.plus >> e) & 1u) ? se : (((pr.minus >> e) & 1u) ? -se : T(0));
+        j[e + 2] = coef != T(0) ? coef * (nx * (cz - f.awz[e]) - nz * (cx - f.awx[e])) : T(0);
+      }
+      const T jv = dot_row(j, qv);
+      const T pos_m = dist - pr.margin;
+      const T imp = impedance(pos_m, pr.imp);
+      put_row(wk, nv + popc(bal & below), j, (-pr.imp.bc) * jv - pr.imp.kc * imp * pos_m,
+              (T(1) - imp) / imp * pr.bw, row_p + pi, a_smooth);
+    }
+    nv += popc(bal);
+  }
+  Lanes<W>::sync();  // the rows are visible to every lane
+  return nv;
+}
+
+// The sum over the nv rows of v (row r in slot r / W of lane r mod W) in
+// row order, the plain version's serial order, with the same bits on every
+// lane of the group; two sums at once, their shuffles interleaved.
+template <int W, typename T, int RW>
+__device__ __forceinline__ void row_sums(T (&a)[RW], T (&b)[RW], int nv, T& sa, T& sb) {
+  sa = T(0);
+  sb = T(0);
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int n = nv - s * W < W ? nv - s * W : W;
+    for (int l = 0; l < n; ++l) {
+      const T xa = lane_value<W>(a[s], l);
+      const T xb = lane_value<W>(b[s], l);
+      sa = sa + xa;
+      sb = sb + xb;
+    }
+  }
+}
+
+template <int W, typename T, int RW>
+__device__ __forceinline__ T row_sum(const T (&v)[RW], int nv) {
+  T sum = T(0);
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int n = nv - s * W < W ? nv - s * W : W;
+    for (int l = 0; l < n; ++l) sum = sum + lane_value<W>(v[s], l);
+  }
+  return sum;
+}
+
+// Row r of A = W^T W + diag R by the lane of row r, for nv <= D rows
+template <int W, typename T, int N, int R>
+__device__ void form_dense(Work<T, N, R>& wk, int nv) {
+  constexpr int RW = (R + W - 1) / W;
+  const int lane = Lanes<W>::lane();
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    if (s * W < nv && r < nv) {
+      T wr[N];
+#pragma unroll
+      for (int d = 0; d < N; ++d) wr[d] = wk.w[r][d];
+      for (int c = 0; c < nv; ++c) {
+        T acc = T(0);
+#pragma unroll
+        for (int d = 0; d < N; ++d) acc = acc + wr[d] * wk.w[c][d];
+        wk.A[r][c] = c == r ? acc + wk.reg[r] : acc;
       }
     }
-    const T d_lo = qd - lm.lo;
-    const T d_hi = lm.hi - qd;
-    const bool lower = d_lo < d_hi;
-    const T pos = lower ? d_lo : d_hi;
-    const T sgn = lower ? T(1) : T(-1);
-    const T imp = impedance(pos, lm.imp);
-#pragma unroll
-    for (int d = 0; d < N; ++d) rows.J[r][d] = (d == lm.dof) ? sgn : T(0);
-    rows.aref[r] = (-lm.imp.bc) * (sgn * qvd) - lm.imp.kc * imp * pos;
-    rows.reg[r] = (T(1) - imp) / imp * lm.invweight;
-    rows.valid[r] = pos < T(0);
   }
-  for (int ci = 0; ci < m.n_contacts; ++ci) {
-    const Contact<T>& ct = m.con[ci];
-    T obx = T(0), obz = T(0), cb = T(0), sb = T(0);
-    f.of(ct.body, obx, obz, cb, sb);
-    const unsigned chain = m.body[ct.body].chain;
-    const T px = obx + cb * ct.lx + sb * ct.lz;
-    const T pz = obz - sb * ct.lx + cb * ct.lz;
-    const T dist = pz - ct.radius;
-    const bool active = dist < ct.margin;
-    const T cpz = T(0.5) * dist;  // contact point z (midpoint of the overlap)
-    T jn[N], jt[N];
-    jn[0] = T(0);
-    jn[1] = T(1);
-    jt[0] = T(1);
-    jt[1] = T(0);
-#pragma unroll
-    for (int e = 0; e < NB; ++e) {
-      const bool on = (chain >> e) & 1u;
-      const T se = m.body[e].sign;
-      jn[e + 2] = on ? (-se) * (px - f.awx[e]) : T(0);
-      jt[e + 2] = on ? se * (cpz - f.awz[e]) : T(0);
-    }
-    const T pos_m = dist - ct.margin;
-    const T imp = impedance(pos_m, ct.imp);
-    const T reg = (T(1) - imp) / imp * ct.bw * ct.rfac;
-    const T jv_n = dot_row(jn, qv);
-    const T jv_t = dot_row(jt, qv);
-    const T base = (-ct.imp.kc) * imp * pos_m;
-    const T nbc = -ct.imp.bc;
-    const T mus[2] = {ct.mu, -ct.mu};
-#pragma unroll
-    for (int k = 0; k < 2; ++k, ++r) {
-#pragma unroll
-      for (int d = 0; d < N; ++d) rows.J[r][d] = jn[d] + mus[k] * jt[d];
-      rows.aref[r] = nbc * (jv_n + mus[k] * jv_t) + base;
-      rows.reg[r] = reg;
-      rows.valid[r] = active;
-    }
-    // the merged pure-normal pair of pyramid rows: R/2
-#pragma unroll
-    for (int d = 0; d < N; ++d) rows.J[r][d] = jn[d];
-    rows.aref[r] = nbc * jv_n + base;
-    rows.reg[r] = T(0.5) * reg;
-    rows.valid[r] = active;
-    ++r;
-  }
-  for (int pi = 0; pi < m.n_pairs; ++pi, ++r) {
-    const Pair<T>& pr = m.pair[pi];
-    T o1x = T(0), o1z = T(0), c1 = T(0), s1 = T(0), o2x = T(0), o2z = T(0), c2 = T(0), s2 = T(0);
-    f.of(pr.body1, o1x, o1z, c1, s1);
-    f.of(pr.body2, o2x, o2z, c2, s2);
-    const T p1x = o1x + c1 * pr.a1x + s1 * pr.a1z, p1z = o1z - s1 * pr.a1x + c1 * pr.a1z;
-    const T q1x = o1x + c1 * pr.b1x + s1 * pr.b1z, q1z = o1z - s1 * pr.b1x + c1 * pr.b1z;
-    const T p2x = o2x + c2 * pr.a2x + s2 * pr.a2z, p2z = o2z - s2 * pr.a2x + c2 * pr.a2z;
-    const T q2x = o2x + c2 * pr.b2x + s2 * pr.b2z, q2z = o2z - s2 * pr.b2x + c2 * pr.b2z;
-    // closest points between the two segments (Ericson's algorithm)
-    const T d1x = q1x - p1x, d1z = q1z - p1z;
-    const T d2x = q2x - p2x, d2z = q2z - p2z;
-    const T rx = p1x - p2x, rz = p1z - p2z;
-    const T la = d1x * d1x + d1z * d1z;
-    const T le = d2x * d2x + d2z * d2z;
-    const T lf = d2x * rx + d2z * rz;
-    const T lc = d1x * rx + d1z * rz;
-    const T lb = d1x * d2x + d1z * d2z;
-    const T denom = la * le - lb * lb;
-    const T den = denom < T(1e-30) ? T(1e-30) : denom;
-    T s_seg = denom > T(1e-12) * la * le ? clip((lb * lf - lc * le) / den, T(0), T(1)) : T(0);
-    const T t_raw = (lb * s_seg + lf) / le;
-    const T t_seg = clip(t_raw, T(0), T(1));
-    s_seg = t_raw < T(0) ? clip(-lc / la, T(0), T(1))
-                         : (t_raw > T(1) ? clip((lb - lc) / la, T(0), T(1)) : s_seg);
-    const T c1x = p1x + s_seg * d1x, c1z = p1z + s_seg * d1z;
-    const T c2x = p2x + t_seg * d2x, c2z = p2z + t_seg * d2z;
-    const T dx = c2x - c1x, dz = c2z - c1z;
-    const T l2 = dx * dx + dz * dz;
-    const T seg_len = d_sqrt(l2 < T(1e-24) ? T(1e-24) : l2);
-    const T nx = dx / seg_len, nz = dz / seg_len;  // normal: geom1 -> geom2
-    const T dist = seg_len - pr.r1 - pr.r2;
-    const T cx = c1x + nx * (pr.r1 + T(0.5) * dist);
-    const T cz = c1z + nz * (pr.r1 + T(0.5) * dist);
-    rows.J[r][0] = T(0);
-    rows.J[r][1] = T(0);
-#pragma unroll
-    for (int e = 0; e < NB; ++e) {
-      const T se = m.body[e].sign;
-      const T coef = ((pr.plus >> e) & 1u) ? se : (((pr.minus >> e) & 1u) ? -se : T(0));
-      rows.J[r][e + 2] = coef != T(0) ? coef * (nx * (cz - f.awz[e]) - nz * (cx - f.awx[e]))
-                                      : T(0);
-    }
-    const T jv = dot_row(rows.J[r], qv);
-    const T pos_m = dist - pr.margin;
-    const T imp = impedance(pos_m, pr.imp);
-    rows.aref[r] = (-pr.imp.bc) * jv - pr.imp.kc * imp * pos_m;
-    rows.reg[r] = (T(1) - imp) / imp * pr.bw;
-    rows.valid[r] = dist < pr.margin;
-  }
+  Lanes<W>::sync();
 }
 
-// out = mask ? J (L L^T)^-1 J^T (mask ? v : 0) + R (mask ? v : 0) : 0; a null
-// mask means every row.
-template <typename T, int N>
-__device__ void ar_apply(const Rows<T, N>& rows, int nr, const T (&L)[N][N], const T* v,
-                         const bool* mask, T* out) {
-  T u[N];
+// out = mask ? (J M^-1 J^T + diag R) (mask ? v : 0) : 0 over the nv valid
+// rows (MASK false: every row), the rows on the lanes (slot s of lane l is
+// row l + s W). The masked vector goes to wk.vbuf; with at most D rows each
+// row's lane dots its row of the dense A with it in row order, beyond that
+// lane d sums W^T's row d (wk.u, in row order) and each row's lane dots its
+// column of W with u.
+template <bool MASK, int W, typename T, int N, int R, int RW>
+__device__ __forceinline__ void apply(Work<T, N, R>& wk, int nv, const T (&v)[RW],
+                                      const bool (&act)[RW], T (&out)[RW]) {
+  PLANAR_STAMP(kPhQp);
+  const int lane = Lanes<W>::lane();
+  Lanes<W>::sync();  // every lane has read the previous vector and sums
 #pragma unroll
-  for (int d = 0; d < N; ++d) u[d] = T(0);
-  for (int r = 0; r < nr; ++r) {
-    if (mask && !mask[r]) continue;
-    const T vr = v[r];
-#pragma unroll
-    for (int d = 0; d < N; ++d) u[d] = u[d] + rows.J[r][d] * vr;
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    if (s * W < nv && r < nv) wk.vbuf[r] = (!MASK || act[s]) ? v[s] : T(0);
   }
-  T w[N];
-  chol_solve(L, u, w);
-  for (int r = 0; r < nr; ++r) {
-    if (mask && !mask[r]) {
-      out[r] = T(0);
-      continue;
+  Lanes<W>::sync();
+  if (nv <= Work<T, N, R>::D) {
+#pragma unroll
+    for (int s = 0; s < RW; ++s) {
+      const int r = lane + s * W;
+      if (s * W < nv) {
+        T acc = T(0);
+        if (r < nv) {
+          const T* a = wk.A[r];
+          for (int c = 0; c < nv; ++c) acc = acc + a[c] * wk.vbuf[c];
+        }
+        out[s] = (r < nv && (!MASK || act[s])) ? acc : T(0);
+      }
     }
-    out[r] = dot_row(rows.J[r], w) + rows.reg[r] * v[r];
+  } else {
+    for (int d = lane; d < N; d += W) {
+      T acc = T(0);
+      for (int c = 0; c < nv; ++c) acc = acc + wk.w[c][d] * wk.vbuf[c];
+      wk.u[d] = acc;
+    }
+    Lanes<W>::sync();
+    T u[N];
+#pragma unroll
+    for (int d = 0; d < N; ++d) u[d] = wk.u[d];
+#pragma unroll
+    for (int s = 0; s < RW; ++s) {
+      const int r = lane + s * W;
+      if (s * W < nv) {
+        T o = T(0);
+        if (r < nv && (!MASK || act[s])) {
+#pragma unroll
+          for (int d = 0; d < N; ++d) o = o + wk.w[r][d] * u[d];
+          o = o + wk.reg[r] * wk.vbuf[r];
+        }
+        out[s] = o;
+      }
+    }
   }
+  PLANAR_STAMP(kPhApply);
 }
 
 __constant__ double kArc[6] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search ladder
 
-// Box QP min 1/2 lam^T (J M^-1 J^T + diag R) lam - rhs^T lam, lam >= 0; lam
-// holds the warm start on entry and the solution on exit. Returns J^T lam.
-template <typename T, int N>
-__device__ void solve_qp(const Model<T>& m, const Rows<T, N>& rows, int nr, const T (&L)[N][N],
-                         const T (&a_smooth)[N], T* lam, T (&qfrc)[N]) {
-  T rhs[kMaxRows], g[kMaxRows], x[kMaxRows], res[kMaxRows], p[kMaxRows], ap[kMaxRows];
-  T best[kMaxRows];
-  bool act[kMaxRows];
-  bool any = false;
-  for (int r = 0; r < nr; ++r) {
-    rhs[r] = rows.valid[r] ? rows.aref[r] - dot_row(rows.J[r], a_smooth) : T(0);
-    lam[r] = rows.valid[r] ? lam[r] : T(0);
-    any = any || rows.valid[r];
-  }
+// Box QP min 1/2 lam^T (J M^-1 J^T + diag R) lam - rhs^T lam, lam >= 0, over
+// the nv valid rows: the fixed-iteration active set / CG / projected arc
+// search of the plain version's _qp_iterate, each lane holding its rows'
+// iterates in registers and every scalar (f_lg, f_rl, rs, denom, f_a, f_b)
+// summed in row order with the same bits on every lane, so that all lanes
+// take every branch alike. A row that is not valid has lambda = 0 and adds
+// exact zeros to every sum of the plain version, so leaving it out changes
+// nothing, and a sample with no valid row skips its QP (every iterate would
+// stay 0). wk.lam_full holds the warm start of each of the model's nr rows
+// on entry and the solution (0 on rows not valid) on exit; wk.qfrc gets
+// J^T lam, dof d summed in row order by lane d mod W.
+template <typename T, int N, int R, int W>
+__device__ void solve_qp(const Model<T>& m, Work<T, N, R>& wk, int nv, int nr) {
+  constexpr int RW = (R + W - 1) / W;
+  const int lane = Lanes<W>::lane();
+  // slot s of a lane holds row lane + s W; slots with s W >= nv hold no row
+  // on any lane and are skipped
+  T lam[RW], rhs[RW], x[RW], res[RW], p[RW], ap[RW];
+  bool act[RW];
 #pragma unroll
-  for (int d = 0; d < N; ++d) qfrc[d] = T(0);
-  if (!any) return;  // every iterate would stay 0
-
-  for (int it = 0; it < m.outer; ++it) {
-    ar_apply(rows, nr, L, lam, static_cast<const bool*>(nullptr), g);
-    T f_lg = T(0), f_rl = T(0);
-    for (int r = 0; r < nr; ++r) {
-      g[r] = g[r] - rhs[r];
-      act[r] = rows.valid[r] && (lam[r] > T(0) || g[r] < T(0));
-      x[r] = act[r] ? lam[r] : T(0);
-      f_lg = f_lg + lam[r] * g[r];
-      f_rl = f_rl + rhs[r] * lam[r];
-    }
-    T best_f = T(0.5) * f_lg - T(0.5) * f_rl;
-    ar_apply(rows, nr, L, x, act, ap);
-    T rs = T(0);
-    for (int r = 0; r < nr; ++r) {
-      res[r] = act[r] ? rhs[r] - ap[r] : T(0);
-      p[r] = res[r];
-      rs = rs + res[r] * res[r];
-    }
-    for (int k = 0; k < m.cg; ++k) {
-      ar_apply(rows, nr, L, p, act, ap);
-      T denom = T(0);
-      for (int r = 0; r < nr; ++r) denom = denom + p[r] * ap[r];
-      const T alpha = denom > T(1e-30) ? rs / (denom < T(1e-30) ? T(1e-30) : denom) : T(0);
-      T rs_new = T(0);
-      for (int r = 0; r < nr; ++r) {
-        x[r] = x[r] + alpha * p[r];
-        res[r] = res[r] - alpha * ap[r];
-        rs_new = rs_new + res[r] * res[r];
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    const bool live = r < nv;
+    lam[s] = live ? wk.lam_full[wk.idx[r]] : T(0);
+    rhs[s] = live ? wk.rhs[r] : T(0);
+    x[s] = res[s] = p[s] = ap[s] = T(0);
+    act[s] = false;
+  }
+  Lanes<W>::sync();  // every warm start is read
+  for (int r = lane; r < nr; r += W) wk.lam_full[r] = T(0);
+  if (nv > 0) {
+    if (nv <= Work<T, N, R>::D) form_dense<W>(wk, nv);
+    for (int it = 0; it < m.outer; ++it) {
+      apply<false, W>(wk, nv, lam, act, ap);
+      T f_lg[RW], f_rl[RW];
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        f_lg[s] = f_rl[s] = T(0);
+        if (s * W < nv) {
+          const T g = ap[s] - rhs[s];
+          act[s] = lane + s * W < nv && (lam[s] > T(0) || g < T(0));
+          x[s] = act[s] ? lam[s] : T(0);
+          f_lg[s] = lam[s] * g;
+          f_rl[s] = rhs[s] * lam[s];
+        }
       }
-      const T beta = rs > T(1e-30) ? rs_new / (rs < T(1e-30) ? T(1e-30) : rs) : T(0);
-      for (int r = 0; r < nr; ++r) p[r] = res[r] + beta * p[r];
-      rs = rs_new;
-    }
-    // projected arc search over the fixed ladder; x becomes delta, p lam(t)
-    for (int r = 0; r < nr; ++r) {
-      x[r] = act[r] ? x[r] - lam[r] : T(0);
-      best[r] = lam[r];
-    }
+      T s_lg, s_rl;
+      row_sums<W>(f_lg, f_rl, nv, s_lg, s_rl);
+      T best_f = T(0.5) * s_lg - T(0.5) * s_rl;
+      apply<true, W>(wk, nv, x, act, ap);
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) {
+          res[s] = act[s] ? rhs[s] - ap[s] : T(0);
+          p[s] = res[s];
+          f_lg[s] = res[s] * res[s];
+        }
+      }
+      T rs = row_sum<W>(f_lg, nv);
+      for (int k = 0; k < m.cg; ++k) {
+        apply<true, W>(wk, nv, p, act, ap);
+#pragma unroll
+        for (int s = 0; s < RW; ++s) {
+          if (s * W < nv) f_lg[s] = p[s] * ap[s];
+        }
+        const T denom = row_sum<W>(f_lg, nv);
+        const T alpha = denom > T(1e-30) ? rs / (denom < T(1e-30) ? T(1e-30) : denom) : T(0);
+#pragma unroll
+        for (int s = 0; s < RW; ++s) {
+          if (s * W < nv) {
+            x[s] = x[s] + alpha * p[s];
+            res[s] = res[s] - alpha * ap[s];
+            f_lg[s] = res[s] * res[s];
+          }
+        }
+        const T rs_new = row_sum<W>(f_lg, nv);
+        const T beta = rs > T(1e-30) ? rs_new / (rs < T(1e-30) ? T(1e-30) : rs) : T(0);
+#pragma unroll
+        for (int s = 0; s < RW; ++s) {
+          if (s * W < nv) p[s] = res[s] + beta * p[s];
+        }
+        rs = rs_new;
+      }
+      // projected arc search over the fixed ladder; x becomes delta, p
+      // lam(t); the best t is kept by its index and lam(t) formed again
+#pragma unroll
+      for (int s = 0; s < RW; ++s) {
+        if (s * W < nv) x[s] = act[s] ? x[s] - lam[s] : T(0);
+      }
+      int best_a = -1;
 #pragma unroll 1
-    for (int a = 0; a < 6; ++a) {
-      const T t = static_cast<T>(kArc[a]);
-      for (int r = 0; r < nr; ++r) {
-        const T v = lam[r] + t * x[r];
-        p[r] = v < T(0) ? T(0) : v;
+      for (int a = 0; a < 6; ++a) {
+        const T t = static_cast<T>(kArc[a]);
+#pragma unroll
+        for (int s = 0; s < RW; ++s) {
+          if (s * W < nv) {
+            const T v = lam[s] + t * x[s];
+            p[s] = v < T(0) ? T(0) : v;
+          }
+        }
+        apply<true, W>(wk, nv, p, act, ap);
+#pragma unroll
+        for (int s = 0; s < RW; ++s) {
+          if (s * W < nv) {
+            f_lg[s] = p[s] * ap[s];
+            f_rl[s] = rhs[s] * p[s];
+          }
+        }
+        T f_a, f_b;
+        row_sums<W>(f_lg, f_rl, nv, f_a, f_b);
+        const T f_t = T(0.5) * f_a - f_b;
+        if (f_t < best_f) {
+          best_f = f_t;
+          best_a = a;
+        }
       }
-      ar_apply(rows, nr, L, p, act, ap);
-      T f_a = T(0), f_b = T(0);
-      for (int r = 0; r < nr; ++r) {
-        f_a = f_a + p[r] * ap[r];
-        f_b = f_b + rhs[r] * p[r];
-      }
-      const T f_t = T(0.5) * f_a - f_b;
-      if (f_t < best_f) {
-        best_f = f_t;
-        for (int r = 0; r < nr; ++r) best[r] = p[r];
+      if (best_a >= 0) {
+        const T t = static_cast<T>(kArc[best_a]);
+#pragma unroll
+        for (int s = 0; s < RW; ++s) {
+          if (s * W < nv) {
+            const T v = lam[s] + t * x[s];
+            lam[s] = v < T(0) ? T(0) : v;
+          }
+        }
       }
     }
-    for (int r = 0; r < nr; ++r) lam[r] = best[r];
-  }
-  for (int r = 0; r < nr; ++r) {
+    Lanes<W>::sync();  // every lane is done zeroing lam_full
 #pragma unroll
-    for (int d = 0; d < N; ++d) qfrc[d] = qfrc[d] + rows.J[r][d] * lam[r];
+    for (int s = 0; s < RW; ++s) {
+      const int r = lane + s * W;
+      if (s * W < nv && r < nv) wk.lam_full[wk.idx[r]] = lam[s];
+    }
   }
+  Lanes<W>::sync();
+  for (int d = lane; d < N; d += W) {
+    T acc = T(0);
+    for (int r = 0; r < nv; ++r) acc = acc + wk.J[r][d] * wk.lam_full[wk.idx[r]];
+    wk.qfrc[d] = acc;
+  }
+  Lanes<W>::sync();
+  PLANAR_STAMP(kPhQp);
 }
 
-template <typename T, int N>
-struct Scratch {
-  Rows<T, N> rows;
-  T lam[kMaxRows];
-};
-
-// One constrained forward pass: M, its factor L, the smooth force (the fluid
-// force included when FLUID) and the constraint force; lam warm-starts the QP
-// and returns its solution. Kept out of line: RK4 calls it 4 times per
-// substep, and inlining each copy made the build several times longer.
-template <typename T, int N, bool FLUID>
+// One constrained forward pass at (q, qv) by the sample's lanes together:
+// the acceleration, the same on every lane. M, its factor L, the smooth
+// force (the fluid force included when FLUID) and the constraint force;
+// wk.lam_full warm-starts the QP and returns its solution. With EULER the QP
+// sees the undamped M and the acceleration solves (M + h diag(damping)) acc
+// = smooth + qfrc (the Euler-implicit velocity update); else acc = M^-1
+// (smooth + qfrc). Kept out of line: RK4 calls it 4 times per substep, and
+// inlining each copy made the build several times longer.
+template <typename T, int N, bool FLUID, bool EULER, int R, int W>
 __device__ __noinline__ void forward(const Model<T>& m, int nr, const T (&q)[N], const T (&qv)[N],
-                        const T (&tau)[N], Scratch<T, N>& sc, T (&M)[N][N], T (&L)[N][N],
-                        T (&smooth)[N], T (&qfrc)[N]) {
-  Frames<T, N> f;
-  compute_frames(m, q, f);
-  T bias[N];
-  mass_and_bias(m, qv, f, M, bias);
-  cholesky(M, L);
+                                     const T (&tau)[N], Work<T, N, R>& wk, T (&acc)[N]) {
+  PLANAR_STAMP(kPhIntegrate);
+  frames<T, N, R, W>(m, q, wk);
+  PLANAR_STAMP(kPhFrames);
+  mass_and_bias<T, N, R, W>(m, qv, wk);
+  PLANAR_STAMP(kPhMass);
+  factor<false, T, N, R, W>(m, wk);
+  T smooth[N];
 #pragma unroll
   for (int d = 0; d < N; ++d)
-    smooth[d] = tau[d] - bias[d] - m.damping[d] * qv[d] - m.stiffness[d] * q[d];
-  if constexpr (FLUID) add_fluid_force(static_cast<const FluidModel<T>&>(m), qv, f, smooth);
+    smooth[d] = tau[d] - wk.bias[d] - m.damping[d] * qv[d] - m.stiffness[d] * q[d];
+  PLANAR_STAMP(kPhFactor);
+  if constexpr (FLUID) add_fluid_force(static_cast<const FluidModel<T>&>(m), qv, wk.f, smooth);
+  PLANAR_STAMP(kPhFluid);
   T a_smooth[N];
-  chol_solve(L, smooth, a_smooth);
-  contact_rows(m, q, qv, f, sc.rows);
-  solve_qp(m, sc.rows, nr, L, a_smooth, sc.lam, qfrc);
-}
-
-template <typename T, int N, bool FLUID>
-__device__ void qacc(const Model<T>& m, int nr, const T (&q)[N], const T (&qv)[N],
-                     const T (&tau)[N], Scratch<T, N>& sc, T (&acc)[N]) {
-  T M[N][N], L[N][N], smooth[N], qfrc[N], rhs[N];
-  forward<T, N, FLUID>(m, nr, q, qv, tau, sc, M, L, smooth, qfrc);
+  chol_solve(wk, smooth, a_smooth);
+  PLANAR_STAMP(kPhFactor);
+  const int nv = contact_rows<T, N, R, W>(m, q, qv, a_smooth, wk);
+  PLANAR_STAMP(kPhRows);
+  solve_qp<T, N, R, W>(m, wk, nv, nr);
 #pragma unroll
-  for (int d = 0; d < N; ++d) rhs[d] = smooth[d] + qfrc[d];
-  chol_solve(L, rhs, acc);
+  for (int d = 0; d < N; ++d) smooth[d] = smooth[d] + wk.qfrc[d];
+  if constexpr (EULER) factor<true, T, N, R, W>(m, wk);
+  chol_solve(wk, smooth, acc);
+  PLANAR_STAMP(kPhFactor);
 }
 
-template <typename T, int N, bool FLUID>
+template <typename T, int N, bool FLUID, bool EULER, int R, int W>
 __device__ void substep(const Model<T>& m, int nr, T (&q)[N], T (&qv)[N], const T (&tau)[N],
-                        Scratch<T, N>& sc) {
+                        Work<T, N, R>& wk) {
   const T h = m.h;
-  if (!m.rk4) {
-    T M[N][N], L[N][N], smooth[N], qfrc[N], rhs[N], acc[N];
-    forward<T, N, FLUID>(m, nr, q, qv, tau, sc, M, L, smooth, qfrc);
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      M[d][d] = M[d][d] + m.h_damping[d];
-      rhs[d] = smooth[d] + qfrc[d];
-    }
-    cholesky(M, L);
-    chol_solve(L, rhs, acc);
+  if constexpr (EULER) {
+    T acc[N];
+    forward<T, N, FLUID, EULER, R, W>(m, nr, q, qv, tau, wk, acc);
 #pragma unroll
     for (int d = 0; d < N; ++d) {
       qv[d] = qv[d] + h * acc[d];
       q[d] = q[d] + h * qv[d];
     }
-    return;
-  }
-  const T hh = m.h_half;
-  T k1v[N], k2v[N], k3v[N], k4v[N], qs[N], vs[N], v2[N], v3[N], v4[N];
-  qacc<T, N, FLUID>(m, nr, q, qv, tau, sc, k1v);
+  } else {
+    const T hh = m.h_half;
+    T k1v[N], k2v[N], k3v[N], k4v[N], qs[N], vs[N], v2[N], v3[N], v4[N];
+    forward<T, N, FLUID, EULER, R, W>(m, nr, q, qv, tau, wk, k1v);
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
-    qs[d] = q[d] + hh * qv[d];
-    v2[d] = qv[d] + hh * k1v[d];
-  }
-  qacc<T, N, FLUID>(m, nr, qs, v2, tau, sc, k2v);
+    for (int d = 0; d < N; ++d) {
+      qs[d] = q[d] + hh * qv[d];
+      v2[d] = qv[d] + hh * k1v[d];
+    }
+    forward<T, N, FLUID, EULER, R, W>(m, nr, qs, v2, tau, wk, k2v);
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
-    qs[d] = q[d] + hh * v2[d];
-    v3[d] = qv[d] + hh * k2v[d];
-  }
-  qacc<T, N, FLUID>(m, nr, qs, v3, tau, sc, k3v);
+    for (int d = 0; d < N; ++d) {
+      qs[d] = q[d] + hh * v2[d];
+      v3[d] = qv[d] + hh * k2v[d];
+    }
+    forward<T, N, FLUID, EULER, R, W>(m, nr, qs, v3, tau, wk, k3v);
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
-    qs[d] = q[d] + h * v3[d];
-    v4[d] = qv[d] + h * k3v[d];
-  }
-  qacc<T, N, FLUID>(m, nr, qs, v4, tau, sc, k4v);
-  const T h6 = m.h_sixth;
+    for (int d = 0; d < N; ++d) {
+      qs[d] = q[d] + h * v3[d];
+      v4[d] = qv[d] + h * k3v[d];
+    }
+    forward<T, N, FLUID, EULER, R, W>(m, nr, qs, v4, tau, wk, k4v);
+    const T h6 = m.h_sixth;
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
-    vs[d] = qv[d] + h6 * (k1v[d] + T(2) * k2v[d] + T(2) * k3v[d] + k4v[d]);
-    q[d] = q[d] + h6 * (qv[d] + T(2) * v2[d] + T(2) * v3[d] + v4[d]);
-    qv[d] = vs[d];
+    for (int d = 0; d < N; ++d) {
+      vs[d] = qv[d] + h6 * (k1v[d] + T(2) * k2v[d] + T(2) * k3v[d] + k4v[d]);
+      q[d] = q[d] + h6 * (qv[d] + T(2) * v2[d] + T(2) * v3[d] + v4[d]);
+      qv[d] = vs[d];
+    }
   }
 }
 
 // One control step: frame_skip substeps from lambda = 0, lambda chained.
-template <typename T, int N, bool FLUID>
+template <typename T, int N, bool FLUID, bool EULER, int R, int W>
 __device__ void control_step(const Model<T>& m, int nr, T (&q)[N], T (&qv)[N],
-                             const T (&a)[N - 3], Scratch<T, N>& sc) {
+                             const T (&a)[N - 3], Work<T, N, R>& wk) {
   T tau[N];
   tau[0] = T(0);
   tau[1] = T(0);
   tau[2] = T(0);
 #pragma unroll
   for (int i = 0; i < N - 3; ++i) tau[i + 3] = m.gear[i] * a[i];
-  for (int r = 0; r < nr; ++r) sc.lam[r] = T(0);
-  for (int s = 0; s < m.frame_skip; ++s) substep<T, N, FLUID>(m, nr, q, qv, tau, sc);
+  Lanes<W>::sync();  // every lane is done with the previous step's lambda
+  for (int r = Lanes<W>::lane(); r < nr; r += W) wk.lam_full[r] = T(0);
+  Lanes<W>::sync();
+  for (int s = 0; s < m.frame_skip; ++s) substep<T, N, FLUID, EULER, R, W>(m, nr, q, qv, tau, wk);
 }
 
-// What one thread of a rollout kernel does for sample k: from x0 + k * x_stride
-// it applies `horizon` control steps; action i of step t is
+// What the W lanes of a rollout kernel's group do for sample k: from x0 +
+// k * x_stride they apply `horizon` control steps; action i of step t is
 // controls[t * c_t + i * c_i + k * c_k], clamped to [-1, 1] for the torque
-// (the reward reads it as given, as the plain version does). Writes costs[k]
-// (the rollout entries) or the state to x_out (the step entries, horizon 1)
-// where the pointer is not null.
-template <typename T, int N, bool FLUID>
-__device__ __forceinline__ void run_sample(const Model<T>& m, int k, const T* x0,
-                                           long long x_stride, const T* controls, long long c_t,
-                                           long long c_i, long long c_k, int horizon, T* costs,
-                                           T* x_out, Scratch<T, N>& sc) {
+// (the reward reads it as given, as the plain version does). Every lane
+// carries the state (each computes the same values); the first writes
+// costs[k] (the rollout entries) or the state to x_out (the step entries,
+// horizon 1) where the pointer is not null.
+template <typename T, int N, bool FLUID, bool EULER, int R, int W>
+__device__ void run_sample(const Model<T>& m, int k, const T* x0, long long x_stride,
+                           const T* controls, long long c_t, long long c_i, long long c_k,
+                           int horizon, T* costs, T* x_out, Work<T, N, R>& wk) {
+  PLANAR_STAMP_START();
   constexpr int NA = N - 3;
   const int nr = m.n_limits + 3 * m.n_contacts + m.n_pairs;
   T q[N], qv[N];
@@ -755,12 +1074,14 @@ __device__ __forceinline__ void run_sample(const Model<T>& m, int k, const T* x0
       ac[i] = clip(a[i], T(-1), T(1));
     }
     const T x_before = q[0];
-    control_step<T, N, FLUID>(m, nr, q, qv, ac, sc);
+    control_step<T, N, FLUID, EULER, R, W>(m, nr, q, qv, ac, wk);
     T rew = m.healthy + (q[0] - x_before) * m.inv_dt;
 #pragma unroll
     for (int i = 0; i < NA; ++i) rew = rew - m.ctrl_w * (a[i] * a[i]);
     cost = cost - rew;
+    PLANAR_STAMP(kPhIntegrate);
   }
+  if (Lanes<W>::lane() != 0) return;
   if (costs) costs[k] = cost;
   if (x_out) {
     T* xo = x_out + static_cast<long long>(k) * 2 * N;
@@ -902,5 +1223,106 @@ bool make_fluid_model(const int* ip, int n_int, const double* dp, int n_double, 
   out->c_rot = T(fc[4]);
   return true;
 }
+
+
+#ifdef __CUDACC__
+constexpr int kMaxWarps = 8;  // warps of a block at most
+
+// The model into the block's shared memory: lanes read it at addresses that
+// differ (each its own row), which the kernel parameters' constant bank
+// would serialize.
+template <typename MT>
+__device__ __forceinline__ void copy_model(const MT& src, MT& dst) {
+  static_assert(sizeof(MT) % sizeof(int) == 0, "the model copies as ints");
+  const int* s = reinterpret_cast<const int*>(&src);
+  int* d = reinterpret_cast<int*>(&dst);
+  for (int i = threadIdx.x; i < static_cast<int>(sizeof(MT) / sizeof(int)); i += blockDim.x)
+    d[i] = s[i];
+  __syncthreads();
+}
+
+// The one kernel behind a build's two entries: group g of the block (lanes
+// g W .. g W + W - 1) runs sample blockIdx.x * groups + g (run_sample), its
+// workspace the group's slice of dynamic shared memory. MT is the model's
+// type (FluidModel with FLUID).
+// At most 128 registers a thread in float (two blocks of kMaxWarps an SM):
+// a float build issues the most instructions with 16 warps an SM, and one
+// that took more registers ran K = 2048 in two waves (scripts/planar_k_scan.py).
+template <typename MT, typename T, int N, bool FLUID, bool EULER, int R, int W>
+__global__ void __launch_bounds__(kMaxWarps * 32, sizeof(T) == 4 ? 2 : 1)
+rollout_kernel(const T* __restrict__ x0, long long x_stride, const T* __restrict__ controls,
+               long long c_t, long long c_i, long long c_k, int num_k, int horizon,
+               T* __restrict__ costs, T* __restrict__ x_out, const __grid_constant__ MT m) {
+  __shared__ MT sm;
+  copy_model(m, sm);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = blockDim.x / W;
+  const int g = threadIdx.x / W;
+  const int k = blockIdx.x * groups + g;
+  if (k >= num_k) return;  // the whole group
+  run_sample<T, N, FLUID, EULER, R, W>(sm, k, x0, x_stride, controls, c_t, c_i, c_k, horizon,
+                                       costs, x_out, reinterpret_cast<Work<T, N, R>*>(smem)[g]);
+}
+
+// One build of the kernel and its launch. Its warps a block: of 1 ..
+// kMaxWarps (as many as fit in one block's shared memory), the count that
+// keeps the most warps resident on an SM under the build's shared memory
+// and registers, the smaller on a tie (a finer last wave). Chosen once per
+// build; the first call also lets the kernel take the dynamic shared memory
+// it needs.
+template <typename MT, typename T, int N, bool FLUID, bool EULER, int R, int W>
+struct Build {
+  static constexpr int kLanes = W;
+  static constexpr int kWork = static_cast<int>(sizeof(Work<T, N, R>));
+
+  static int warps() {
+    static int warps = 0;
+    if (warps == 0) {
+      const auto kern = rollout_kernel<MT, T, N, FLUID, EULER, R, W>;
+      constexpr int per_warp = (32 / W) * kWork;
+      int dev = 0, smem_max = 0;
+      if (cudaGetDevice(&dev) != cudaSuccess ||
+          cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+              cudaSuccess)
+        return 0;
+      smem_max -= static_cast<int>(sizeof(MT));  // the block's copy of the model
+      const int fit = smem_max / per_warp < kMaxWarps ? smem_max / per_warp : kMaxWarps;
+      if (fit < 1 || cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          fit * per_warp) != cudaSuccess)
+        return 0;
+      int best = 0, best_resident = 0;
+      for (int w = 1; w <= fit; ++w) {
+        int blocks = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, 32 * w, w * per_warp) !=
+            cudaSuccess)
+          return 0;
+        if (blocks * w > best_resident) {
+          best_resident = blocks * w;
+          best = w;
+        }
+      }
+      warps = best;
+    }
+    return warps;
+  }
+
+  static int launch(const MT& m, const void* x0, long long x_stride, const void* controls,
+                    long long c_t, long long c_i, long long c_k, int num_k, int horizon,
+                    void* costs, void* x_out, void* stream) {
+    const int nw = warps();
+    if (nw < 1) {
+      const cudaError_t e = cudaGetLastError();
+      return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+    }
+    const int groups = 32 * nw / W;
+    const dim3 grid((num_k + groups - 1) / groups);
+    rollout_kernel<MT, T, N, FLUID, EULER, R, W>
+        <<<grid, 32 * nw, groups * kWork, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x0), x_stride, static_cast<const T*>(controls), c_t, c_i, c_k,
+            num_k, horizon, static_cast<T*>(costs), static_cast<T*>(x_out), m);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+#endif  // __CUDACC__
 
 }  // namespace planar

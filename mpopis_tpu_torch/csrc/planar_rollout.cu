@@ -1,59 +1,55 @@
-// Planar-contact MuJoCo rollout costs (HalfCheetah, Hopper, Walker2d), one
-// thread per sample, and the same control step applied to a batch of states.
+// Planar-contact MuJoCo rollout costs (HalfCheetah, Hopper, Walker2d), a
+// group of W lanes per sample, and the same control step applied to a batch
+// of states.
 //
-// Replaces the Pallas TPU kernel mpopis_tpu/kernels/planar_step.py::_make_kernel
-// with _contact_advance (launched at planar_step.py:159). For each of K
-// candidate control sequences it integrates T control steps of frame_skip
-// physics substeps and accumulates cost = sum_t -(healthy + (q0' - q0) * inv_dt
-// - ctrl_w * sum a^2). Each substep is one constrained forward pass per
-// integrator stage (1 for euler_implicit, 4 for rk4):
-//   frames -> analytic mass matrix and bias -> unrolled Cholesky ->
-//   constraint rows (joint limits; three rows per plane-capsule contact, the
-//   merged normal row at R/2; capsule-capsule pairs by Ericson's closest
-//   points) -> box QP by the fixed-iteration active-set / CG / projected arc
-//   search, warm-started from the previous substep's or stage's multipliers
-//   (reset to 0 at every control step) -> accelerations.
-// Euler-implicit solves the QP against the undamped M, then factors
-// M + h*diag(damping) for the velocity update.
+// Replaces the Pallas TPU kernel mpopis_tpu/kernels/planar_step.py:47
+// `_make_kernel` with `_contact_advance` (:92; pallas_call :159, entry
+// planar_rollout_costs_tak). For each of K candidate control sequences it
+// integrates T control steps of frame_skip physics substeps and accumulates
+// cost = sum_t -(healthy + (q0' - q0) * inv_dt - ctrl_w * sum a^2). Each
+// substep is one constrained forward pass per integrator stage (1 for
+// euler_implicit, 4 for rk4): frames -> analytic mass matrix and bias ->
+// Cholesky -> constraint rows -> box QP warm-started from the previous
+// substep's or stage's multipliers (reset to 0 at every control step) ->
+// accelerations. Euler-implicit solves the QP against the undamped M, then
+// factors M + h diag(damping) for the velocity update.
 //
-// Design
-// - One thread per sample. q, qv, the mass matrix and its Cholesky factors are
-//   register arrays: the dof count is a template parameter (6 for Hopper, 9
-//   for HalfCheetah and Walker2d), so every dof loop unrolls. The model's
-//   bodies are those hinges: body b owns dof b + 2 (checked by the wrapper),
-//   so per-body arrays unroll too, and a row's body is found by an unrolled
-//   select instead of a dynamic register index.
-// - The model (bodies, contacts, limits, pairs, per-dof constants, solver
-//   iteration counts, reward weights) is one POD struct passed by value, so
-//   one kernel serves all three models. Every thread reads the same entry at
-//   the same time (uniform branches, constant-bank broadcasts).
-// - The per-row arrays (J up to 57 x 9, aref, R, the CG vectors, lambda) live
-//   in local memory, i.e. L1/L2: ptxas reports 6.6 KB (float, 6 dofs) to
-//   17 KB (double, 9 dofs) of stack a thread. Making this fast (rows spread
-//   over a warp, J in shared memory) is later work.
-// - A thread whose rows are all inactive skips its QP (lambda = 0 exactly, as
-//   the plain version gets by iterating). The TPU kernel decides per K-block.
-// - The maths (planar_dynamics.cuh, shared with the Swimmer's kernel in
-//   swimmer_rollout.cu) is a transcription of the plain PyTorch version
-//   (mpopis_tpu_torch/models/planar_contact.py). Derived constants (kb, the
-//   impedance offsets, pos + anchor, h/6) are computed in double on the host
-//   and rounded once, as the plain version does. The operation order still
-//   differs (and nvcc contracts multiply-adds into FMAs; building with
-//   -fmad=false moved no median on an H100), and the QP's discrete choices
-//   (lam > 0, grad < 0, f_t < best_f) can turn rounding into a different
-//   iterate near a contact switch, so the double instantiation is held to the
-//   plain version by its median relative error (chip_smoke.py).
+// Design (the device code is planar_dynamics.cuh, shared with the Swimmer's
+// kernel in swimmer_rollout.cu)
+// - Three builds, each with its integrator, dofs and row capacity fixed at
+//   compile time: HalfCheetah (9 dofs, Euler, 54 rows), Walker2d (9, RK4,
+//   48) and Hopper (6, RK4, 30, capsule pairs); the packed model picks one.
+// - A group of W lanes per sample, W per build from scripts/planar_k_scan.py
+//   (the time against K and W); the rows and the QP's iterates lie on the
+//   lanes, the per-sample arrays (J, W = L^-1 J^T, the dense A, rhs, R,
+//   lambda's warm starts, M and L, the frames) in the group's slice of
+//   dynamic shared memory, the model in the block's. Blocks are the number
+//   of warps (1 to 8) that keeps the most warps resident on an SM.
+// - The thread-per-sample kernel this replaces kept every row array in
+//   local memory (6.6 KB (f32, 6 dofs) to 17 KB (f64, 9 dofs) of stack a
+//   thread) and swept every candidate row with two triangular solves in
+//   each of the ~42 applications of J M^-1 J^T a forward pass: its phase
+//   split (scripts/planar_phase_times.py, stamped at K = 2048 T = 15; H100
+//   80GB HBM3, 700 W) put 62-91% of a pass in the QP (the operator 17-53%),
+//   under 9% in the factor and solves, under 4% in the mass matrix and bias.
+//   Its time did not grow from K = 132 to 4096: the slowest samples of a
+//   warp (each with its own active rows and branches) set it.
 //
-// What bounds it on an H100: latency. Each substep is a long dependent chain
-// (~40 applications of J M^-1 J^T per QP, each ~2 x R x n FMAs plus two
-// triangular solves), mostly through local memory. K = 2048 gives only 64
-// warps: kBlock = 32 spreads them over 64 SMs rather than packing 2 warps on
-// each of 32.
+// What bounds it on an H100 now: the schedulers' issue of each group's long
+// chain of instructions. At W = 32 one HalfCheetah sample alone takes 1.4 ms
+// (K = 1, T = 15), 3.1 ms at one warp a scheduler (K = 528), and past that
+// the time grows with K (6.8 ms at 2048, 13.0 at 4096; scripts/
+// planar_k_scan.py, f32 from reset; H100 80GB HBM3, 700 W); narrower groups
+// pack samples whose rows and branches differ, and ran slower. Per forward
+// pass the QP takes 45-66% (HalfCheetah) to 77-83% (Hopper, Walker2d), its
+// row-order scalars (a shuffle a row) and group barriers more than its
+// arithmetic, and the frames, mass matrix and factor 10-45%
+// (scripts/planar_phase_times.py).
 //
 // Interface: plain C functions per dtype, loaded with ctypes. The model comes
-// as a flat int array and a flat double array in the order of make_model
-// in planar_dynamics.cuh (packed by mpopis_tpu_torch/kernels/planar_step.py). A launch does not
-// synchronise and returns cudaGetLastError().
+// as a flat int array and a flat double array in the order of make_model in
+// planar_dynamics.cuh (packed by mpopis_tpu_torch/kernels/planar_step.py). A
+// launch does not synchronise and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -63,18 +59,21 @@ namespace {
 
 using namespace planar;
 
-// The one kernel behind both entries: thread k runs sample k (run_sample in
-// planar_dynamics.cuh, with no fluid force).
-template <typename T, int N>
-__global__ void __launch_bounds__(kBlock)
-planar_kernel(const T* __restrict__ x0, long long x_stride, const T* __restrict__ controls,
-              long long c_t, long long c_i, long long c_k, int num_k, int horizon,
-              T* __restrict__ costs, T* __restrict__ x_out, const Model<T> m) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= num_k) return;
-  Scratch<T, N> sc;
-  run_sample<T, N, false>(m, k, x0, x_stride, controls, c_t, c_i, c_k, horizon, costs, x_out, sc);
-}
+// the lanes a sample of each build; PLANAR_LANES (scripts/planar_k_scan.py)
+// gives every build that width
+#ifdef PLANAR_LANES
+constexpr int kCheetahLanes = PLANAR_LANES, kWalkerLanes = PLANAR_LANES,
+              kHopperLanes = PLANAR_LANES;
+#else
+constexpr int kCheetahLanes = 32, kWalkerLanes = 32, kHopperLanes = 32;
+#endif
+
+template <typename T>
+using Cheetah = Build<Model<T>, T, 9, false, true, kCheetahRows, kCheetahLanes>;
+template <typename T>
+using Walker = Build<Model<T>, T, 9, false, false, kWalkerRows, kWalkerLanes>;
+template <typename T>
+using Hopper = Build<Model<T>, T, 6, false, false, kHopperRows, kHopperLanes>;
 
 template <typename T>
 int launch(const int* ip, int n_int, const double* dp, int n_double, const void* x0,
@@ -84,19 +83,17 @@ int launch(const int* ip, int n_int, const double* dp, int n_double, const void*
   int nd = 0;
   if (num_k < 1 || horizon < 0 || !make_model(ip, n_int, dp, n_double, false, &nd, &m))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((num_k + kBlock - 1) / kBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xs = static_cast<const T*>(x0);
-  const T* ctrl = static_cast<const T*>(controls);
-  T* c = static_cast<T*>(costs);
-  T* xo = static_cast<T*>(x_out);
-  if (nd == 6)
-    planar_kernel<T, 6><<<grid, kBlock, 0, s>>>(xs, x_stride, ctrl, c_t, c_i, c_k, num_k,
-                                                horizon, c, xo, m);
-  else
-    planar_kernel<T, 9><<<grid, kBlock, 0, s>>>(xs, x_stride, ctrl, c_t, c_i, c_k, num_k,
-                                                horizon, c, xo, m);
-  return static_cast<int>(cudaGetLastError());
+  const int nr = m.n_limits + 3 * m.n_contacts + m.n_pairs;
+  if (nd == 9 && !m.rk4 && nr <= kCheetahRows)
+    return Cheetah<T>::launch(m, x0, x_stride, controls, c_t, c_i, c_k, num_k, horizon, costs,
+                              x_out, stream);
+  if (nd == 9 && m.rk4 && nr <= kWalkerRows)
+    return Walker<T>::launch(m, x0, x_stride, controls, c_t, c_i, c_k, num_k, horizon, costs,
+                             x_out, stream);
+  if (nd == 6 && m.rk4 && nr <= kHopperRows)
+    return Hopper<T>::launch(m, x0, x_stride, controls, c_t, c_i, c_k, num_k, horizon, costs,
+                             x_out, stream);
+  return static_cast<int>(cudaErrorInvalidValue);  // no build takes this model
 }
 
 // (T, na, K) controls from one state (2n,) -> costs (K,)
@@ -119,11 +116,26 @@ int step(const int* ip, int n_int, const double* dp, int n_double, const void* x
                    nullptr, out, stream);
 }
 
+template <typename B>
+int shape(int* out) {
+  out[0] = B::kLanes;
+  out[1] = B::warps();
+  return out[1] > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
 }  // namespace
 
 extern "C" {
 
 int planar_max_rows() { return kMaxRows; }
+
+// (lanes a sample, warps a block) of the build for (n_dof, rk4) in f32 or f64
+int planar_launch_shape(int n_dof, int rk4, int f64, int* out) {
+  if (n_dof == 9 && !rk4) return f64 ? shape<Cheetah<double>>(out) : shape<Cheetah<float>>(out);
+  if (n_dof == 9 && rk4) return f64 ? shape<Walker<double>>(out) : shape<Walker<float>>(out);
+  if (n_dof == 6 && rk4) return f64 ? shape<Hopper<double>>(out) : shape<Hopper<float>>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 int planar_rollout_costs_f32(const int* ip, int n_int, const double* dp, int n_double,
                              const void* state0, const void* controls, void* costs, int num_k,

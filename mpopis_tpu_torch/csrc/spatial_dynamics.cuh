@@ -56,6 +56,7 @@
 // skips its QP (every iterate would stay 0).
 #pragma once
 
+#include "lanes.cuh"
 #ifdef __CUDACC__
 #include "block_linalg.cuh"
 #endif
@@ -190,58 +191,10 @@ struct Model {
   int n_cap;
 };
 
-// The lanes that run one sample: a warp on the card (W = 32), one lane in the
-// host build (W = 1), where every primitive is the identity.
-template <int W>
-struct Lanes;
-
-template <>
-struct Lanes<1> {
-  __device__ __forceinline__ static int lane() { return 0; }
-  __device__ __forceinline__ static unsigned below() { return 0u; }  // the lanes under this one
-  __device__ __forceinline__ static unsigned ballot(bool p) { return p ? 1u : 0u; }
-  template <typename T>
-  __device__ __forceinline__ static T sum(T v, int) { return v; }
-  template <typename T>
-  __device__ __forceinline__ static void sum2(T&, T&, int) {}
-  __device__ __forceinline__ static void sync() {}
-};
-
-#ifdef __CUDACC__
-template <>
-struct Lanes<32> {
-  __device__ __forceinline__ static int lane() { return threadIdx.x & 31; }
-  __device__ __forceinline__ static unsigned below() { return (1u << lane()) - 1u; }
-  __device__ __forceinline__ static unsigned ballot(bool p) { return __ballot_sync(0xffffffffu, p); }
-  // the sum of v over lanes 0 .. n - 1 in lane order, on every lane (n the
-  // same on every lane, the lanes past it holding 0): with a row on each
-  // lane, the rows' sum in the plain version's serial order
-  template <typename T>
-  __device__ __forceinline__ static T sum(T v, int n) {
-    T s = T(0);
-    for (int l = 0; l < n; ++l) s = s + __shfl_sync(0xffffffffu, v, l);
-    return s;
-  }
-  // two sums at once, their shuffles interleaved
-  template <typename T>
-  __device__ __forceinline__ static void sum2(T& a, T& b, int n) {
-    T sa = T(0), sb = T(0);
-    for (int l = 0; l < n; ++l) {
-      const T xa = __shfl_sync(0xffffffffu, a, l);
-      const T xb = __shfl_sync(0xffffffffu, b, l);
-      sa = sa + xa;
-      sb = sb + xb;
-    }
-    a = sa;
-    b = sb;
-  }
-  __device__ __forceinline__ static void sync() { __syncwarp(); }
-};
-
-__device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
-#else
-inline int popc(unsigned x) { return __builtin_popcount(x); }
-#endif
+// The lanes that run one sample (lanes.cuh): a warp on the card (W = 32),
+// one lane in the host build (W = 1), where every primitive is the identity.
+using mpopis::Lanes;
+using mpopis::popc;
 
 __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double d_sqrt(double x) { return sqrt(x); }

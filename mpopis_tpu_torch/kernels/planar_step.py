@@ -16,6 +16,8 @@ and its Swimmer instance `_swimmer_rollout_impl` (entry
 
 A CPU tensor goes to the plain version (`env.plain_step` / `rollout_batch`
 over `env.plain_step_reward`); a CUDA tensor launches the kernel or raises.
+Each kernel runs a group of lanes per sample; `launch_shape` gives a
+build's group width and block.
 `LAUNCHES` / `STEP_LAUNCHES` count the planar kernel's rollout and step
 launches, `SWIMMER_LAUNCHES` / `SWIMMER_STEP_LAUNCHES` the Swimmer's, and
 nothing else.
@@ -81,6 +83,23 @@ def _kernel_fn(kernel: str, entry: str, dtype: torch.dtype):
                 fn.restype = ctypes.c_int
                 _FNS[(kernel, name, dt)] = fn
     return _FNS[(kernel, entry, dtype)]
+
+
+def launch_shape(env, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """(lanes a sample, warps a block) of the CUDA build that runs `env` in
+    `dtype`: its group's width, chosen per build from scripts/planar_k_scan.py,
+    and the block that keeps the most warps resident on an SM (needs a card)."""
+    kernel = "swimmer" if getattr(env, "FLUID", ()) else "planar"
+    _kernel_fn(kernel, "rollout", dtype)  # loads the library and checks its interface
+    fn = getattr(load_library(f"{kernel}_rollout"), f"{kernel}_launch_shape")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    m = env.MODEL
+    rc = fn(m.n_dof, int(m.integrator == "rk4"), int(dtype == torch.float64), out)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}_launch_shape failed: CUDA error {rc}")
+    return out[0], out[1]
 
 
 def impedance_consts(item, model):

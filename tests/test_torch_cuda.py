@@ -466,28 +466,33 @@ def test_spatial_wrappers_refuse_what_no_build_takes(cuda_device):
 
 
 # -- kernel 4's warp per sample: partial blocks, empty QPs, rows over the lanes --
-def _hold_f64(env, x0, ctrl, got, bound=1e-9):
+def _hold_f64(env, x0, ctrl, got, bound=1e-9, ref=spatial_step.spatial_rollout_costs_tak_reference,
+              pool=False):
     """Every sample: |kernel − plain| / |plain| within `bound`, or within 10×
     that sample's own spread, the most the plain version's cost moves under
     controls·(1 ± 1e-15), x0·(1 + 1e-15) or on the CPU (another association
-    of its sums). Over two control steps through contact switches no single
+    of its sums); with `pool`, within 10× the largest own spread of any
+    sample of the batch. Over two control steps through contact switches no single
     nudge stands for a new association: on the pressed pose the plain
     version on the CPU lies up to 1.5e-7 from itself on the card where
     controls·(1 + 1e-15) moves it by 1e-9 (scripts/spatial_f64_spread.py).
     A fault in a grid the samples do not fill (a wrong sample index, a stray
-    write, a stale slot) hits a few samples, so no sample is left out."""
-    ref = spatial_step.spatial_rollout_costs_tak_reference
+    write, a stale slot) hits a few samples, so no sample is left out. `ref`
+    is the plain version of the kernel that gave `got`."""
     want = ref(env, x0, ctrl)
     err = ((got - want) / want).abs()
     assert bool(torch.all(torch.isfinite(got))), "non-finite costs"
     far = (err > bound).nonzero().flatten()
     if len(far) == 0:
         return
+    idx = torch.arange(err.numel(), device=err.device) if pool else far
     runs = [ref(env, x0, ctrl * (1 + 1e-15)), ref(env, x0, ctrl * (1 - 1e-15)),
             ref(env, x0 * (1 + 1e-15), ctrl)]
-    own = torch.stack([((r[far] - want[far]) / want[far]).abs() for r in runs]).amax(0)
-    cpu = ref(type(env)(dtype=torch.float64, device="cpu"), x0.cpu(), ctrl[..., far].cpu())
-    own = torch.maximum(own, ((cpu.to(want.device) - want[far]) / want[far]).abs())
+    own = torch.stack([((r[idx] - want[idx]) / want[idx]).abs() for r in runs]).amax(0)
+    cpu = ref(type(env)(dtype=torch.float64, device="cpu"), x0.cpu(), ctrl[..., idx].cpu())
+    own = torch.maximum(own, ((cpu.to(want.device) - want[idx]) / want[idx]).abs())
+    if pool:
+        own = own.amax().expand(far.numel())
     bad = err[far] > 10 * own
     assert not bool(bad.any()), (
         f"samples {far[bad].tolist()}: errors {err[far][bad].tolist()}, "
@@ -564,6 +569,129 @@ def test_humanoid_step_kernel_batch_of_three(cuda_device, which):
     own = (env.plain_step(make_state(xs), acts * (1 + 1e-15)).x - want).abs().amax(-1)
     bound = torch.clamp(10 * own / want.abs().amax(-1), min=1e-9)
     assert bool(torch.all(torch.isfinite(got))) and bool(torch.all(err <= bound))
+
+
+# -- kernels 2 and 3's groups of lanes: partial blocks, empty and wide QPs ------
+PLANAR_BUILDS = {"cheetah": CheetahDeviceEnv, "hopper": HopperDeviceEnv,
+                 "walker2d": Walker2dDeviceEnv, "swimmer": SwimmerDeviceEnv}
+# x[1] of the contact builds' starts past LOWERED: 45 (HalfCheetah) and 39
+# (Walker2d) rows valid in the first substep, more than the dense QP's 32;
+# and 2 m up, no row valid
+DEEP = {"cheetah": -0.7, "walker2d": 0.2}
+# Walker2d's rollouts are held against the batch's largest own spread (pool):
+# from its lowered and deep starts its truncated QP turns the kernel's own
+# rounding into other iterates for single samples. 1 to 3 of 33-64 samples
+# lie beyond 10× their own spread on this kernel and on the thread-per-sample
+# kernel it replaces alike; sample 16 of K = 33 moves 1.5e-7 to 7.9e-7 where
+# nudges move it 8e-9, and agrees once the kernel is built without FMA
+# contraction, which moves sample 13 of the deep drop by 1.8e-3 instead
+# (scripts/planar_f64_spread.py). A grid fault moves costs by percent.
+
+
+def _planar(which, dtype, device, start):
+    """(env, x0) of a planar build at a start: the reset, `lowered` (LOWERED;
+    the Swimmer's joints past their limits), `deep` (DEEP) or `air` (no row
+    valid: 2 m up; the Swimmer's reset)."""
+    env = PLANAR_BUILDS[which](dtype=dtype, device=device)
+    x = env.reset().x.clone()
+    if which == "swimmer":
+        if start == "lowered":
+            x = torch.tensor(SWIMMER_STARTS["limits"], dtype=dtype, device=device)
+    elif start != "reset":
+        x[1] = {"lowered": LOWERED.get(which), "deep": DEEP.get(which), "air": 2.0}[start]
+    return env, x
+
+
+def _planar_rollout(env):
+    return (planar_step.swimmer_rollout_costs_tak if getattr(env, "FLUID", ())
+            else planar_step.planar_rollout_costs_tak)
+
+
+def _hold_step_f64(env, xs, acts, got, bound=1e-9):
+    """Per state: max |kernel − plain| / max |plain| within `bound`, or within
+    10× the most the plain step moves under actions·(1 ± 1e-15), states·(1 +
+    1e-15) or on the CPU."""
+    def plain(x, a):
+        return env.plain_step(make_state(x), a).x
+
+    want = plain(xs, acts)
+    scale = want.abs().amax(-1)
+    err = (got - want).abs().amax(-1) / scale
+    cpu = type(env)(dtype=torch.float64, device="cpu").plain_step(make_state(xs.cpu()),
+                                                                  acts.cpu()).x
+    runs = [plain(xs, acts * (1 + 1e-15)), plain(xs, acts * (1 - 1e-15)),
+            plain(xs * (1 + 1e-15), acts), cpu.to(want.device)]
+    own = torch.stack([(r - want).abs().amax(-1) / scale for r in runs]).amax(0)
+    assert bool(torch.all(torch.isfinite(got))), "non-finite states"
+    bad = (err > bound) & (err > 10 * own)
+    assert not bool(bad.any()), f"states {bad.nonzero().flatten().tolist()}: {err[bad].tolist()}"
+
+
+@pytest.mark.parametrize("k_case", ["1", "33", "block-1"])
+@pytest.mark.parametrize("which", sorted(PLANAR_BUILDS))
+def test_planar_kernels_partial_group_and_block_counts(cuda_device, which, k_case):
+    """K = 1, 33 and 64 blocks less one sample: groups, blocks and a grid that
+    the samples do not fill. f64 from the lowered start, every sample within
+    1e-9 or the nudge rule (Walker2d's pooled, see DEEP); f32 from the reset
+    at the JAX kernel tests' rtol 2e-4 / atol 2e-3."""
+    env, x0 = _planar(which, torch.float64, cuda_device, "lowered")
+    lanes, warps = planar_step.launch_shape(env, torch.float64)
+    k = {"1": 1, "33": 33, "block-1": 64 * (32 * warps // lanes) - 1}[k_case]
+    ctrl = torch.as_tensor(np.random.default_rng(k).uniform(-1, 1, (2, env.action_dim, k)),
+                           dtype=torch.float64, device=cuda_device)
+    rollout = _planar_rollout(env)
+    ref = planar_step.planar_rollout_costs_tak_reference
+    got = rollout(env, x0, ctrl)
+    assert got.shape == (k,)
+    _hold_f64(env, x0, ctrl, got, ref=ref, pool=which == "walker2d")
+    env32, x32 = _planar(which, torch.float32, cuda_device, "reset")
+    got32 = rollout(env32, x32, ctrl.float())
+    np.testing.assert_allclose(got32.cpu().numpy(), ref(env32, x32, ctrl.float()).cpu().numpy(),
+                               rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("which", sorted(PLANAR_BUILDS))
+def test_planar_step_kernels_sample_with_no_valid_row_beside_samples_with_rows(cuda_device,
+                                                                              which):
+    """The step entry on 8 states, every other one with no valid row (2 m up;
+    the Swimmer's reset) beside ones with rows (lowered; its limits): the
+    groups of one warp (the Swimmer's) skip and run their QPs apart."""
+    env, air = _planar(which, torch.float64, cuda_device, "air")
+    _, low = _planar(which, torch.float64, cuda_device, "lowered")
+    xs = torch.stack([air, low] * 4)
+    assert sum(planar_step.first_substep_active_rows(env, air)) == 0
+    assert sum(planar_step.first_substep_active_rows(env, low)) > 0
+    acts = torch.as_tensor(np.random.default_rng(4).uniform(-1, 1, (8, env.action_dim)),
+                           device=cuda_device)
+    _hold_step_f64(env, xs, acts, env.step(make_state(xs), acts).x)
+
+
+@pytest.mark.parametrize("which", sorted(DEEP))
+def test_planar_kernel_beyond_the_dense_qp(cuda_device, which):
+    """More than 32 valid rows: the QP applies W^T (W v), not the dense A."""
+    env, x0 = _planar(which, torch.float64, cuda_device, "deep")
+    assert sum(planar_step.first_substep_active_rows(env, x0)) > 32
+    ctrl = torch.as_tensor(np.random.default_rng(9).uniform(-1, 1, (2, env.action_dim, 64)),
+                           dtype=torch.float64, device=cuda_device)
+    _hold_f64(env, x0, ctrl, planar_step.planar_rollout_costs_tak(env, x0, ctrl),
+              ref=planar_step.planar_rollout_costs_tak_reference, pool=which == "walker2d")
+
+
+@pytest.mark.parametrize("which", sorted(PLANAR_BUILDS))
+def test_planar_step_kernels_batch_of_three(cuda_device, which):
+    """The step entry for 3 states (the reset, the lowered start, the deep
+    one or 2 m up; the Swimmer's reset, limits and reset): per state within
+    1e-9 of the plain step, or the nudge rule."""
+    starts = ("reset", "lowered", "deep" if which in DEEP else "air")
+    xs = torch.stack([_planar(which, torch.float64, cuda_device, s)[1] for s in starts])
+    env = PLANAR_BUILDS[which](dtype=torch.float64, device=cuda_device)
+    acts = torch.as_tensor(np.random.default_rng(3).uniform(-1.2, 1.2, (3, env.action_dim)),
+                           device=cuda_device)
+    counter = "SWIMMER_STEP_LAUNCHES" if which == "swimmer" else "STEP_LAUNCHES"
+    before = getattr(planar_step, counter)
+    got = env.step(make_state(xs), acts).x
+    assert getattr(planar_step, counter) == before + 1
+    _hold_step_f64(env, xs, acts, got)
 
 
 # -- AIS updates and small linear algebra --------------------------------------
