@@ -10,9 +10,12 @@ per library, all at once) and drives the port's paths (`--only` names
 them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
 
 - phases 1-5, the car: the car rollout kernel against its plain PyTorch
-  version, a car race with CEMPPI at K=8192, H=50, 10 AIS iterations,
-  `ss`, λ=10 through the harness (every rollout on the kernel, clean
-  laps), and the kernel's time against the plain version's;
+  version (f32 at the JAX kernel tests' tolerance or, at K=8192 T=50, by
+  its median relative error; f64 sample by sample at 1e-9 or within 10x
+  the plain version's own spread under a nudge), a car race with CEMPPI at
+  K=8192, H=50, 10 AIS iterations, `ss`, λ=10 through the harness (every
+  rollout on the kernel, clean laps), the race at K=150, and the kernel's
+  time at K=8192 and K=150 against the plain version's;
 - phases 6-10, the planar-contact MuJoCo tasks: the planar rollout kernel
   and its control-step entry against their plain versions for HalfCheetah,
   Hopper and Walker2d (f32 at the JAX kernel tests' tolerances, f64 by its
@@ -20,8 +23,9 @@ them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
   nudge of its controls), the f64 CEMPPI step through the kernel against
   the plain path, `simulate_mujoco_on_device` for the three tasks (HalfCheetah at
   K=2048, H=15, 3 AIS iterations, `mle`, λ=0.1), and the timings;
-- phases 11-15, the policy layer: the AIS-update kernels (masked and
-  weighted refit, CMA tail) and the Cholesky and forward-solve kernels
+- phases 11-15, the policy layer: the CMA kernel's cluster size, the
+  AIS-update kernels (masked and weighted refit, CMA tail) and the
+  Cholesky and forward-solve kernels
   against their plain versions (float32 at the JAX kernel tests'
   tolerances, float64 at 1e-9 relative; the last two at n = 1, 31, 32,
   33, 100, 136, 600 and 1024, and the Cholesky's NaNs from a failing
@@ -748,6 +752,10 @@ def _ais_path(card: str) -> list:
               f"others)")
         for line in _ptxas_lines(info["log"]):
             print("  ptxas:", line)
+
+    print("phase 11: the CMA kernel's cluster (blocks; 0: one block from global memory): " +
+          ", ".join(f"n={size} {str(dt)[6:]} {ais_update.cma_cluster_size(size, dt)}"
+                    for size in (n, 136) for dt in (torch.float32, torch.float64)))
 
     # -- phase 12: each kernel against its plain version ---------------------
     t_phase = time.perf_counter()
@@ -2081,13 +2089,25 @@ def _car_path(card: str) -> list:
     print(f"phase 2: f32 3 cars K=40 T=6: max|err| {err:.3e} (rtol 2e-4, atol 2e-2) ok={ok}")
     _require(ok, "f32 three-car kernel disagrees")
 
+    # f64 sample by sample: within 1e-9, or within 10x the most the plain
+    # version's own cost moves under controls·(1 ± 1e-15) or x0·(1 + 1e-15)
+    # (the kernel's identities are exact up to rounding, and an off-track or
+    # sideslip step of the reward turns rounding into a jump of 1e6 or 5000)
     ctrl64 = _candidates(K, H, 2, torch.float64)
     got, want = kern(env64, x64, ctrl64, H), ref(env64, x64, ctrl64, H)
     rel64 = _rel_err(got, want)
     max_abs_f64 = float(torch.max(torch.abs(got - want)))
-    print(f"phase 2: f64 K={K} T={H}: max rel {rel64.max():.3e}, max|err| {max_abs_f64:.3e} "
-          f"(rtol 1e-9)")
-    _require(bool(torch.allclose(got, want, rtol=1e-9, atol=0.0)), "f64 kernel disagrees")
+    far = np.flatnonzero(rel64 > 1e-9)
+    ratio = 0.0
+    if len(far):
+        runs = (ref(env64, x64, ctrl64 * (1 + 1e-15), H), ref(env64, x64, ctrl64 * (1 - 1e-15), H),
+                ref(env64, x64 * (1 + 1e-15), ctrl64, H))
+        own = np.max([_rel_err(r, want)[far] for r in runs], axis=0)
+        ratio = float(np.max(rel64[far] / np.maximum(own, 1e-300)))
+    print(f"phase 2: f64 K={K} T={H}: max rel {rel64.max():.3e}, median {np.median(rel64):.3e}, "
+          f"max|err| {max_abs_f64:.3e}; {len(far)} samples beyond 1e-9, the largest at "
+          f"{ratio:.3f}x its own spread under a nudge (bound 10x)")
+    _require(ratio <= 10.0, "f64 kernel disagrees beyond the plain version's own spread")
 
     ctrl32 = ctrl64.float()
     got, want = kern(env32, x32, ctrl32, H), ref(env32, x32, ctrl32, H)
@@ -2159,7 +2179,13 @@ def _car_path(card: str) -> list:
     def run_plain():
         ref(env32, x32, ctrl32, H)
 
+    ctrl150 = ctrl32[:, :, :150].contiguous()
+
+    def run_kernel150():
+        kern(env32, x32, ctrl150, H)
+
     run_kernel()
+    run_kernel150()
     run_plain()
     torch.cuda.synchronize()
     plain_a = _time_ms(run_plain, 3)
@@ -2167,8 +2193,10 @@ def _car_path(card: str) -> list:
     kern_b = _time_ms(run_kernel, 50)
     plain_b = _time_ms(run_plain, 3)
     kernel_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    k150 = (_time_ms(run_kernel150, 50), _time_ms(run_kernel150, 50))
     print(f"phase 5: f32 K={K} T={H}: kernel {kern_a:.4f} / {kern_b:.4f} ms, "
-          f"plain {plain_a:.2f} / {plain_b:.2f} ms (CUDA events, plain-kernel-kernel-plain)")
+          f"plain {plain_a:.2f} / {plain_b:.2f} ms (CUDA events, plain-kernel-kernel-plain); "
+          f"K=150 T={H}: kernel {k150[0]:.4f} / {k150[1]:.4f} ms")
 
     # The early stop's host read. Both configs run all 10 iterations:
     # tolerance 0 never reads the flag back, 1e-30 reads it every iteration
@@ -2217,6 +2245,7 @@ def _car_path(card: str) -> list:
         "library_ms": None,
         "max_abs_err_f64": max_abs_f64,
         "median_rel_err_f32": float(np.median(rel32)),
+        "ms_k150": sum(k150) / 2,
     }]
 
 

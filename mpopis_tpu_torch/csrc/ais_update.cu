@@ -28,17 +28,36 @@
 //   :122), the jitter (_jitter_mat, :114) and the Cholesky (block_linalg.cuh).
 //   A and B (2 n^2 + 2 n values) sit in shared memory while they fit (n = 100:
 //   81 KB float, 162 KB double), else in global scratch.
-// - CMA (cma_kernel), one block: the four n x n Newton-Schulz matrices (160 KB
-//   in float at n = 100) in shared memory while they fit, else in global
-//   scratch (double). The 60 n x n products are written in the kernel, one
-//   output entry per thread and step, full precision, no tensor cores.
+// - CMA (cma_cluster_kernel): a cluster of 16 blocks (8 where the card does
+//   not schedule 16) of 416 threads. Block r owns a band of rows of the
+//   Newton-Schulz matrices y, z and t. Each of the 20 steps is two stages,
+//   each ended by one cluster barrier: t = 1.5 I - 0.5 z y, then y t and t z
+//   together (where the one-block kernel before ran three products behind
+//   three barriers). A stage copies the whole right operand from L2 into
+//   shared memory (each block writes its band's rows of the whole matrices
+//   to global memory as it computes them) and multiplies its band in
+//   register tiles of four rows of a column: a 16-byte broadcast load of
+//   the left rows and one load of the right column for four multiply-adds,
+//   where the one-output-per-thread products made two loads per
+//   multiply-add. Each output's sum runs over q in ascending order, as
+//   before. Block 0 then runs the tail and the Cholesky alone, at 416
+//   threads (128 registers a thread where the one-block kernel had 64). n
+//   that no cluster holds in shared memory (two ld x ld staging matrices and
+//   five bands: n > 152 in float, n > 108 in double) run on one block of
+//   1024 threads from global scratch (cma_block_kernel), one output entry
+//   per thread and step. Full precision, no tensor cores.
 //
 // What bounds them on an H100: at the headline (n = 100, K = 8192) the
 // refit's moments are 2 n^2 K = 164 MFLOP each (A, and B for lw/ss), ~2.4 us
 // at the 67 TFLOP/s float peak, against 3.3 MB of E read (~1 us at 3.35 TB/s);
-// the one-block finalize and the CMA tail (60 dependent 2 MFLOP products on
-// one SM, then a Cholesky) are latency-bound chains on one SM, far from
-// either peak. Their Cholesky is block_linalg.cuh's blocked factor (panels of
+// the one-block finalize is a latency-bound chain on one SM, far from either
+// peak. The CMA tail's 60 products (2 MFLOP each, 120 MFLOP) are ~1.8 us of
+// the card's float peak but ~270 us of one SM's; on 16 SMs each of its 40
+// dependent stages costs the copy of a whole operand (~1 us), a band
+// product of ~25 dependent steps of loads and multiply-adds and a cluster
+// barrier, ~4.5 us a stage in all at n = 100 (scripts/cma_phase_times.py).
+// Their Cholesky is
+// block_linalg.cuh's blocked factor (panels of
 // 32 columns, three barriers each, where the column loop before it had three
 // per column), which the finalize writes straight to L: the masked `ss`
 // refit fell from 0.184-0.189 to 0.098 ms device-only (0.101-0.109 back to
@@ -55,10 +74,15 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cfloat>
 #include <cmath>
 
+#include <cooperative_groups.h>
+
 #include "block_linalg.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -317,74 +341,39 @@ int refit_launch(const void* e, const void* w, const void* mu, int n, int k, int
 // CMA tail
 // ---------------------------------------------------------------------------
 
+// Phase stamps of the CMA tail (scripts/cma_phase_times.py): the script
+// builds a copy with CMA_STAMP and CMA_STAMP_START defined, which charge the
+// time since the previous stamp to a phase; otherwise a stamp is nothing.
+enum CmaPhase { kCmaSetup, kCmaPull, kCmaStageT, kCmaStageYZ, kCmaScale, kCmaTail, kCmaSigma,
+                kCmaFactor, kCmaWrite, kCmaPhases };
+#ifndef CMA_STAMP
+#define CMA_STAMP(phase) ((void)0)
+#define CMA_STAMP_START() ((void)0)
+#endif
+
 struct CmaConsts {
   double c1, c_Sigma, c_mu, c_sigma, d_sigma, e_norm, mu_eff;
 };
 
+// The CMA tail after Newton-Schulz, on one block: the evolution paths, the
+// guarded step size, h_sigma, the scalar rank-mu term over K, Sigma_new from
+// the upper triangle, jitter and sigma * chol. `cdw` holds C dw and norm_c2
+// ||C||^2; `w` is n x n scratch (row stride n).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cma_kernel(const T* __restrict__ sigma_in, const T* __restrict__ dw,
-               const T* __restrict__ ps_in, const T* __restrict__ pS_in,
-               const T* __restrict__ svals, const T* __restrict__ ws,
-               const T* __restrict__ sigma_s_in, int n, int k, CmaConsts c, double it,
-               double jitter, int guards, int ns_its, int update_chol, int in_smem,
-               T* __restrict__ work, T* __restrict__ chol_out, T* __restrict__ sigma_out,
-               T* __restrict__ ps_out, T* __restrict__ pS_out, T* __restrict__ sig_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[32];
+__device__ void cma_tail(const T* __restrict__ sigma_in, const T* __restrict__ dw,
+                         const T* __restrict__ ps_in, const T* __restrict__ pS_in,
+                         const T* __restrict__ svals, const T* __restrict__ ws, T sigma_s,
+                         int n, int k, const CmaConsts& c, double it, double jitter, int guards,
+                         int update_chol, const T* cdw, T norm_c2, T* p_sig, T* p_Sig, T* w,
+                         T* red, T* __restrict__ chol_out, T* __restrict__ sigma_out,
+                         T* __restrict__ ps_out, T* __restrict__ pS_out, T* __restrict__ sig_out) {
   const int nn = n * n;
-  T* y = in_smem ? reinterpret_cast<T*>(smem_raw) : work;
-  T* z = y + nn;
-  T* t = z + nn;
-  T* w = t + nn;
-  T* p_sig = w + nn;  // (n,)
-  T* p_Sig = p_sig + n;  // (n,)
   const T it_f = T(it);
-  const T sigma_s = *sigma_s_in;
-
-  // C = Sigma^-1/2 by coupled Newton-Schulz: Y -> (Sigma/s)^1/2, Z -> (Sigma/s)^-1/2
-  T d = T(0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) d += sigma_in[i * n + i];
-  const T s_tr = mpopis::block_sum(d, red);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    y[idx] = sigma_in[idx] / s_tr;
-    z[idx] = idx / n == idx % n ? T(1) : T(0);
-  }
-  __syncthreads();
-  for (int step = 0; step < ns_its; ++step) {
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {  // t = 1.5 I - 0.5 z y
-      const int i = idx / n;
-      const int j = idx % n;
-      T acc = T(0);
-      for (int q = 0; q < n; ++q) acc += z[i * n + q] * y[q * n + j];
-      t[idx] = (i == j ? T(1.5) : T(0)) - T(0.5) * acc;
-    }
-    __syncthreads();
-    mpopis::block_matmul(y, t, w, n);  // y <- y t
-    T* tmp = y;
-    y = w;
-    w = tmp;
-    mpopis::block_matmul(t, z, w, n);  // z <- t z
-    tmp = z;
-    z = w;
-    w = tmp;
-  }
-  const T sqrt_s = sqrt(s_tr);
-  T c2 = T(0);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    const T cij = z[idx] / sqrt_s;
-    z[idx] = cij;
-    c2 += cij * cij;
-  }
-  const T norm_c2 = mpopis::block_sum(c2, red);  // also orders the writes to z
-
   // evolution path p_sigma and the step size
   const T k_ps = T(sqrt(c.c_sigma * (2.0 - c.c_sigma) * c.mu_eff));
   T ps2 = T(0);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    T c_dw = T(0);
-    for (int j = 0; j < n; ++j) c_dw += z[i * n + j] * dw[j];
-    const T p = T(1.0 - c.c_sigma) * ps_in[i] + k_ps * c_dw;
+    const T p = T(1.0 - c.c_sigma) * ps_in[i] + k_ps * cdw[i];
     p_sig[i] = p;
     ps2 += p * p;
   }
@@ -411,6 +400,7 @@ __global__ void __launch_bounds__(kThreads)
     rm += w0 * sv * sv;
   }
   const T rank_mu = mpopis::block_sum(rm, red);  // also orders p_Sig
+  CMA_STAMP(kCmaTail);
 
   // Sigma_new from the upper triangle, symmetrized
   const T k_old = T(1.0 - c.c1 - c.c_mu);
@@ -432,15 +422,418 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (threadIdx.x == 0) *sig_out = sigma_new;
   __syncthreads();
+  CMA_STAMP(kCmaSigma);
   if (update_chol) {
     mpopis::block_jitter(w, n, jitter, eps_of(T()), red);
     mpopis::block_cholesky(w, n, n);
   }
+  CMA_STAMP(kCmaFactor);
   for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
     chol_out[idx] = update_chol ? sigma_new * w[idx] : T(0);
+  CMA_STAMP(kCmaWrite);
 }
 
-size_t cma_work_elems(int n) { return 4 * static_cast<size_t>(n) * n + 2 * n; }
+// ---- the cluster kernel ----------------------------------------------------
+
+constexpr int kCmaThreads = 416;     // a block of the cluster kernel: 13 warps
+#ifndef CMA_MAX_CLUSTER
+#define CMA_MAX_CLUSTER 16
+#endif
+constexpr int kCmaMaxCluster = CMA_MAX_CLUSTER;  // 16 where the card allows, else 8
+constexpr int kCmaCacheN = 257;      // the cluster size chosen is kept for n < this
+
+// The register tile of the band products: kTileRows rows x kTileCols
+// columns of the band a thread, the q loop unrolled kTileUnroll times.
+#ifndef CMA_TILE_ROWS
+#define CMA_TILE_ROWS 4
+#endif
+#ifndef CMA_TILE_COLS
+#define CMA_TILE_COLS 1
+#endif
+#ifndef CMA_TILE_UNROLL
+#define CMA_TILE_UNROLL 4
+#endif
+constexpr int kTileRows = CMA_TILE_ROWS;
+constexpr int kTileCols = CMA_TILE_COLS;
+constexpr int kTileUnroll = CMA_TILE_UNROLL;
+
+// Row stride of the cluster kernel's matrices: n rounded up to 4 values, so
+// that a row holds whole 4-wide groups and starts 16-byte aligned.
+int cma_ld(int n) { return (n + 3) / 4 * 4; }
+
+// Rows of each block's band (rounded up to 4 in its buffers), and the
+// kernel's shared memory (elements): two ld x ld staging matrices, the bands
+// of y (two), z (two) and t, then C dw, p_sigma, p_Sigma and the blocks'
+// parts of ||C||^2.
+int cma_band_rows(int n, int csize) { return (n + csize - 1) / csize; }
+size_t cma_cluster_elems(int n, int csize) {
+  const size_t ld = cma_ld(n);
+  const size_t rbp = (cma_band_rows(n, csize) + kTileRows - 1) / kTileRows * kTileRows;
+  return 2 * ld * ld + 5 * rbp * ld + 3 * static_cast<size_t>(n) + kCmaMaxCluster;
+}
+
+// out[r * ld + c] (r < rows, c < kTileCols) = sum over q of a[r * ld + q]
+// b[q * ld + c]: kTileRows band rows of kTileCols output columns, q in
+// ascending order for each output (the one-output-per-thread products'
+// order; the padding past n adds zeros at the end), a's rows read 16 bytes
+// at a time (broadcasts: the threads of a warp share the rows), b's columns
+// a value a row (the warp's threads on consecutive columns). kT: t = 1.5 I -
+// 0.5 (a . b), the entry (r, c) on the diagonal where diag + r == c. The
+// rows also go to gout, this block's rows of the whole matrix.
+template <typename T, bool kT>
+__device__ __forceinline__ void col_tile(const T* __restrict__ a, const T* __restrict__ b,
+                                         T* out, T* __restrict__ gout, int ld, int rows,
+                                         int diag) {
+  T acc[kTileRows][kTileCols];
+#pragma unroll
+  for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < kTileCols; ++c) acc[r][c] = T(0);
+  }
+#pragma unroll kTileUnroll
+  for (int q = 0; q < ld; q += 4) {
+    T av[kTileRows][4];
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+      mpopis::load16<T, true>(a + r * ld + q, av[r]);
+      if constexpr (sizeof(T) == 8) mpopis::load16<T, true>(a + r * ld + q + 2, av[r] + 2);
+    }
+    T bv[4][kTileCols];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int c = 0; c < kTileCols; ++c) bv[e][c] = b[(q + e) * ld + c];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+        for (int c = 0; c < kTileCols; ++c) acc[r][c] += av[r][e] * bv[e][c];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < kTileCols; ++c) {
+      if (kT) acc[r][c] = (diag + r == c ? T(1.5) : T(0)) - T(0.5) * acc[r][c];
+      if (r < rows) {
+        out[r * ld + c] = acc[r][c];
+        gout[r * ld + c] = acc[r][c];
+      }
+    }
+  }
+}
+
+// The band product out = a . b for this block's rows: a band (rbp rows), b a
+// staged ld x ld matrix, one thread a tile of kTileRows rows and kTileCols
+// columns; the rows go to the band `out` and to this block's rows of the
+// whole matrix g.
+template <typename T, bool kT>
+__device__ __forceinline__ void band_item(int item, const T* a, const T* b, T* out, T* g,
+                                          int ld, int rows, int row0) {
+  const int groups = ld / kTileCols;
+  const int grp = item / groups;
+  const int j = (item - grp * groups) * kTileCols;
+  const int r0 = kTileRows * grp;
+  col_tile<T, kT>(a + r0 * ld, b + j, out + r0 * ld + j, g + (row0 + r0) * ld + j, ld,
+                  rows - r0, row0 + r0 - j);
+}
+
+// dst (ld x ld, its rows past n zero) = the first n rows of the matrix g in
+// global memory, which the cluster's blocks wrote band by band: read from
+// L2 (ld.global.cg: never a stale L1 line), 16 bytes a load and
+// kStageBatch loads in flight a thread.
+constexpr int kStageBatch = 8;
+
+template <typename T>
+__device__ void stage_full(T* dst, const T* g, int n, int ld) {
+  const int total = n * ld * static_cast<int>(sizeof(T)) / 16;
+  const float4* src = reinterpret_cast<const float4*>(g);
+  float4* to = reinterpret_cast<float4*>(dst);
+  for (int base = threadIdx.x; base < total; base += kStageBatch * blockDim.x) {
+    float4 v[kStageBatch];
+#pragma unroll
+    for (int b = 0; b < kStageBatch; ++b) {
+      const int idx = base + b * blockDim.x;
+      if (idx < total) v[b] = __ldcg(src + idx);
+    }
+#pragma unroll
+    for (int b = 0; b < kStageBatch; ++b) {
+      const int idx = base + b * blockDim.x;
+      if (idx < total) to[idx] = v[b];
+    }
+  }
+}
+
+// The two halves of a cluster barrier: arrive (release) and wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// One launch of a cluster of csize blocks. Newton-Schulz on bands of rb rows:
+// block r owns rows r rb .. r rb + rb - 1 of y, z and t, in its shared
+// memory (the left operands) and in the whole matrices in global memory. A
+// stage copies the whole right operand from L2 into shared memory and
+// computes its band, a thread four rows of a column; a cluster barrier ends
+// it: t = 1.5 I - 0.5 z y, then y t and t z together (two stages and two
+// barriers a step, where the one-block kernel had three products behind
+// three barriers). z, which the second stage needs whole, is copied while
+// the first stage's barrier completes. Then each block forms its rows of C
+// dw and its part of ||C||^2 in block 0's shared memory (distributed shared
+// memory), and block 0 runs the tail and the factor (cma_tail) alone.
+// The bands travel through L2 and not through distributed shared memory:
+// a block copying a 100 x 100 float matrix from its 15 peers' shared memory
+// took 2.5 us a copy, from L2 1.1 us (scripts/cma_phase_times.py, the stamps
+// after each copy).
+template <typename T>
+__global__ void __launch_bounds__(kCmaThreads)
+    cma_cluster_kernel(const T* __restrict__ sigma_in, const T* __restrict__ dw,
+                       const T* __restrict__ ps_in, const T* __restrict__ pS_in,
+                       const T* __restrict__ svals, const T* __restrict__ ws,
+                       const T* __restrict__ sigma_s_in, int n, int k, CmaConsts c, double it,
+                       double jitter, int guards, int ns_its, int update_chol, int rb, int ld,
+                       T* __restrict__ work, T* __restrict__ chol_out, T* __restrict__ sigma_out,
+                       T* __restrict__ ps_out, T* __restrict__ pS_out, T* __restrict__ sig_out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[32];
+  const int rbp = (rb + kTileRows - 1) / kTileRows * kTileRows;
+  const int band = rbp * ld;
+  T* s0 = reinterpret_cast<T*>(smem_raw);
+  T* s1 = s0 + ld * ld;
+  // the bands: y (two), z (two), t; y of step parity p at yb + p band, z
+  // at zb + p band (pointers into shared memory, not an array of them, so
+  // that the loads stay shared-memory loads)
+  T* yb = s1 + ld * ld;
+  T* zb = yb + 2 * band;
+  T* tb = zb + 2 * band;
+  T* cdw = tb + band;
+  T* p_sig = cdw + n;
+  T* p_Sig = p_sig + n;
+  T* c2_part = p_Sig + n;
+  // the whole matrices in global memory, each block writing its rows: y and
+  // z twice (a block may still read one while the others write the next)
+  const size_t full = static_cast<size_t>(n) * ld;
+  T* gy = work;  // y of parity p at gy + p full
+  T* gz = work + 2 * full;
+  T* gt = work + 4 * full;
+  const int row0 = rank * rb;
+  const int rows = max(0, min(rb, n - row0));
+  const int items = rbp / kTileRows * (ld / kTileCols);  // a product's register tiles
+  CMA_STAMP_START();
+
+  // y = Sigma / s, z = I on this block's rows; zeros past n, and in the
+  // staging matrices' rows past n (they meet the bands' zero columns)
+  T d = T(0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) d += sigma_in[i * n + i];
+  const T s_tr = mpopis::block_sum(d, red);
+  for (int idx = threadIdx.x; idx < 5 * band; idx += blockDim.x) {
+    const int i = (idx % band) / ld;
+    const int j = idx % ld;
+    const bool live = i < rows && j < n;
+    T v = T(0);
+    if (idx < band) v = live ? sigma_in[(row0 + i) * n + j] / s_tr : T(0);
+    if (idx >= 2 * band && idx < 3 * band) v = live && row0 + i == j ? T(1) : T(0);
+    yb[idx] = v;
+    if (i < rows && idx < band) gy[(row0 + i) * ld + j] = v;
+    if (i < rows && idx >= 2 * band && idx < 3 * band) gz[(row0 + i) * ld + j] = v;
+  }
+  for (int idx = n * ld + threadIdx.x; idx < ld * ld; idx += blockDim.x) {
+    s0[idx] = T(0);
+    s1[idx] = T(0);
+  }
+  cluster.sync();  // every block's rows are written, and every block runs
+  CMA_STAMP(kCmaSetup);
+  int cur = 0;
+  for (int step = 0; step < ns_its; ++step) {
+    const int nxt = cur ^ 1;
+    // t = 1.5 I - 0.5 z y on this block's rows
+    stage_full(s0, gy + cur * full, n, ld);
+    __syncthreads();
+    CMA_STAMP(kCmaPull);
+    for (int it_ = threadIdx.x; it_ < items; it_ += blockDim.x)
+      band_item<T, true>(it_, zb + cur * band, s0, tb, gt, ld, rows, row0);
+    cluster_arrive();  // this block's rows of t are written
+    stage_full(s1, gz + cur * full, n, ld);  // z is final since the last barrier
+    cluster_wait();  // t is complete
+    CMA_STAMP(kCmaStageT);
+    // y <- y t and z <- t z on this block's rows
+    stage_full(s0, gt, n, ld);
+    __syncthreads();
+    CMA_STAMP(kCmaPull);
+    for (int it_ = threadIdx.x; it_ < 2 * items; it_ += blockDim.x) {
+      if (it_ < items) {
+        band_item<T, false>(it_, yb + cur * band, s0, yb + nxt * band, gy + nxt * full, ld,
+                            rows, row0);
+      } else {
+        band_item<T, false>(it_ - items, tb, s1, zb + nxt * band, gz + nxt * full, ld, rows,
+                            row0);
+      }
+    }
+    cluster.sync();  // y and z are complete
+    CMA_STAMP(kCmaStageYZ);
+    cur = nxt;
+  }
+
+  // C = z / sqrt(s): this block's rows of C dw and its part of ||C||^2, into block 0
+  const T sqrt_s = sqrt(s_tr);
+  T* zc = zb + cur * band;
+  T c2 = T(0);
+  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x) {
+    const int at = (idx / n) * ld + idx % n;
+    const T cij = zc[at] / sqrt_s;
+    zc[at] = cij;
+    c2 += cij * cij;
+  }
+  c2 = mpopis::block_sum(c2, red);  // also orders the writes to zc
+  T* cdw0 = cluster.map_shared_rank(cdw, 0);
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    T c_dw = T(0);
+    for (int j = 0; j < n; ++j) c_dw += zc[i * ld + j] * dw[j];
+    cdw0[row0 + i] = c_dw;
+  }
+  if (threadIdx.x == 0) cluster.map_shared_rank(c2_part, 0)[rank] = c2;
+  cluster.sync();  // block 0 holds C dw and the parts; no block reads another's memory after
+  if (rank != 0) return;
+  T norm_c2 = T(0);
+  for (int r = 0; r < csize; ++r) norm_c2 += c2_part[r];
+  CMA_STAMP(kCmaScale);
+  cma_tail(sigma_in, dw, ps_in, pS_in, svals, ws, *sigma_s_in, n, k, c, it, jitter, guards,
+           update_chol, cdw, norm_c2, p_sig, p_Sig, s0, red, chol_out, sigma_out, ps_out, pS_out,
+           sig_out);
+}
+
+// The cluster size for n in T, 0 where no cluster holds n (the one-block
+// kernel then runs from global memory): 16 where the card schedules a
+// cluster of 16 blocks of that shared memory, else 8. Kept for n <
+// kCmaCacheN.
+template <typename T>
+int cma_cluster_size(int n) {
+  static int cached[kCmaCacheN];
+  if (n < kCmaCacheN && cached[n]) return cached[n] - 1;
+  // the kernel may take all the shared memory a block can have, at any n
+  if (cudaFuncSetAttribute(cma_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kMaxDynamicSmem)) != cudaSuccess ||
+      cudaFuncSetAttribute(cma_cluster_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  int chosen = 0;
+  const int sizes[2] = {kCmaMaxCluster, 8};
+  for (const int cs : sizes) {
+    const size_t smem = cma_cluster_elems(n, cs) * sizeof(T);
+    if (smem > kMaxDynamicSmem) continue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cs);
+    cfg.blockDim = dim3(kCmaThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cs;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, cma_cluster_kernel<T>, &cfg) == cudaSuccess &&
+        clusters > 0) {
+      chosen = cs;
+      break;
+    }
+  }
+  cudaGetLastError();  // a refused size is not the launch's error
+  if (n < kCmaCacheN) cached[n] = chosen + 1;
+  return chosen;
+}
+
+// ---- the one-block kernel, for n that no cluster holds ----------------------
+
+// One block of kThreads runs everything: the four n x n Newton-Schulz
+// matrices in global scratch, one output entry per thread and step.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cma_block_kernel(const T* __restrict__ sigma_in, const T* __restrict__ dw,
+                     const T* __restrict__ ps_in, const T* __restrict__ pS_in,
+                     const T* __restrict__ svals, const T* __restrict__ ws,
+                     const T* __restrict__ sigma_s_in, int n, int k, CmaConsts c, double it,
+                     double jitter, int guards, int ns_its, int update_chol,
+                     T* __restrict__ work, T* __restrict__ chol_out, T* __restrict__ sigma_out,
+                     T* __restrict__ ps_out, T* __restrict__ pS_out, T* __restrict__ sig_out) {
+  __shared__ T red[32];
+  const int nn = n * n;
+  T* y = work;
+  T* z = y + nn;
+  T* t = z + nn;
+  T* w = t + nn;
+  T* p_sig = w + nn;  // (n,)
+  T* p_Sig = p_sig + n;  // (n,)
+  T* cdw = p_Sig + n;    // (n,)
+  CMA_STAMP_START();
+
+  // C = Sigma^-1/2 by coupled Newton-Schulz: Y -> (Sigma/s)^1/2, Z -> (Sigma/s)^-1/2
+  T d = T(0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) d += sigma_in[i * n + i];
+  const T s_tr = mpopis::block_sum(d, red);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    y[idx] = sigma_in[idx] / s_tr;
+    z[idx] = idx / n == idx % n ? T(1) : T(0);
+  }
+  __syncthreads();
+  CMA_STAMP(kCmaSetup);
+  for (int step = 0; step < ns_its; ++step) {
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {  // t = 1.5 I - 0.5 z y
+      const int i = idx / n;
+      const int j = idx % n;
+      T acc = T(0);
+      for (int q = 0; q < n; ++q) acc += z[i * n + q] * y[q * n + j];
+      t[idx] = (i == j ? T(1.5) : T(0)) - T(0.5) * acc;
+    }
+    __syncthreads();
+    CMA_STAMP(kCmaStageT);
+    mpopis::block_matmul(y, t, w, n);  // y <- y t
+    T* tmp = y;
+    y = w;
+    w = tmp;
+    mpopis::block_matmul(t, z, w, n);  // z <- t z
+    tmp = z;
+    z = w;
+    w = tmp;
+    CMA_STAMP(kCmaStageYZ);
+  }
+  const T sqrt_s = sqrt(s_tr);
+  T c2 = T(0);
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+    const T cij = z[idx] / sqrt_s;
+    z[idx] = cij;
+    c2 += cij * cij;
+  }
+  const T norm_c2 = mpopis::block_sum(c2, red);  // also orders the writes to z
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    T c_dw = T(0);
+    for (int j = 0; j < n; ++j) c_dw += z[i * n + j] * dw[j];
+    cdw[i] = c_dw;
+  }
+  __syncthreads();
+  CMA_STAMP(kCmaScale);
+  cma_tail(sigma_in, dw, ps_in, pS_in, svals, ws, *sigma_s_in, n, k, c, it, jitter, guards,
+           update_chol, cdw, norm_c2, p_sig, p_Sig, w, red, chol_out, sigma_out, ps_out, pS_out,
+           sig_out);
+}
+
+// Global scratch (elements) of either kernel: the cluster kernel's five whole
+// matrices (n x ld), or the one-block kernel's four (n x n) and three vectors.
+size_t cma_work_elems(int n) {
+  return std::max(5 * static_cast<size_t>(n) * cma_ld(n),
+                  4 * static_cast<size_t>(n) * n + 3 * n);
+}
 
 template <typename T>
 int cma_launch(const void* sigma, const void* dw, const void* ps, const void* pS,
@@ -450,21 +843,45 @@ int cma_launch(const void* sigma, const void* dw, const void* ps, const void* pS
                void* pS_out, void* sig_out, void* stream) {
   if (n < 1 || k < 1 || ns_its < 0) return static_cast<int>(cudaErrorInvalidValue);
   const CmaConsts c{consts[0], consts[1], consts[2], consts[3], consts[4], consts[5], consts[6]};
-  const size_t bytes = cma_work_elems(n) * sizeof(T);
-  const int in_smem = bytes <= kMaxDynamicSmem;
-  const size_t smem = in_smem ? bytes : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* a_sigma = static_cast<const T*>(sigma);
+  const T* a_dw = static_cast<const T*>(dw);
+  const T* a_ps = static_cast<const T*>(ps);
+  const T* a_pS = static_cast<const T*>(pS);
+  const T* a_sv = static_cast<const T*>(svals);
+  const T* a_ws = static_cast<const T*>(ws);
+  const T* a_sig = static_cast<const T*>(sigma_s);
+  T* o_chol = static_cast<T*>(chol);
+  T* o_sigma = static_cast<T*>(sigma_out);
+  T* o_ps = static_cast<T*>(ps_out);
+  T* o_pS = static_cast<T*>(pS_out);
+  T* o_sig = static_cast<T*>(sig_out);
+  const int cs = cma_cluster_size<T>(n);
+  if (cs == 0) {
+    cma_block_kernel<T><<<1, kThreads, 0, s>>>(a_sigma, a_dw, a_ps, a_pS, a_sv, a_ws, a_sig, n,
+                                               k, c, it, jitter, guards, ns_its, update_chol,
+                                               static_cast<T*>(scratch), o_chol, o_sigma, o_ps,
+                                               o_pS, o_sig);
+    return static_cast<int>(cudaGetLastError());
   }
-  cma_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(sigma), static_cast<const T*>(dw), static_cast<const T*>(ps),
-      static_cast<const T*>(pS), static_cast<const T*>(svals), static_cast<const T*>(ws),
-      static_cast<const T*>(sigma_s), n, k, c, it, jitter, guards, ns_its, update_chol, in_smem,
-      static_cast<T*>(scratch), static_cast<T*>(chol), static_cast<T*>(sigma_out),
-      static_cast<T*>(ps_out), static_cast<T*>(pS_out), static_cast<T*>(sig_out));
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(kCmaThreads);
+  cfg.dynamicSmemBytes = cma_cluster_elems(n, cs) * sizeof(T);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, cma_cluster_kernel<T>, a_sigma, a_dw, a_ps, a_pS, a_sv, a_ws, a_sig, n, k, c, it,
+      jitter, guards, ns_its, update_chol, cma_band_rows(n, cs), cma_ld(n),
+      static_cast<T*>(scratch), o_chol, o_sigma,
+      o_ps, o_pS, o_sig);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -477,6 +894,12 @@ long long ais_refit_scratch_elems(int n, int k) {
 }
 
 long long ais_cma_scratch_elems(int n) { return static_cast<long long>(cma_work_elems(n)); }
+
+// The CMA kernel's cluster size for n (16 or 8 blocks), or 0 where it runs on
+// one block from global memory.
+int ais_cma_cluster_size(int n, int f64) {
+  return f64 ? cma_cluster_size<double>(n) : cma_cluster_size<float>(n);
+}
 
 int ais_num_cma_consts() { return 7; }
 

@@ -64,6 +64,8 @@ def _lib():
         lib.ais_cma_scratch_elems.argtypes = [i32]
         lib.ais_cma_scratch_elems.restype = ctypes.c_longlong
         lib.ais_num_cma_consts.restype = ctypes.c_int
+        lib.ais_cma_cluster_size.argtypes = [i32, i32]
+        lib.ais_cma_cluster_size.restype = ctypes.c_int
         if lib.ais_num_cma_consts() != len(CMA_CONSTS):
             raise RuntimeError("ais_update.cu and its wrapper disagree on the interface")
         _FNS["lib"] = lib
@@ -270,6 +272,14 @@ def weighted_refit_chol(e, w, mu, corrected: bool = False, jitter: float = 1e-8)
                         corrected)
     WEIGHTED_LAUNCHES += 1
     return out
+
+
+def cma_cluster_size(n: int, dtype: torch.dtype) -> int:
+    """The blocks of the cluster the CMA kernel runs an n x n update on in
+    `dtype` (16, or 8 where the card does not schedule 16), or 0 where no
+    cluster holds n in shared memory and one block runs it from global
+    memory. Asks the card."""
+    return int(_lib()["lib"].ais_cma_cluster_size(n, int(dtype == torch.float64)))
 
 
 def cma_update_chol(Sigma, dw, p_sigma, p_Sigma, svals, ws, sigma_s, it_f, consts_t, jitter,

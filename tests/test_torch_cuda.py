@@ -76,6 +76,54 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         car_rollout.car_rollout_costs_tak(env, x0, ctrl.transpose(0, 2)[:5], 5)
 
 
+class _Cars(CarRacingEnv):
+    """The car environment seen by the kernel as `num_cars` jointly controlled
+    cars (set per subclass)."""
+
+    num_cars = 1
+
+
+CAR_ENVS = {n: type(f"_Cars{n}", (_Cars,), {"num_cars": n}) for n in (1, 2, 3, 4)}
+
+
+def _car_start(num_cars, device, dtype):
+    """The reset's car, the others 5 m apart along x."""
+    x = np.zeros(8 * num_cars)
+    for c in range(num_cars):
+        x[8 * c : 8 * c + 4] = (5.0 * c, 0.0, np.pi / 2, 10.0)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num_cars", [1, 2, 3, 4])
+def test_car_kernel_car_counts_and_partial_blocks(cuda_device, num_cars, dtype):
+    """Every car count, at K = 1 and at K not a multiple of the block's 32
+    samples (33, 97), T = 6: float32 at the JAX kernel tests' rtol 2e-4 /
+    atol 2e-3 (atol 2e-2 with several cars, as the JAX multi-car test),
+    float64 sample by sample at 1e-9 or within 10x the plain version's own
+    spread (_hold_f64)."""
+    env = CAR_ENVS[num_cars](dtype=dtype, device=cuda_device)
+    x0 = _car_start(num_cars, cuda_device, dtype)
+
+    def ref(e, x, u):
+        return car_rollout.car_rollout_costs_tak_reference(e, x, u, u.shape[0])
+
+    for k in (1, 33, 97):
+        ctrl = torch.as_tensor(
+            np.random.default_rng(k + num_cars).uniform(-1, 1, size=(6, 2 * num_cars, k)),
+            dtype=dtype, device=cuda_device)
+        before = car_rollout.LAUNCHES
+        got = car_rollout.car_rollout_costs_tak(env, x0, ctrl, 6)
+        assert car_rollout.LAUNCHES == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == (k,)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.cpu().numpy(), ref(env, x0, ctrl).cpu().numpy(),
+                                       rtol=2e-4, atol=2e-3 if num_cars == 1 else 2e-2)
+        else:
+            _hold_f64(env, x0, ctrl, got, ref=ref)
+
+
 PLANAR = {"cheetah": CheetahDeviceEnv, "hopper": HopperDeviceEnv, "walker2d": Walker2dDeviceEnv}
 LOWERED = {"cheetah": -0.35, "hopper": 1.15, "walker2d": 1.17}  # x[1]: contacts fire at once
 
@@ -765,6 +813,52 @@ def test_cma_kernel_matches_plain_version(cuda_device, dtype, update_chol):
     want = ais_update.cma_update_chol_reference(*args, 3.0, consts_t, 1e-8,
                                                 update_chol=update_chol)
     for g_, w_ in zip(got, want):
+        _ais_close(g_, w_, "cma", dtype)
+
+
+def _cma_args(n, k, device, dtype, seed=3):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn((n, n), generator=g, dtype=torch.float64) * 0.05
+    consts = CMAStrategy.constants(k, n, 0.8)
+    args = [a @ a.T + 0.3 * torch.eye(n, dtype=torch.float64),
+            torch.randn(n, generator=g, dtype=torch.float64) * 0.3,
+            torch.randn(n, generator=g, dtype=torch.float64) * 0.5,
+            torch.randn(n, generator=g, dtype=torch.float64) * 0.1,
+            torch.randn(k, generator=g, dtype=torch.float64),
+            torch.as_tensor(consts["ws"]), torch.tensor(0.8, dtype=torch.float64)]
+    consts_t = tuple(sorted((name, float(consts[name])) for name in ais_update.CMA_CONSTS))
+    return [t.to(device=device, dtype=dtype) for t in args], consts_t
+
+
+def _cma_largest_cluster_n(dtype):
+    """The largest n that the CMA kernel's cluster holds in shared memory on
+    this card (the kernel runs n + 1 on one block from global memory)."""
+    n = 64
+    while ais_update.cma_cluster_size(n + 1, dtype) > 0:
+        n += 1
+    assert ais_update.cma_cluster_size(n, dtype) > 0
+    return n
+
+
+@pytest.mark.parametrize("update_chol", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 31, 33, 100, 136, "largest", "largest+1"])
+def test_cma_kernel_sizes_match_plain_version(cuda_device, n, dtype, update_chol):
+    """The CMA kernel at the panel edges (31, 33), the car's n = 100, the
+    Humanoid's 136, and the largest n whose bands and staging fit the
+    cluster's shared memory and the next n (one block from global memory):
+    float32 at the JAX kernel tests' tolerance, float64 at 1e-9 relative."""
+    if isinstance(n, str):
+        n = _cma_largest_cluster_n(dtype) + (n == "largest+1")
+    k = 2048
+    args, consts_t = _cma_args(n, k, cuda_device, dtype, seed=n)
+    before = ais_update.CMA_LAUNCHES
+    got = ais_update.cma_update_chol(*args, 3.0, consts_t, 1e-8, update_chol=update_chol)
+    assert ais_update.CMA_LAUNCHES == before + 1
+    want = ais_update.cma_update_chol_reference(*args, 3.0, consts_t, 1e-8,
+                                                update_chol=update_chol)
+    for g_, w_ in zip(got, want):
+        assert bool(torch.all(torch.isfinite(g_)))
         _ais_close(g_, w_, "cma", dtype)
 
 
