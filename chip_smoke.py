@@ -756,6 +756,8 @@ def _ais_path(card: str) -> list:
     print("phase 11: the CMA kernel's cluster (blocks; 0: one block from global memory): " +
           ", ".join(f"n={size} {str(dt)[6:]} {ais_update.cma_cluster_size(size, dt)}"
                     for size in (n, 136) for dt in (torch.float32, torch.float64)))
+    _require(ais_update.cma_cluster_size(n, torch.float32) > 0,
+             f"the CMA kernel runs n={n} float32 on one block, not on its cluster")
 
     # -- phase 12: each kernel against its plain version ---------------------
     t_phase = time.perf_counter()

@@ -28,8 +28,8 @@
 //   :122), the jitter (_jitter_mat, :114) and the Cholesky (block_linalg.cuh).
 //   A and B (2 n^2 + 2 n values) sit in shared memory while they fit (n = 100:
 //   81 KB float, 162 KB double), else in global scratch.
-// - CMA (cma_cluster_kernel): a cluster of 16 blocks (8 where the card does
-//   not schedule 16) of 416 threads. Block r owns a band of rows of the
+// - CMA (cma_cluster_kernel): a cluster of 16 blocks of 416 threads (a
+//   card that cannot schedule it fails the launch). Block r owns a band of rows of the
 //   Newton-Schulz matrices y, z and t. Each of the 20 steps is two stages,
 //   each ended by one cluster barrier: t = 1.5 I - 0.5 z y, then y t and t z
 //   together (where the one-block kernel before ran three products behind
@@ -435,27 +435,13 @@ __device__ void cma_tail(const T* __restrict__ sigma_in, const T* __restrict__ d
 
 // ---- the cluster kernel ----------------------------------------------------
 
-constexpr int kCmaThreads = 416;     // a block of the cluster kernel: 13 warps
-#ifndef CMA_MAX_CLUSTER
-#define CMA_MAX_CLUSTER 16
-#endif
-constexpr int kCmaMaxCluster = CMA_MAX_CLUSTER;  // 16 where the card allows, else 8
-constexpr int kCmaCacheN = 257;      // the cluster size chosen is kept for n < this
+constexpr int kCmaThreads = 416;  // a block of the cluster kernel: 13 warps
+constexpr int kCmaCluster = 16;   // blocks of the cluster (non-portable size)
 
-// The register tile of the band products: kTileRows rows x kTileCols
-// columns of the band a thread, the q loop unrolled kTileUnroll times.
-#ifndef CMA_TILE_ROWS
-#define CMA_TILE_ROWS 4
-#endif
-#ifndef CMA_TILE_COLS
-#define CMA_TILE_COLS 1
-#endif
-#ifndef CMA_TILE_UNROLL
-#define CMA_TILE_UNROLL 4
-#endif
-constexpr int kTileRows = CMA_TILE_ROWS;
-constexpr int kTileCols = CMA_TILE_COLS;
-constexpr int kTileUnroll = CMA_TILE_UNROLL;
+// The register tile of the band products: kTileRows rows of one column of
+// the band a thread, the q loop unrolled kTileUnroll times.
+constexpr int kTileRows = 4;
+constexpr int kTileUnroll = 4;
 
 // Row stride of the cluster kernel's matrices: n rounded up to 4 values, so
 // that a row holds whole 4-wide groups and starts 16-byte aligned.
@@ -465,31 +451,28 @@ int cma_ld(int n) { return (n + 3) / 4 * 4; }
 // kernel's shared memory (elements): two ld x ld staging matrices, the bands
 // of y (two), z (two) and t, then C dw, p_sigma, p_Sigma and the blocks'
 // parts of ||C||^2.
-int cma_band_rows(int n, int csize) { return (n + csize - 1) / csize; }
-size_t cma_cluster_elems(int n, int csize) {
+int cma_band_rows(int n) { return (n + kCmaCluster - 1) / kCmaCluster; }
+size_t cma_cluster_elems(int n) {
   const size_t ld = cma_ld(n);
-  const size_t rbp = (cma_band_rows(n, csize) + kTileRows - 1) / kTileRows * kTileRows;
-  return 2 * ld * ld + 5 * rbp * ld + 3 * static_cast<size_t>(n) + kCmaMaxCluster;
+  const size_t rbp = (cma_band_rows(n) + kTileRows - 1) / kTileRows * kTileRows;
+  return 2 * ld * ld + 5 * rbp * ld + 3 * static_cast<size_t>(n) + kCmaCluster;
 }
 
-// out[r * ld + c] (r < rows, c < kTileCols) = sum over q of a[r * ld + q]
-// b[q * ld + c]: kTileRows band rows of kTileCols output columns, q in
-// ascending order for each output (the one-output-per-thread products'
-// order; the padding past n adds zeros at the end), a's rows read 16 bytes
-// at a time (broadcasts: the threads of a warp share the rows), b's columns
-// a value a row (the warp's threads on consecutive columns). kT: t = 1.5 I -
-// 0.5 (a . b), the entry (r, c) on the diagonal where diag + r == c. The
-// rows also go to gout, this block's rows of the whole matrix.
+// out[r * ld] (r < rows) = sum over q of a[r * ld + q] b[q * ld]: kTileRows
+// band rows of one output column, q in ascending order for each output (the
+// one-output-per-thread products' order; the padding past n adds zeros at
+// the end), a's rows read 16 bytes at a time (broadcasts: the threads of a
+// warp share the rows), b's column a value a row (the warp's threads on
+// consecutive columns). kT: t = 1.5 I - 0.5 (a . b), the entry r on the
+// diagonal where diag + r == 0. The rows also go to gout, this block's rows
+// of the whole matrix.
 template <typename T, bool kT>
 __device__ __forceinline__ void col_tile(const T* __restrict__ a, const T* __restrict__ b,
                                          T* out, T* __restrict__ gout, int ld, int rows,
                                          int diag) {
-  T acc[kTileRows][kTileCols];
+  T acc[kTileRows];
 #pragma unroll
-  for (int r = 0; r < kTileRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < kTileCols; ++c) acc[r][c] = T(0);
-  }
+  for (int r = 0; r < kTileRows; ++r) acc[r] = T(0);
 #pragma unroll kTileUnroll
   for (int q = 0; q < ld; q += 4) {
     T av[kTileRows][4];
@@ -498,44 +481,33 @@ __device__ __forceinline__ void col_tile(const T* __restrict__ a, const T* __res
       mpopis::load16<T, true>(a + r * ld + q, av[r]);
       if constexpr (sizeof(T) == 8) mpopis::load16<T, true>(a + r * ld + q + 2, av[r] + 2);
     }
-    T bv[4][kTileCols];
+    T bv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bv[e] = b[(q + e) * ld];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
 #pragma unroll
-      for (int c = 0; c < kTileCols; ++c) bv[e][c] = b[(q + e) * ld + c];
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int r = 0; r < kTileRows; ++r) {
-#pragma unroll
-        for (int c = 0; c < kTileCols; ++c) acc[r][c] += av[r][e] * bv[e][c];
-      }
+      for (int r = 0; r < kTileRows; ++r) acc[r] += av[r][e] * bv[e];
     }
   }
 #pragma unroll
   for (int r = 0; r < kTileRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < kTileCols; ++c) {
-      if (kT) acc[r][c] = (diag + r == c ? T(1.5) : T(0)) - T(0.5) * acc[r][c];
-      if (r < rows) {
-        out[r * ld + c] = acc[r][c];
-        gout[r * ld + c] = acc[r][c];
-      }
+    if (kT) acc[r] = (diag + r == 0 ? T(1.5) : T(0)) - T(0.5) * acc[r];
+    if (r < rows) {
+      out[r * ld] = acc[r];
+      gout[r * ld] = acc[r];
     }
   }
 }
 
 // The band product out = a . b for this block's rows: a band (rbp rows), b a
-// staged ld x ld matrix, one thread a tile of kTileRows rows and kTileCols
-// columns; the rows go to the band `out` and to this block's rows of the
+// staged ld x ld matrix, one thread a tile of kTileRows rows of a column; the rows go to the band `out` and to this block's rows of the
 // whole matrix g.
 template <typename T, bool kT>
 __device__ __forceinline__ void band_item(int item, const T* a, const T* b, T* out, T* g,
                                           int ld, int rows, int row0) {
-  const int groups = ld / kTileCols;
-  const int grp = item / groups;
-  const int j = (item - grp * groups) * kTileCols;
+  const int grp = item / ld;
+  const int j = item - grp * ld;
   const int r0 = kTileRows * grp;
   col_tile<T, kT>(a + r0 * ld, b + j, out + r0 * ld + j, g + (row0 + r0) * ld + j, ld,
                   rows - r0, row0 + r0 - j);
@@ -626,7 +598,7 @@ __global__ void __launch_bounds__(kCmaThreads)
   T* gt = work + 4 * full;
   const int row0 = rank * rb;
   const int rows = max(0, min(rb, n - row0));
-  const int items = rbp / kTileRows * (ld / kTileCols);  // a product's register tiles
+  const int items = rbp / kTileRows * ld;  // a product's register tiles
   CMA_STAMP_START();
 
   // y = Sigma / s, z = I on this block's rows; zeros past n, and in the
@@ -710,48 +682,29 @@ __global__ void __launch_bounds__(kCmaThreads)
            sig_out);
 }
 
-// The cluster size for n in T, 0 where no cluster holds n (the one-block
-// kernel then runs from global memory): 16 where the card schedules a
-// cluster of 16 blocks of that shared memory, else 8. Kept for n <
-// kCmaCacheN.
+// The cluster size for n in T: kCmaCluster where the cluster's shared
+// memory holds n, else 0 (the one-block kernel then runs from global
+// memory). Decided from the size alone.
 template <typename T>
 int cma_cluster_size(int n) {
-  static int cached[kCmaCacheN];
-  if (n < kCmaCacheN && cached[n]) return cached[n] - 1;
-  // the kernel may take all the shared memory a block can have, at any n
-  if (cudaFuncSetAttribute(cma_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kMaxDynamicSmem)) != cudaSuccess ||
-      cudaFuncSetAttribute(cma_cluster_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                           1) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  int chosen = 0;
-  const int sizes[2] = {kCmaMaxCluster, 8};
-  for (const int cs : sizes) {
-    const size_t smem = cma_cluster_elems(n, cs) * sizeof(T);
-    if (smem > kMaxDynamicSmem) continue;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cs);
-    cfg.blockDim = dim3(kCmaThreads);
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = cs;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, cma_cluster_kernel<T>, &cfg) == cudaSuccess &&
-        clusters > 0) {
-      chosen = cs;
-      break;
-    }
-  }
-  cudaGetLastError();  // a refused size is not the launch's error
-  if (n < kCmaCacheN) cached[n] = chosen + 1;
-  return chosen;
+  return cma_cluster_elems(n) * sizeof(T) <= kMaxDynamicSmem ? kCmaCluster : 0;
+}
+
+// Lets the cluster kernel take all the shared memory a block can have and a
+// cluster of 16 blocks; set once a process.
+template <typename T>
+cudaError_t cma_cluster_attributes() {
+  static bool set = false;
+  if (set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      cma_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxDynamicSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cma_cluster_kernel<T>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) cudaGetLastError();  // returned here, not left for the next launch
+  set = err == cudaSuccess;
+  return err;
 }
 
 // ---- the one-block kernel, for n that no cluster holds ----------------------
@@ -856,29 +809,30 @@ int cma_launch(const void* sigma, const void* dw, const void* ps, const void* pS
   T* o_ps = static_cast<T*>(ps_out);
   T* o_pS = static_cast<T*>(pS_out);
   T* o_sig = static_cast<T*>(sig_out);
-  const int cs = cma_cluster_size<T>(n);
-  if (cs == 0) {
+  if (cma_cluster_size<T>(n) == 0) {
     cma_block_kernel<T><<<1, kThreads, 0, s>>>(a_sigma, a_dw, a_ps, a_pS, a_sv, a_ws, a_sig, n,
                                                k, c, it, jitter, guards, ns_its, update_chol,
                                                static_cast<T*>(scratch), o_chol, o_sigma, o_ps,
                                                o_pS, o_sig);
     return static_cast<int>(cudaGetLastError());
   }
+  const cudaError_t attr_err = cma_cluster_attributes<T>();
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs);
+  cfg.gridDim = dim3(kCmaCluster);
   cfg.blockDim = dim3(kCmaThreads);
-  cfg.dynamicSmemBytes = cma_cluster_elems(n, cs) * sizeof(T);
+  cfg.dynamicSmemBytes = cma_cluster_elems(n) * sizeof(T);
   cfg.stream = s;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.x = kCmaCluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, cma_cluster_kernel<T>, a_sigma, a_dw, a_ps, a_pS, a_sv, a_ws, a_sig, n, k, c, it,
-      jitter, guards, ns_its, update_chol, cma_band_rows(n, cs), cma_ld(n),
+      jitter, guards, ns_its, update_chol, cma_band_rows(n), cma_ld(n),
       static_cast<T*>(scratch), o_chol, o_sigma,
       o_ps, o_pS, o_sig);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
@@ -895,8 +849,8 @@ long long ais_refit_scratch_elems(int n, int k) {
 
 long long ais_cma_scratch_elems(int n) { return static_cast<long long>(cma_work_elems(n)); }
 
-// The CMA kernel's cluster size for n (16 or 8 blocks), or 0 where it runs on
-// one block from global memory.
+// The CMA kernel's cluster size for n (16 blocks), or 0 where it runs on one
+// block from global memory.
 int ais_cma_cluster_size(int n, int f64) {
   return f64 ? cma_cluster_size<double>(n) : cma_cluster_size<float>(n);
 }

@@ -22,8 +22,8 @@
 //   the action step yet (a sample braking at rest flips it every substep:
 //   the two signs' forces are both kept);
 // - the selections (in range or saturated, the sign past +-pi) are selects,
-//   and in float the tire's quotient is the reciprocal's (c_div), so that a
-//   substep is one stretch of code without branches but the sign's;
+//   so that a substep has no branch but the sign's and the IEEE quotient's
+//   slow path;
 // - delta advances by the constant delta_dot dt of the action step, so
 //   (sin delta, cos delta) is rotated by (sin, cos) of that step;
 // - the heading enters only through (sin psi, cos psi): the plain version's
@@ -108,18 +108,6 @@ CAR_HD void c_sincos(double x, double* s, double* c) {
 #else
   *s = sin(x);
   *c = cos(x);
-#endif
-}
-
-// a / b: IEEE division in double and on the host; on the card in float the
-// reciprocal's quotient (__fdividef, within 2 ulp for |b| in [2^-126, 2^126]),
-// which has no slow-path branch to split the substep's code
-CAR_HD double c_div(double a, double b) { return a / b; }
-CAR_HD float c_div(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fdividef(a, b);
-#else
-  return a / b;
 #endif
 }
 
@@ -238,7 +226,7 @@ CAR_HD T slip_sign(T s, T cs, T y, T x) {
 // (27 fy_max^2), q = 3 fy_max / c_a.
 template <typename T>
 CAR_HD T tire_fy_sc(T s, T cs, T y, T x, T c_a, T k1, T k2, T q, T fy_max) {
-  const T ta = c_div(s, cs);
+  const T ta = s / cs;
   const T ata = c_abs(ta);
   const T cubic = -c_a * ta + k1 * ata * ta - k2 * (ta * ta * ta);
   const T saturated = -fy_max * slip_sign(s, cs, y, x);

@@ -26,7 +26,7 @@
 //   their components (a quotient a tire), the loads and tire coefficients
 //   cached per sign of vx, delta and the heading advanced as rotations, with
 //   identities exact up to rounding, and the substep written without
-//   branches but the sign's. A substep's chain from (vx, vy, psi_dot) to the
+//   branches but the sign's and the IEEE quotient's slow path. A substep's chain from (vx, vy, psi_dot) to the
 //   next is a few multiply-adds, the quotient and the tire's polynomial; the
 //   heading's sincos(psi_dot dt) and the position hang off it.
 // - The reward is taken off the chain (warp specialization): warp 0 of a
@@ -48,7 +48,7 @@
 //   and by its median relative error at the full one; float64 to 1e-9 of the
 //   plain version, or sample by sample within 10x the plain version's own
 //   spread under nudged inputs. Built without --use_fast_math.
-// - 0.123-0.130 ms at K=1 to 8192 and 0.161 at 16384 (T=50, one car;
+// - 0.145-0.154 ms at K=1 to 8192 and 0.176 at 16384 (T=50, one car;
 //   scripts/car_phase_times.py, H100 80GB HBM3, 700 W).
 
 // Interface: a plain C function per dtype, loaded with ctypes. It launches on

@@ -276,9 +276,9 @@ def weighted_refit_chol(e, w, mu, corrected: bool = False, jitter: float = 1e-8)
 
 def cma_cluster_size(n: int, dtype: torch.dtype) -> int:
     """The blocks of the cluster the CMA kernel runs an n x n update on in
-    `dtype` (16, or 8 where the card does not schedule 16), or 0 where no
-    cluster holds n in shared memory and one block runs it from global
-    memory. Asks the card."""
+    `dtype` (16), or 0 where the cluster's shared memory does not hold n and
+    one block runs it from global memory. Decided from n and the dtype's
+    size; a card that cannot schedule the cluster fails the launch."""
     return int(_lib()["lib"].ais_cma_cluster_size(n, int(dtype == torch.float64)))
 
 

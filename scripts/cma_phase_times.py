@@ -13,14 +13,12 @@ chip_smoke.py's phase-12 shapes (f32, K = 8192, iteration 3), holds it
 against the kernel, and times the kernel (kernels/ais_update.py) back to back.
 
     python scripts/cma_phase_times.py                       # n = 100
-    python scripts/cma_phase_times.py --n 100 136 --define CMA_TILE_ROWS=2
+    python scripts/cma_phase_times.py --n 100 136
     python scripts/cma_phase_times.py --source _export/parent/mpopis_tpu_torch/csrc/ais_update.cu
 
-`--define` builds the copy with a macro of the source (the cluster's
-largest size, the register tile); `--source` takes another copy of
-ais_update.cu (a parent's, unpacked under a directory that .gitignore lists,
-with its block_linalg.cuh beside it) with the same C interface. The copies are
-built under mpopis_tpu_torch/_build/phase_times/cma/ with the flags of
+`--source` takes another copy of ais_update.cu (a parent's, unpacked under a
+directory that .gitignore lists, with its block_linalg.cuh beside it) with
+the same C interface. The copies are built under mpopis_tpu_torch/_build/phase_times/cma/ with the flags of
 kernels/build.py; the kernel itself is not changed.
 """
 
@@ -81,17 +79,15 @@ def phase_names(source: Path) -> list[str]:
     return [n[4:].lower() for n in names[:-1]]
 
 
-def build_copy(source: Path, defines: list[str]) -> tuple[ctypes.CDLL, str]:
-    tag = hashlib.sha256(str(source.resolve()).encode()).hexdigest()[:8]
-    out = OUT / "_".join([tag] + [d.replace("=", "") for d in defines])
+def build_copy(source: Path) -> tuple[ctypes.CDLL, str]:
+    out = OUT / hashlib.sha256(str(source.resolve()).encode()).hexdigest()[:8]
     out.mkdir(parents=True, exist_ok=True)
     src = out / "ais_update.cu"
     src.write_text(PRELUDE + f'#include "{source.resolve()}"\n' + SETUP)
     so = out / "libais_update_phases.so"
     log = out / "build.log"
     if not (so.exists() and log.exists() and so.stat().st_mtime > source.stat().st_mtime):
-        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
-               str(so), str(src)]
+        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
@@ -132,16 +128,13 @@ def main() -> None:
     ap.add_argument("--k", type=int, default=8192)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--build-only", action="store_true",
-                    help="build the copy (kept for the next run with the same macros) and stop")
-    ap.add_argument("--define", action="append", default=[], metavar="NAME=VALUE",
-                    help="a macro of the copy's build: CMA_MAX_CLUSTER (the largest cluster "
-                    "the kernel tries), CMA_TILE_ROWS, CMA_TILE_COLS, CMA_TILE_UNROLL")
+                    help="build the copy (kept for the next run of the same source) and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("cma_phase_times: needs a CUDA card")
-    print(card(), "| source", args.source, "| defines", " ".join(args.define) or "none")
+    print(card(), "| source", args.source)
     names = phase_names(args.source)
-    lib, log = build_copy(args.source, args.define)
+    lib, log = build_copy(args.source)
     if args.build_only:
         return
     for line in log.splitlines():

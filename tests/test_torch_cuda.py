@@ -831,8 +831,8 @@ def _cma_args(n, k, device, dtype, seed=3):
 
 
 def _cma_largest_cluster_n(dtype):
-    """The largest n that the CMA kernel's cluster holds in shared memory on
-    this card (the kernel runs n + 1 on one block from global memory)."""
+    """The largest n that the CMA kernel's cluster holds in shared memory
+    (the kernel runs n + 1 on one block from global memory)."""
     n = 64
     while ais_update.cma_cluster_size(n + 1, dtype) > 0:
         n += 1
