@@ -116,6 +116,19 @@ __device__ T clip_nan(T x, T lo, T hi) {
 // refit
 // ---------------------------------------------------------------------------
 
+// Phase stamps of the refit (scripts/refit_phase_times.py): the script builds
+// a copy with REFIT_STAMP defined; otherwise a stamp is nothing. The moments
+// launch is one span over all its blocks (the first entry to the last exit);
+// the finalize block charges it, and the gap to its own start, on entry.
+enum RefitPhase { kRefitMoments, kRefitGap, kRefitSlots, kRefitShrink, kRefitJitter, kRefitFactor,
+                  kRefitPhases };
+#ifndef REFIT_STAMP
+#define REFIT_STAMP(phase) ((void)0)
+#define REFIT_SPAN_ENTER() ((void)0)
+#define REFIT_SPAN_EXIT() ((void)0)
+#define REFIT_STAMP_SPAN(span, gap) ((void)0)
+#endif
+
 template <typename T>
 __global__ void __launch_bounds__(kTile * kTile)
     refit_moments_kernel(const T* __restrict__ e, const T* __restrict__ w,
@@ -130,6 +143,7 @@ __global__ void __launch_bounds__(kTile * kTile)
   const int k_end = min(k, k_begin + kSplit);
   const int tx = threadIdx.x % kTile;
   const int ty = threadIdx.x / kTile;
+  REFIT_SPAN_ENTER();
   T acc_a = T(0);
   T acc_b = T(0);
   for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
@@ -166,6 +180,7 @@ __global__ void __launch_bounds__(kTile * kTile)
     part[(2 * split) * nn + i * n + j] = acc_a;
     if (need_b) part[(2 * split + 1) * nn + i * n + j] = acc_b;
   }
+  REFIT_SPAN_EXIT();
 }
 
 // sigma (in a) from the moment sums a, b over m samples: _shrink_finalize.
@@ -278,6 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   T* b = a + nn;
   T* vec = b + nn;
   const int need_b = method == kLw || method == kSs;
+  REFIT_STAMP_SPAN(kRefitMoments, kRefitGap);
   for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
     T sa = T(0), sb = T(0);
     for (int s = 0; s < splits; ++s) {
@@ -288,6 +304,7 @@ __global__ void __launch_bounds__(kThreads)
     b[idx] = sb;
   }
   __syncthreads();
+  REFIT_STAMP(kRefitSlots);
   if (method == kWeighted) {
     if (corrected) {
       const T c = T(m / (m - 1.0));
@@ -297,8 +314,11 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     shrink_finalize(a, b, vec, n, m, method, red);
   }
+  REFIT_STAMP(kRefitShrink);
   mpopis::block_jitter(a, n, jitter, eps_of(T()), red);
+  REFIT_STAMP(kRefitJitter);
   mpopis::block_cholesky(a, n, n, l_out);
+  REFIT_STAMP(kRefitFactor);
 }
 
 size_t refit_work_elems(int n) { return 2 * static_cast<size_t>(n) * n + 2 * n; }
