@@ -23,8 +23,9 @@ them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
   nudge of its controls), the f64 CEMPPI step through the kernel against
   the plain path, `simulate_mujoco_on_device` for the three tasks (HalfCheetah at
   K=2048, H=15, 3 AIS iterations, `mle`, λ=0.1), and the timings;
-- phases 11-15, the policy layer: the CMA kernel's cluster size, the
-  AIS-update kernels (masked and weighted refit, CMA tail) and the
+- phases 11-15, the policy layer: the CMA and refit kernels' cluster
+  sizes and layouts, the AIS-update kernels (masked and weighted refit,
+  CMA tail) and the
   Cholesky and forward-solve kernels
   against their plain versions (float32 at the JAX kernel tests'
   tolerances, float64 at 1e-9 relative; the last two at n = 1, 31, 32,
@@ -758,6 +759,12 @@ def _ais_path(card: str) -> list:
                     for size in (n, 136) for dt in (torch.float32, torch.float64)))
     _require(ais_update.cma_cluster_size(n, torch.float32) > 0,
              f"the CMA kernel runs n={n} float32 on one block, not on its cluster")
+    print(f"phase 11: the refit kernels' cluster at K={K} (blocks, where the partial moments "
+          f"and the factor sit): " +
+          ", ".join(f"n={size} {str(dt)[6:]} {ais_update.refit_layout(size, K, dt)}"
+                    for size in (n, 136) for dt in (torch.float32, torch.float64)))
+    _require(ais_update.refit_layout(n, K, torch.float32) == (16, "shared"),
+             f"the refit kernels do not run n={n} float32 on a cluster in shared memory")
 
     # -- phase 12: each kernel against its plain version ---------------------
     t_phase = time.perf_counter()

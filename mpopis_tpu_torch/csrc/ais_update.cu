@@ -7,27 +7,37 @@
 //   launched at :265 by _refit_call: L = chol(jitter(estimate)) of the masked
 //   elite columns of E (CEMPPI, five estimators) or of the probability-
 //   weighted columns (muSigma-AIS, and PMC with its K/(K-1) correction). The
-//   two share one call site and one finalize step, and here one kernel pair.
+//   two share one call site and one finalize step, and here one kernel.
 // - _cma_kernel (:329), launched at :471 by cma_update_chol: Sigma^-1/2 by 20
 //   coupled Newton-Schulz steps, the evolution paths, the guarded step size,
 //   h_sigma, the scalar rank-mu term over K, the symmetrization from the upper
 //   triangle, jitter and sigma * chol.
 //
 // Design
-// - Refit, launch 1 (refit_moments_kernel): A = Xl Xr^T and, for `lw`/`ss`,
-//   B = (Xl o Xl)(Xr o Xr)^T over the K sample columns, with Xl = (E - mu) w
-//   and Xr = (E - mu) w for the 0/1 elite mask, Xr = E - mu for the weighted
-//   refit. The grid spreads 16 x 16 output tiles over the K splits of 512
-//   samples; each block stages 32-sample chunks of its rows and columns in
-//   shared memory, and writes its partial sums to its own slot of a scratch
-//   buffer. The TPU kernel's 2048-column chunking and zero padding existed for
-//   VMEM: here the last chunk is masked instead.
-// - Refit, launch 2 (refit_finalize_kernel), one block: sums the partial slots
-//   in split order (no atomics, so double repeats bit for bit), applies the
-//   estimator in the TPU kernel's standardization-free form (_shrink_finalize,
-//   :122), the jitter (_jitter_mat, :114) and the Cholesky (block_linalg.cuh).
-//   A and B (2 n^2 + 2 n values) sit in shared memory while they fit (n = 100:
-//   81 KB float, 162 KB double), else in global scratch.
+// - Refit (refit_cluster_kernel): one launch of a cluster of 16 blocks of
+//   384 threads (a card that cannot schedule it fails the launch). Each
+//   block ballots the K mask entries or weights 32 at a time and lists its
+//   equal share of the columns that count, in ascending order: the m elite
+//   columns of CEMPPI's mask, the nonzero weights of PMC's counts (~63% of
+//   K), every column of muSigma-AIS's weights. It gathers those columns of
+//   E by cp.async, 32 at a time a lane each, two stages in flight, centres
+//   and weights them in shared memory, and adds their products to its
+//   partial moments: only the lower triangle of A = Xl Xr^T (and, lw/ss,
+//   B = (Xl o Xl)(Xr o Xr)^T), in 4 x 4 register tiles a thread (two
+//   16-byte loads for 16 multiply-adds, where the kernel pair before took
+//   two loads for one), each chunk summed in registers and added to the
+//   partial. A cluster barrier; each block sums a slice of the tiles over
+//   the 16 partials in rank order (distributed shared memory; no atomics,
+//   so double repeats bit for bit), writes it into block 0's factor buffer
+//   and its part of the estimator's two sums into block 0's slots. A second
+//   barrier; block 0 alone forms the estimate and its jitter in place (the
+//   per-entry math of refit_math.cuh, which the host check builds with
+//   g++) and factors it with block_linalg.cuh at 384 threads, where the
+//   diagonal blocks do not spill. Partials and factor sit in shared memory
+//   where they fit (n = 100 both dtypes, 136 in float), else in global
+//   scratch and the output (n = 136 in double: A and B alone are 296 KB).
+//   The TPU kernel's 2048-column chunking and zero padding existed for
+//   VMEM; its masked columns are multiplied by zero, here they are skipped.
 // - CMA (cma_cluster_kernel): a cluster of 16 blocks of 416 threads (a
 //   card that cannot schedule it fails the launch). Block r owns a band of rows of the
 //   Newton-Schulz matrices y, z and t. Each of the 20 steps is two stages,
@@ -47,26 +57,21 @@
 //   1024 threads from global scratch (cma_block_kernel), one output entry
 //   per thread and step. Full precision, no tensor cores.
 //
-// What bounds them on an H100: at the headline (n = 100, K = 8192) the
-// refit's moments are 2 n^2 K = 164 MFLOP each (A, and B for lw/ss), ~2.4 us
-// at the 67 TFLOP/s float peak, against 3.3 MB of E read (~1 us at 3.35 TB/s);
-// the one-block finalize is a latency-bound chain on one SM, far from either
-// peak. The CMA tail's 60 products (2 MFLOP each, 120 MFLOP) are ~1.8 us of
-// the card's float peak but ~270 us of one SM's; on 16 SMs each of its 40
-// dependent stages costs the copy of a whole operand (~1 us), a band
-// product of ~25 dependent steps of loads and multiply-adds and a cluster
-// barrier, ~4.5 us a stage in all at n = 100 (scripts/cma_phase_times.py).
-// Their Cholesky is
-// block_linalg.cuh's blocked factor (panels of
-// 32 columns, three barriers each, where the column loop before it had three
-// per column), which the finalize writes straight to L: the masked `ss`
-// refit fell from 0.184-0.189 to 0.098 ms device-only (0.101-0.109 back to
-// back), the weighted refit from 0.172-0.176 to 0.084 (0.087-0.090), the CMA
-// tail from 2.520-2.526 to 2.371 (2.378-2.389) ms (f32, chip_smoke.py phase
-// 15, the parent's kernels timed back to back in the same call; H100 80GB
-// HBM3, 700 W). At 1024 threads a thread has 64 registers, and the factor's
-// diagonal blocks spill: they take ~4.8 us there against ~2.5 us at 384
-// threads (scripts/linalg_phase_times.py).
+// What bounds them on an H100: at the headline (n = 100, K = 8192, m =
+// 1638) the masked `ss` refit's moments over the elite columns are 2 x
+// 5050 x 1638 multiply-adds (33 MFLOP, ~0.5 us at the 67 TFLOP/s float
+// peak), the weighted refit's 5050 x 8192 (83 MFLOP), against 3.3 MB of E
+// read (~1 us at 3.35 TB/s): bound by bytes, but on 16 SMs the weighted
+// moments take ~10 us of their multiply-adds alone, and block 0's factor is
+// a latency-bound chain of ~15 us on one SM (scripts/refit_phase_times.py
+// splits the time). The CMA tail's 60 products (2 MFLOP each, 120 MFLOP)
+// are ~1.8 us of the card's float peak but ~270 us of one SM's; on 16 SMs
+// each of its 40 dependent stages costs the copy of a whole operand (~1
+// us), a band product of ~25 dependent steps of loads and multiply-adds and
+// a cluster barrier, ~4.5 us a stage in all at n = 100
+// (scripts/cma_phase_times.py). The CMA tail's Cholesky is block_linalg.cuh's
+// blocked factor, 17.3 us at 416 threads (31.0 at 1024: the diagonal
+// blocks spill at 64 registers a thread).
 //
 // Interface: plain C functions per dtype, loaded with ctypes. Each launches on
 // the given stream, does not synchronise, and returns cudaGetLastError(); the
@@ -81,35 +86,25 @@
 #include <cooperative_groups.h>
 
 #include "block_linalg.cuh"
+#include "refit_math.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 16;       // output tile edge of the moments kernel
-constexpr int kChunk = 32;      // samples staged in shared memory at a time
-constexpr int kSplit = 512;     // samples per K split
-constexpr int kThreads = 1024;  // one-block kernels
-constexpr size_t kMaxDynamicSmem = 227 * 1024 - 1024;
+using refit::clip_nan;
+using refit::eps_of;
+using refit::max_nan;
 
-enum Method { kMle = 0, kLw = 1, kSs = 2, kRblw = 3, kOas = 4, kWeighted = 5 };
+constexpr int kThreads = 1024;  // the one-block CMA kernel
+constexpr size_t kMaxDynamicSmem = refit::kMaxSmem;
 
-int num_splits(int k) { return (k + kSplit - 1) / kSplit; }
-
-__host__ __device__ constexpr double eps_of(float) { return FLT_EPSILON; }
-__host__ __device__ constexpr double eps_of(double) { return DBL_EPSILON; }
-__host__ __device__ constexpr double tiny_of(float) { return FLT_MIN; }
-__host__ __device__ constexpr double tiny_of(double) { return DBL_MIN; }
-
-// max and clip that keep a NaN, as jnp.maximum and jnp.clip do
-template <typename T>
-__device__ T max_nan(T a, T b) {
-  return (a != a || a > b) ? a : b;
+// The two halves of a cluster barrier: arrive (release) and wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
-
-template <typename T>
-__device__ T clip_nan(T x, T lo, T hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -117,244 +112,467 @@ __device__ T clip_nan(T x, T lo, T hi) {
 // ---------------------------------------------------------------------------
 
 // Phase stamps of the refit (scripts/refit_phase_times.py): the script builds
-// a copy with REFIT_STAMP defined; otherwise a stamp is nothing. The moments
-// launch is one span over all its blocks (the first entry to the last exit);
-// the finalize block charges it, and the gap to its own start, on entry.
-enum RefitPhase { kRefitMoments, kRefitGap, kRefitSlots, kRefitShrink, kRefitJitter, kRefitFactor,
-                  kRefitPhases };
+// a copy with REFIT_STAMP defined, whose stamps charge the time since the
+// previous one to a phase (thread 0 of block 0); otherwise a stamp is
+// nothing. REFIT_STAMP_BARRIER first waits for the block.
+enum RefitPhase { kRefitCompact, kRefitFirst, kRefitProducts, kRefitStore, kRefitMoments,
+                  kRefitReduce, kRefitShrink, kRefitFactor, kRefitPhases };
 #ifndef REFIT_STAMP
 #define REFIT_STAMP(phase) ((void)0)
-#define REFIT_SPAN_ENTER() ((void)0)
-#define REFIT_SPAN_EXIT() ((void)0)
-#define REFIT_STAMP_SPAN(span, gap) ((void)0)
+#define REFIT_STAMP_START() ((void)0)
+#define REFIT_STAMP_BARRIER(phase) ((void)0)
 #endif
 
-template <typename T>
-__global__ void __launch_bounds__(kTile * kTile)
-    refit_moments_kernel(const T* __restrict__ e, const T* __restrict__ w,
-                         const T* __restrict__ mu, int n, int k, int masked, int need_b,
-                         T* __restrict__ part) {
-  __shared__ T xl[kTile][kChunk + 1];
-  __shared__ T xr[kTile][kChunk + 1];
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  const int split = blockIdx.z;
-  const int k_begin = split * kSplit;
-  const int k_end = min(k, k_begin + kSplit);
-  const int tx = threadIdx.x % kTile;
-  const int ty = threadIdx.x / kTile;
-  REFIT_SPAN_ENTER();
-  T acc_a = T(0);
-  T acc_b = T(0);
-  for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTile * kChunk; idx += blockDim.x) {
-      const int r = idx / kChunk;
-      const int c = idx % kChunk;
-      const int kk = k0 + c;
-      T vl = T(0);
-      T vr = T(0);
-      if (kk < k_end) {
-        const T wk = w[kk];
-        if (i0 + r < n) vl = (e[static_cast<size_t>(i0 + r) * k + kk] - mu[i0 + r]) * wk;
-        if (j0 + r < n) {
-          vr = e[static_cast<size_t>(j0 + r) * k + kk] - mu[j0 + r];
-          if (masked) vr *= wk;
+constexpr int kRefitThreads = refit::kThreads;  // the factor's width (csrc/linalg.cu)
+constexpr int kRefitWarps = kRefitThreads / 32;
+constexpr int kRefitCluster = refit::kCluster;
+using refit::RefitLayout;
+using refit::refit_layout;
+
+// E consecutive values from 16-byte aligned shared memory
+template <typename T, int E>
+__device__ __forceinline__ void load_edge(const T* p, T (&v)[E]) {
+  constexpr int kW = 16 / sizeof(T);
+#pragma unroll
+  for (int g = 0; g < E / kW; ++g) mpopis::load16<T, true>(p + g * kW, v + g * kW);
+}
+
+// The tile's rows of a column times the column's weight.
+template <typename T, int E>
+__device__ __forceinline__ void weigh(T (&u)[E], T wc) {
+#pragma unroll
+  for (int p = 0; p < E; ++p) u[p] = u[p] * wc;
+}
+
+// p[q * stride] = v[q] (+ p[q * stride] where `add`), q < kV: 8 old values
+// read before their writes, so that the loads issue together without
+// holding a second tile of registers.
+template <typename T, int kV>
+__device__ __forceinline__ void add_tile(T* p, int stride, const T (&v)[kV], bool add) {
+#pragma unroll
+  for (int q0 = 0; q0 < kV; q0 += 8) {
+    T old[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) old[q] = add ? p[(q0 + q) * stride] : T(0);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) p[(q0 + q) * stride] = add ? old[q] + v[q0 + q] : v[q0 + q];
+  }
+}
+
+// The block's partial moments over its `count` columns (their indices in
+// idx), in chunks of `cols`. A chunk is gathered into registers, a lane a
+// column and a warp every kRefitWarps-th row (coalesced where the columns
+// are dense), centred there and stored into its stage of x, column c at
+// c * ldx, zero from n to the staged rows: masked, (E - mu) w; weighted
+// (kW), E - mu, with the column's weight after the columns, which the
+// products multiply into the tile's rows (the same rounding as staging
+// the weighted rows, with half the stores). The next chunk's loads are
+// issued before this chunk's products and stored after them, into the
+// other stage: one barrier a chunk. Products in E x E tiles of the lower
+// triangle (refit::tile_edge, refit::tile_groups); the partials pa (and,
+// kB, pb) hold value v of tile t at v * tiles + t, so that a warp's threads
+// meet distinct banks.
+template <typename T, int E, bool kB, bool kW>
+__device__ __forceinline__ void block_moments(const T* __restrict__ e, const T* __restrict__ w,
+                                              const int* idx, int count, int n, int k, int cols,
+                                              int ldx, T* x, const T* s_mu, T* pa, T* pb) {
+  constexpr int kV = E * E;
+  constexpr int kRows = 12;  // values a thread holds in flight: 144 rows a batch
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tiles = refit::num_tiles(n, E);
+  const int groups = refit::tile_groups(tiles);
+  const int rows = refit::staged_rows(n);
+  const int chunks = (count + cols - 1) / cols;
+  const int stage = refit::stage_elems(cols, ldx, sizeof(T));
+  // this thread's tile and column group (groups > 0), accumulated over all chunks
+  const int t = groups ? static_cast<int>(threadIdx.x) % tiles : 0;
+  const int g = groups ? static_cast<int>(threadIdx.x) / tiles : 0;
+  const bool live = groups > 0 && g < groups;
+  int ti = 0, tj = 0;
+  if (live) refit::tile_of(t, ti, tj);
+  T a[kV], b[kV];
+#pragma unroll
+  for (int q = 0; q < kV; ++q) {
+    a[q] = T(0);
+    b[q] = T(0);
+  }
+  if (groups == 0) {  // each chunk's products are added to the partials
+    for (int q = threadIdx.x; q < kV * tiles; q += blockDim.x) {
+      pa[q] = T(0);
+      if (kB) pb[q] = T(0);
+    }
+  }
+  // the gather: a lane a column of the chunk, a warp every kRefitWarps-th
+  // row (coalesced where the columns are dense)
+  const int batches = (rows + kRefitWarps * kRows - 1) / (kRefitWarps * kRows);
+  T gv[kRows];
+  T gw = T(0);
+  auto fetch = [&](int ch, int rb) {
+    const bool on = ch < chunks && lane < min(cols, count - ch * cols);
+    const int col = on ? idx[ch * cols + lane] : 0;
+    if (rb == 0) gw = on ? __ldg(w + col) : T(0);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = warp + kRefitWarps * (rb * kRows + r);
+      gv[r] = on && i < n ? __ldg(e + static_cast<size_t>(i) * k + col) : T(0);
+    }
+  };
+  auto store = [&](int ch, int rb) {  // zeros past the chunk's count and past n
+    T* xs = x + (ch & 1) * stage;
+    if (lane >= cols) return;
+    if (kW && rb == 0 && warp == 0) xs[cols * ldx + lane] = gw;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = warp + kRefitWarps * (rb * kRows + r);
+      if (i < rows) {
+        const T vr = i < n ? gv[r] - s_mu[i] : T(0);
+        xs[lane * ldx + i] = kW ? vr : vr * gw;
+      }
+    }
+  };
+  for (int rb = 0; rb < batches; ++rb) {
+    fetch(0, rb);
+    store(0, rb);
+  }
+  __syncthreads();
+  REFIT_STAMP(kRefitFirst);
+  for (int ch = 0; ch < chunks; ++ch) {
+    fetch(ch + 1, 0);  // in flight over the products
+    const T* xs = x + (ch & 1) * stage;
+    const T* ws = xs + cols * ldx;
+    const int cc = min(cols, count - ch * cols);
+    if (groups > 0) {
+      if (live) {
+        const T* u_col = xs + E * ti;
+        const T* v_col = xs + E * tj;
+#pragma unroll 2
+        for (int c = g; c < cc; c += groups) {
+          T u[E], v[E];
+          load_edge<T, E>(u_col + c * ldx, u);
+          load_edge<T, E>(v_col + c * ldx, v);
+          if (kW) weigh<T, E>(u, ws[c]);
+          refit::tile_column<T, E, kB>(u, v, a, b);
         }
       }
-      xl[r][c] = vl;
-      xr[r][c] = vr;
-    }
-    __syncthreads();
-    for (int c = 0; c < kChunk; ++c) {
-      const T a = xl[ty][c];
-      const T b = xr[tx][c];
-      acc_a += a * b;
-      if (need_b) acc_b += (a * a) * (b * b);
-    }
-  }
-  const int i = i0 + ty;
-  const int j = j0 + tx;
-  if (i < n && j < n) {
-    const size_t nn = static_cast<size_t>(n) * n;
-    part[(2 * split) * nn + i * n + j] = acc_a;
-    if (need_b) part[(2 * split + 1) * nn + i * n + j] = acc_b;
-  }
-  REFIT_SPAN_EXIT();
-}
-
-// sigma (in a) from the moment sums a, b over m samples: _shrink_finalize.
-template <typename T>
-__device__ void shrink_finalize(T* a, const T* b, T* vec, int n, double m, int method, T* red) {
-  const int nn = n * n;
-  const T tiny = T(tiny_of(T()));
-  if (method == kMle) {
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) a[idx] = a[idx] / T(m);
-    __syncthreads();
-    return;
-  }
-  if (method == kLw) {
-    T num = T(0), num_d = T(0), den = T(0), den_d = T(0);
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-      const T s = a[idx] / T(m);
-      const T var_s = (b[idx] / T(m) - s * s) / T(m);
-      num += var_s;
-      den += s * s;
-      if (idx / n == idx % n) {
-        num_d += var_s;
-        den_d += s * s;
+    } else {
+      for (int tt = threadIdx.x; tt < tiles; tt += blockDim.x) {
+        int ui, uj;
+        refit::tile_of(tt, ui, uj);
+        T ca[kV], cb[kV];
+#pragma unroll
+        for (int q = 0; q < kV; ++q) {
+          ca[q] = T(0);
+          cb[q] = T(0);
+        }
+        for (int c = 0; c < cc; ++c) {
+          T u[E], v[E];
+          load_edge<T, E>(xs + E * ui + c * ldx, u);
+          load_edge<T, E>(xs + E * uj + c * ldx, v);
+          if (kW) weigh<T, E>(u, ws[c]);
+          refit::tile_column<T, E, kB>(u, v, ca, cb);
+        }
+        add_tile<T, kV>(pa + tt, tiles, ca, true);
+        if (kB) add_tile<T, kV>(pb + tt, tiles, cb, true);
       }
     }
-    const T numv = mpopis::block_sum(num, red) - mpopis::block_sum(num_d, red);
-    const T denv = mpopis::block_sum(den, red) - mpopis::block_sum(den_d, red);
-    const T lam = clip_nan(numv / max_nan(denv, tiny), T(0), T(1));
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-      const T s = a[idx] / T(m);
-      a[idx] = (T(1) - lam) * s + lam * (idx / n == idx % n ? s : T(0));
-    }
-    __syncthreads();
-    return;
-  }
-  if (method == kSs) {
-    T* inv_sd = vec;      // (n,) 1 / sd, unbiased variances
-    T* sd_mle = vec + n;  // (n,) MLE standard deviations
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const T d = a[i * n + i];
-      inv_sd[i] = T(1) / sqrt(max_nan(d / T(m - 1.0), tiny));
-      sd_mle[i] = sqrt(max_nan(d / T(m), tiny));
-    }
-    __syncthreads();
-    const T c_r = T(m / (m - 1.0));
-    const T c_var = T(m / ((m - 1.0) * (m - 1.0) * (m - 1.0)));
-    T num = T(0), num_d = T(0), den = T(0), den_d = T(0);
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-      const int i = idx / n;
-      const int j = idx % n;
-      const T wbar = a[idx] / T(m) * inv_sd[i] * inv_sd[j];
-      const T r = c_r * wbar;
-      const T sum_w2 = b[idx] * (inv_sd[i] * inv_sd[i]) * (inv_sd[j] * inv_sd[j]);
-      const T var_r = c_var * (sum_w2 - T(m) * wbar * wbar);
-      num += var_r;
-      den += r * r;
-      if (i == j) {
-        num_d += var_r;
-        den_d += r * r;
+    REFIT_STAMP_BARRIER(kRefitProducts);
+    if (ch + 1 < chunks) {
+      store(ch + 1, 0);
+      for (int rb = 1; rb < batches; ++rb) {
+        fetch(ch + 1, rb);
+        store(ch + 1, rb);
       }
     }
-    const T numv = mpopis::block_sum(num, red) - mpopis::block_sum(num_d, red);
-    const T denv = mpopis::block_sum(den, red) - mpopis::block_sum(den_d, red);
-    const T lam = clip_nan(numv / max_nan(denv, tiny), T(0), T(1));
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-      const int i = idx / n;
-      const int j = idx % n;
-      const T r = c_r * (a[idx] / T(m) * inv_sd[i] * inv_sd[j]);
-      const T r_shrunk = i == j ? T(1) : (T(1) - lam) * r;
-      a[idx] = r_shrunk * sd_mle[i] * sd_mle[j];
+    __syncthreads();  // chunk ch + 1 is staged; chunk ch's stage is free
+    REFIT_STAMP(kRefitStore);
+  }
+  // the groups' accumulators into the partials, in group order
+  for (int gg = 0; gg < groups; ++gg) {
+    if (live && g == gg) {
+      add_tile<T, kV>(pa + t, tiles, a, gg > 0);
+      if (kB) add_tile<T, kV>(pb + t, tiles, b, gg > 0);
     }
     __syncthreads();
-    return;
   }
-  // rblw / oas: target tr(S)/p I
-  T tr = T(0), tr2 = T(0);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    const T s = a[idx] / T(m);
-    tr2 += s * s;
-    if (idx / n == idx % n) tr += s;
-  }
-  const T tr_s = mpopis::block_sum(tr, red);
-  const T tr_s2 = mpopis::block_sum(tr2, red);
-  const double p = n;
-  T num, den;
-  if (method == kRblw) {
-    num = T((m - 2.0) / m) * tr_s2 + tr_s * tr_s;
-    den = T(m + 2.0) * (tr_s2 - tr_s * tr_s / T(p));
-  } else {
-    num = T(1.0 - 2.0 / p) * tr_s2 + tr_s * tr_s;
-    den = T(m + 1.0 - 2.0 / p) * (tr_s2 - tr_s * tr_s / T(p));
-  }
-  const T rho = clip_nan(num / max_nan(den, tiny), T(0), T(1));
-  const T target = tr_s / T(p);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    const T s = a[idx] / T(m);
-    a[idx] = (T(1) - rho) * s + rho * (idx / n == idx % n ? target : T(0));
-  }
-  __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    refit_finalize_kernel(const T* __restrict__ part, int splits, int n, double m, int method,
-                          double jitter, int corrected, int in_smem, T* __restrict__ work,
-                          T* __restrict__ l_out) {
+// One launch, a cluster of kRefitCluster blocks (a card that cannot schedule
+// it fails the launch):
+// 1. Each block reads the K mask entries or weights 32 at a time, a ballot
+//    each, counts the columns that count and lists its share of them in
+//    ascending order (refit::share), from the ballots kept in shared memory.
+// 2. It gathers its columns of E, `cols` at a time a lane each, into
+//    registers, centres (and, masked, weights) them into a stage in shared
+//    memory, and multiplies them into its partial moments (block_moments):
+//    the lower tiles of A and, for lw/ss, B.
+// 3. After a cluster barrier, each block sums a slice of the tiles over the
+//    blocks' partials in rank order (distributed shared memory, or global
+//    scratch), writes A's lower triangle to block 0's factor buffer, and puts
+//    its part of the estimator's two sums (refit::entry_sums) into block 0's
+//    slots. ss's per-row values come from the diagonal, which every block
+//    sums first; the other estimators' scalars need no diagonal of their own.
+// 4. After a second cluster barrier, block 0 alone sums the slots in rank
+//    order, forms the estimate and the jitter in place, and factors it into
+//    L (block_linalg.cuh) at kRefitThreads.
+template <typename T, bool kSmem>
+__global__ void __launch_bounds__(kRefitThreads)
+    refit_cluster_kernel(const T* __restrict__ e, const T* __restrict__ w,
+                         const T* __restrict__ mu, RefitLayout L, int method, double m,
+                         double jitter, int corrected, T* __restrict__ scratch,
+                         T* __restrict__ l_out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[32];
-  const int nn = n * n;
-  T* a = in_smem ? reinterpret_cast<T*>(smem_raw) : work;
-  T* b = a + nn;
-  T* vec = b + nn;
-  const int need_b = method == kLw || method == kSs;
-  REFIT_STAMP_SPAN(kRefitMoments, kRefitGap);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    T sa = T(0), sb = T(0);
-    for (int s = 0; s < splits; ++s) {
-      sa += part[(2 * static_cast<size_t>(s)) * nn + idx];
-      if (need_b) sb += part[(2 * static_cast<size_t>(s) + 1) * nn + idx];
+  __shared__ int warp_counts[kRefitWarps];
+  __shared__ T red[kRefitWarps][2];
+  __shared__ T slots[kRefitCluster][2];
+  const int n = L.n;
+  const int k = L.k;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* pa = kSmem ? base + L.parts : scratch + 2 * L.part * rank;
+  T* pb = pa + L.part;
+  T* x = base + L.x;
+  T* lbuf = kSmem ? x : l_out;  // block 0's factor: over the stages, or the output
+  const int lda = kSmem ? L.lda : n;
+  T* s_mu = base + L.vec;
+  T* inv_sd = s_mu + n;
+  T* sd_mle = inv_sd + n;
+  unsigned* bits = reinterpret_cast<unsigned*>(smem_raw + L.ints);
+  int* idx = reinterpret_cast<int*>(bits + L.words);
+  REFIT_STAMP_START();
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s_mu[i] = mu[i];
+
+  // 1. the columns that count: a ballot per 32 entries, a warp a run of words
+  const int words = static_cast<int>(L.words);
+  const int per_warp = (words + kRefitWarps - 1) / kRefitWarps;
+  const int w0 = warp * per_warp;
+  const int w1 = min(words, w0 + per_warp);
+  int count_warp = 0;
+  constexpr int kBatch = 32;  // loads in flight before their ballots
+  for (int wb = w0; wb < w1; wb += kBatch) {
+    bool nz[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int col = (wb + u) * 32 + lane;
+      nz[u] = wb + u < w1 && col < k && refit::counts(w[col]);
     }
-    a[idx] = sa;
-    b[idx] = sb;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const unsigned bal = __ballot_sync(mpopis::kFullMask, nz[u]);
+      if (lane == 0 && wb + u < w1) bits[wb + u] = bal;
+      count_warp += __popc(bal);
+    }
   }
+  if (lane == 0) warp_counts[warp] = count_warp;
   __syncthreads();
-  REFIT_STAMP(kRefitSlots);
-  if (method == kWeighted) {
-    if (corrected) {
-      const T c = T(m / (m - 1.0));
-      for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) a[idx] *= c;
+  int total = 0, pos = 0;
+  for (int v = 0; v < kRefitWarps; ++v) {
+    if (v == warp) pos = total;
+    total += warp_counts[v];
+  }
+  int lo, hi;
+  refit::share(total, rank, kRefitCluster, lo, hi);
+  for (int wd = w0; wd < w1 && pos < hi; ++wd) {
+    const unsigned bal = bits[wd];
+    if ((bal >> lane) & 1u) {
+      const int p = pos + __popc(bal & ((1u << lane) - 1u));
+      if (p >= lo && p < hi) idx[p - lo] = wd * 32 + lane;
+    }
+    pos += __popc(bal);
+  }
+  const int count = hi - lo;
+  __syncthreads();
+  REFIT_STAMP(kRefitCompact);
+
+  // 2. the moments over this block's columns
+  const bool need_b = refit::needs_b(method);
+  if (need_b) {
+    block_moments<T, 4, true, false>(e, w, idx, count, n, k, L.cols, L.ldx, x, s_mu, pa, pb);
+  } else if (method == refit::kWeighted) {
+    block_moments<T, 8, false, true>(e, w, idx, count, n, k, L.cols, L.ldx, x, s_mu, pa, pb);
+  } else {
+    block_moments<T, 8, false, false>(e, w, idx, count, n, k, L.cols, L.ldx, x, s_mu, pa, pb);
+  }
+  cluster.sync();  // every block's partials are complete, and every block runs
+  REFIT_STAMP(kRefitMoments);
+
+  // 3. sums over the blocks in rank order: for ss the diagonal (every
+  // block), then this block's slice of tiles into block 0's factor buffer
+  // and slots
+  auto peer = [&](int r) -> const T* {
+    if constexpr (kSmem) {
+      return cluster.map_shared_rank(pa, r);
+    } else {
+      return scratch + 2 * L.part * r;
+    }
+  };
+  auto load = [](const T* p) -> T {
+    if constexpr (kSmem) {
+      return *p;
+    } else {
+      return __ldcg(p);  // written by another SM: never a stale L1 line
+    }
+  };
+  const int edge = refit::tile_edge(method);
+  const int vals = edge * edge;
+  const int tiles = refit::num_tiles(n, edge);
+  refit::Shrink<T> sh = refit::shrink_consts<T>(m);
+  const bool ss = method == refit::kSs;
+  if (ss) {  // every block needs ss's per-row values of the summed diagonal
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int at = refit::diag_value(i, edge) * tiles + refit::diag_tile(i, edge);
+      T d = T(0);
+#pragma unroll
+      for (int r = 0; r < kRefitCluster; ++r) d += load(peer(r) + at);
+      refit::ss_row(d, sh, inv_sd[i], sd_mle[i]);
     }
     __syncthreads();
-  } else {
-    shrink_finalize(a, b, vec, n, m, method, red);
   }
-  REFIT_STAMP(kRefitShrink);
-  mpopis::block_jitter(a, n, jitter, eps_of(T()), red);
-  REFIT_STAMP(kRefitJitter);
-  mpopis::block_cholesky(a, n, n, l_out);
-  REFIT_STAMP(kRefitFactor);
+  T* l0 = kSmem ? cluster.map_shared_rank(lbuf, 0) : lbuf;
+  T s0 = T(0), s1 = T(0);
+  const int t_lo = static_cast<int>(static_cast<long long>(tiles) * rank / kRefitCluster);
+  const int slice = static_cast<int>(static_cast<long long>(tiles) * (rank + 1) / kRefitCluster) -
+                    t_lo;
+  for (int q = threadIdx.x; q < vals * slice; q += blockDim.x) {
+    const int v = q / slice;  // value v of tile t: consecutive threads, consecutive tiles
+    const int t = t_lo + q - v * slice;
+    int ti, tj;
+    refit::tile_of(t, ti, tj);
+    const int i = edge * ti + v / edge;
+    const int j = edge * tj + v % edge;
+    if (i >= n || j > i) continue;
+    const int at = v * tiles + t;
+    T a = T(0), b = T(0);
+#pragma unroll
+    for (int r = 0; r < kRefitCluster; ++r) {
+      const T* pr = peer(r);
+      a += load(pr + at);
+      if (need_b) b += load(pr + L.part + at);
+    }
+    l0[i * lda + j] = a;
+    if (ss) {
+      refit::entry_sums(method, i, j, a, b, sh, inv_sd[i], inv_sd[j], s0, s1);
+    } else {
+      refit::entry_sums(method, i, j, a, b, sh, T(0), T(0), s0, s1);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    s0 += __shfl_down_sync(mpopis::kFullMask, s0, o);
+    s1 += __shfl_down_sync(mpopis::kFullMask, s1, o);
+  }
+  if (lane == 0) {
+    red[warp][0] = s0;
+    red[warp][1] = s1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T b0 = T(0), b1 = T(0);
+    for (int v = 0; v < kRefitWarps; ++v) {
+      b0 += red[v][0];
+      b1 += red[v][1];
+    }
+    T* slot0 = cluster.map_shared_rank(&slots[0][0], 0);
+    slot0[2 * rank] = b0;
+    slot0[2 * rank + 1] = b1;
+  }
+  cluster.sync();  // block 0 holds the lower triangle of A and the slots;
+                   // no block reads another's memory after this
+  REFIT_STAMP(kRefitReduce);
+  if (rank != 0) return;
+
+  // 4. block 0: the estimate with its jitter in place, then the factor
+  T g0 = T(0), g1 = T(0);
+  for (int r = 0; r < kRefitCluster; ++r) {
+    g0 += slots[r][0];
+    g1 += slots[r][1];
+  }
+  refit::shrink_scalar(method, g0, g1, n, sh);
+  T diag = T(0);  // the estimate's trace, summed by every warp alike
+  for (int i = lane; i < n; i += 32) {
+    diag += refit::estimate(method, i, i, load(lbuf + i * lda + i), sh, ss ? inv_sd[i] : T(0),
+                            ss ? inv_sd[i] : T(0), ss ? sd_mle[i] : T(0),
+                            ss ? sd_mle[i] : T(0), corrected);
+  }
+  for (int o = 16; o > 0; o >>= 1) diag += __shfl_xor_sync(mpopis::kFullMask, diag, o);
+  const T add = refit::jitter_add(diag, n, jitter);
+  __syncthreads();  // every warp has read the diagonal before any is rewritten
+  for (int i = warp; i < n; i += kRefitWarps) {  // a warp a row of the lower triangle
+    for (int j = lane; j <= i; j += 32) {
+      T* at = lbuf + i * lda + j;
+      const T est = refit::estimate(method, i, j, load(at), sh, ss ? inv_sd[i] : T(0),
+                                    ss ? inv_sd[j] : T(0), ss ? sd_mle[i] : T(0),
+                                    ss ? sd_mle[j] : T(0), corrected);
+      *at = i == j ? est + add : est;
+    }
+  }
+  REFIT_STAMP_BARRIER(kRefitShrink);
+  mpopis::block_cholesky(lbuf, n, lda, kSmem ? l_out : nullptr);  // its first barrier orders
+  REFIT_STAMP(kRefitFactor);                                      // the writes above
 }
 
-size_t refit_work_elems(int n) { return 2 * static_cast<size_t>(n) * n + 2 * n; }
+// Lets the refit kernel take all the shared memory a block can have and a
+// cluster of 16 blocks; set once a process.
+template <typename T, bool kSmem>
+cudaError_t refit_attributes() {
+  static bool set = false;
+  if (set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(refit_cluster_kernel<T, kSmem>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kMaxDynamicSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(refit_cluster_kernel<T, kSmem>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) cudaGetLastError();  // returned here, not left for the next launch
+  set = err == cudaSuccess;
+  return err;
+}
 
-size_t refit_part_elems(int n, int k) {
-  return 2 * static_cast<size_t>(num_splits(k)) * n * n;
+template <typename T, bool kSmem>
+cudaError_t refit_launch_layout(const RefitLayout& L, const T* e, const T* w, const T* mu,
+                                int method, double m, double jitter, int corrected, T* scratch,
+                                T* l, cudaStream_t s) {
+  const cudaError_t attr_err = refit_attributes<T, kSmem>();
+  if (attr_err != cudaSuccess) return attr_err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kRefitCluster);
+  cfg.blockDim = dim3(kRefitThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(L.bytes);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kRefitCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, refit_cluster_kernel<T, kSmem>, e, w, mu, L,
+                                             method, m, jitter, corrected, scratch, l);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
 int refit_launch(const void* e, const void* w, const void* mu, int n, int k, int method,
                  double m, double jitter, int corrected, void* scratch, void* l, void* stream) {
-  if (n < 1 || k < 1 || method < kMle || method > kWeighted)
+  if (n < 1 || k < 1 || method < refit::kMle || method > refit::kWeighted)
     return static_cast<int>(cudaErrorInvalidValue);
+  const RefitLayout L = refit_layout<T>(n, k);
+  if (L.bytes == 0) return static_cast<int>(cudaErrorInvalidValue);  // no layout fits
+  const T* te = static_cast<const T*>(e);
+  const T* tw = static_cast<const T*>(w);
+  const T* tmu = static_cast<const T*>(mu);
+  T* ts = static_cast<T*>(scratch);
+  T* tl = static_cast<T*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  T* part = static_cast<T*>(scratch);
-  T* work = part + refit_part_elems(n, k);
-  const int splits = num_splits(k);
-  const int tiles = (n + kTile - 1) / kTile;
-  const int need_b = method == kLw || method == kSs;
-  refit_moments_kernel<T><<<dim3(tiles, tiles, splits), kTile * kTile, 0, s>>>(
-      static_cast<const T*>(e), static_cast<const T*>(w), static_cast<const T*>(mu), n, k,
-      method != kWeighted, need_b, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = refit_work_elems(n) * sizeof(T);
-  const int in_smem = bytes <= kMaxDynamicSmem;
-  const size_t smem = in_smem ? bytes : 0;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(refit_finalize_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  refit_finalize_kernel<T><<<1, kThreads, smem, s>>>(part, splits, n, m, method, jitter,
-                                                      corrected, in_smem, work,
-                                                      static_cast<T*>(l));
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      L.in_smem ? refit_launch_layout<T, true>(L, te, tw, tmu, method, m, jitter, corrected, ts,
+                                               tl, s)
+                : refit_launch_layout<T, false>(L, te, tw, tmu, method, m, jitter, corrected,
+                                                ts, tl, s);
+  return static_cast<int>(err);
 }
 
 // ---------------------------------------------------------------------------
@@ -557,14 +775,6 @@ __device__ void stage_full(T* dst, const T* g, int n, int ld) {
       if (idx < total) to[idx] = v[b];
     }
   }
-}
-
-// The two halves of a cluster barrier: arrive (release) and wait (acquire).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // One launch of a cluster of csize blocks. Newton-Schulz on bands of rb rows:
@@ -862,10 +1072,22 @@ int cma_launch(const void* sigma, const void* dw, const void* ps, const void* pS
 
 extern "C" {
 
-// Scratch (in elements of the dtype) the caller allocates for one call.
-long long ais_refit_scratch_elems(int n, int k) {
-  return static_cast<long long>(refit_part_elems(n, k) + refit_work_elems(n));
+// Global scratch (in elements of the dtype) the caller allocates for one
+// refit: 0 where the cluster's shared memory holds the partials and the factor.
+long long ais_refit_scratch_elems(int n, int k, int f64) {
+  return f64 ? refit_layout<double>(n, k).scratch : refit_layout<float>(n, k).scratch;
 }
+
+// The refit's layout for n, K and the dtype: 1 where the partial moments and
+// the factor sit in the cluster's shared memory, 0 where they sit in global
+// memory, -1 where no layout fits (the launch is refused).
+int ais_refit_layout(int n, int k, int f64) {
+  const RefitLayout L = f64 ? refit_layout<double>(n, k) : refit_layout<float>(n, k);
+  return L.bytes == 0 ? -1 : L.in_smem;
+}
+
+// The blocks of the refit's cluster.
+int ais_refit_cluster_size() { return kRefitCluster; }
 
 long long ais_cma_scratch_elems(int n) { return static_cast<long long>(cma_work_elems(n)); }
 

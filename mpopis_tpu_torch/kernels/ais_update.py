@@ -18,7 +18,7 @@ takes a CPU tensor to its plain version — the fused switch off the card
 runs the plain versions, as the JAX package runs its interpreter off the
 TPU — and a CUDA tensor to the kernel, or raises. `MASKED_LAUNCHES`,
 `WEIGHTED_LAUNCHES` and `CMA_LAUNCHES` count wrapper calls that launched
-their kernels (the refit is two launches: moments, then finalize).
+their kernels, one launch a call each (the refits a cluster of 16 blocks).
 """
 
 from __future__ import annotations
@@ -59,8 +59,11 @@ def _lib():
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
                 _FNS[(op, dt)] = fn
-        lib.ais_refit_scratch_elems.argtypes = [i32, i32]
+        lib.ais_refit_scratch_elems.argtypes = [i32, i32, i32]
         lib.ais_refit_scratch_elems.restype = ctypes.c_longlong
+        lib.ais_refit_layout.argtypes = [i32, i32, i32]
+        lib.ais_refit_layout.restype = ctypes.c_int
+        lib.ais_refit_cluster_size.restype = ctypes.c_int
         lib.ais_cma_scratch_elems.argtypes = [i32]
         lib.ais_cma_scratch_elems.restype = ctypes.c_longlong
         lib.ais_num_cma_consts.restype = ctypes.c_int
@@ -233,12 +236,16 @@ def _refit_launch(fn_name, e, w, mu, method_id, m, jitter, corrected):
     check_arg(fn_name, tuple(w.shape) == (k,), f"weights shape {tuple(w.shape)}, want ({k},)")
     check_arg(fn_name, tuple(mu.shape) == (n,), f"mu shape {tuple(mu.shape)}, want ({n},)")
     fns = _lib()
-    scratch = torch.empty(int(fns["lib"].ais_refit_scratch_elems(n, k)), dtype=dtype, device=dev)
+    f64 = int(dtype == torch.float64)
+    check_arg(fn_name, fns["lib"].ais_refit_layout(n, k, f64) >= 0,
+              f"n={n}, K={k}: the refit's staging does not fit a block's shared memory")
+    elems = int(fns["lib"].ais_refit_scratch_elems(n, k, f64))
+    scratch = torch.empty(elems, dtype=dtype, device=dev) if elems else None
     out = torch.empty((n, n), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         rc = fns[("refit_chol", dtype)](
             e.data_ptr(), w.data_ptr(), mu.data_ptr(), n, k, method_id, float(m), float(jitter),
-            int(corrected), scratch.data_ptr(), out.data_ptr(),
+            int(corrected), scratch.data_ptr() if elems else None, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -272,6 +279,18 @@ def weighted_refit_chol(e, w, mu, corrected: bool = False, jitter: float = 1e-8)
                         corrected)
     WEIGHTED_LAUNCHES += 1
     return out
+
+
+def refit_layout(n: int, k: int, dtype: torch.dtype) -> tuple[int, str]:
+    """(blocks, where) of the refit kernel on (n, K) in `dtype`: the blocks
+    of its cluster (16), and "shared" where each block's partial moments and
+    block 0's factor sit in the cluster's shared memory, "global" where they
+    sit in global memory, "none" where no layout fits (the wrapper raises).
+    Decided from n, K and the dtype's size; a card that cannot schedule the
+    cluster fails the launch."""
+    lib = _lib()["lib"]
+    where = lib.ais_refit_layout(n, k, int(dtype == torch.float64))
+    return int(lib.ais_refit_cluster_size()), {1: "shared", 0: "global"}.get(where, "none")
 
 
 def cma_cluster_size(n: int, dtype: torch.dtype) -> int:

@@ -68,8 +68,12 @@ class PolicyConfig:
     cma_rank_mu_quirk: bool = True  # scalar rank-μ term
     elite_stop_tol: float = 1e-2  # reference literal 10e-3
     cov_jitter: float = 1e-8  # reference literal 10e-9
-    # CMA's f32 guards and Newton–Schulz Σ^{-1/2} (CMA is not ported yet)
+    # f32 stability guards for CMA's Σ^{-1/2} and step-size chain (relative
+    # eigenvalue floor, clipped step-size exponent and σ); False gives the
+    # raw reference semantics
     cma_stability_guards: bool = True
+    # C = Σ^{-1/2} by Newton–Schulz, falling back to eigh where it has not
+    # converged; False (parity) keeps the eigendecomposition
     cma_fast_sqrt: bool = False
 
     def __post_init__(self):

@@ -4,7 +4,7 @@ Builds two copies of ais_update.cu, one with REFIT_STAMP defined and one
 as it is, in parallel. In the stamped copy each stamp reads %globaltimer
 (ns) on thread 0 of the first block, after a barrier, and charges the time
 since the previous stamp to its phase (the `RefitPhase` enum of the
-source); a launch of many blocks is charged as one span, from its first
+source) by a reduction that thread 0 does not wait for; a launch of many blocks is charged as one span, from its first
 block's entry to its last block's exit (REFIT_SPAN_*). Runs both at
 chip_smoke.py's phase-12 shapes (f32, K = 8192, m = 1638 elite columns of
 a random mask; the weights w^4 normalised; PMC's multinomial counts / K),
@@ -14,11 +14,12 @@ to back (CUDA events).
 
     python scripts/refit_phase_times.py                        # n = 100, 136; ss, mle, weighted
     python scripts/refit_phase_times.py --n 100 --methods ss lw pmc
-    python scripts/refit_phase_times.py --source _export/parent/mpopis_tpu_torch/csrc/ais_update.cu
+    python scripts/refit_phase_times.py --source _export/parent/mpopis_tpu_torch/csrc/ais_update.cu \
+        mpopis_tpu_torch/csrc/ais_update.cu    # parent, change, change, parent
 
-`--source` takes another copy of ais_update.cu with the same C interface
-(unpacked under a directory that .gitignore lists, with block_linalg.cuh
-beside it). The copies are built under mpopis_tpu_torch/_build/phase_times/
+`--source` takes one or more copies of ais_update.cu with the same C
+interface (a parent's unpacked under a directory that .gitignore lists,
+with its headers beside it). The copies are built under mpopis_tpu_torch/_build/phase_times/
 refit/ with the flags of kernels/build.py; the kernel itself is not changed.
 """
 
@@ -56,9 +57,9 @@ __device__ __forceinline__ bool refit_first_thread() {
 __device__ __forceinline__ void refit_stamp(int phase, bool start) {
   if (!refit_first_thread()) return;
   const unsigned long long now = refit_now();
-  if (!start) {
-    g_refit_ns[2 * phase] += now - s_refit_last;
-    g_refit_ns[2 * phase + 1] += 1;
+  if (!start) {  // reductions: thread 0 does not wait for the sums' old values
+    atomicAdd(g_refit_ns + 2 * phase, now - s_refit_last);
+    atomicAdd(g_refit_ns + 2 * phase + 1, 1ull);
   }
   s_refit_last = now;
 }
@@ -72,16 +73,17 @@ __device__ __forceinline__ void refit_span_exit() {
 __device__ __forceinline__ void refit_stamp_span(int span, int gap) {
   if (!refit_first_thread()) return;
   const unsigned long long now = refit_now();
-  g_refit_ns[2 * span] += g_span_last - g_span_first;
-  g_refit_ns[2 * span + 1] += 1;
-  g_refit_ns[2 * gap] += now - g_span_last;
-  g_refit_ns[2 * gap + 1] += 1;
+  atomicAdd(g_refit_ns + 2 * span, g_span_last - g_span_first);
+  atomicAdd(g_refit_ns + 2 * span + 1, 1ull);
+  atomicAdd(g_refit_ns + 2 * gap, now - g_span_last);
+  atomicAdd(g_refit_ns + 2 * gap + 1, 1ull);
   g_span_first = ~0ull;
   g_span_last = 0ull;
   s_refit_last = now;
 }
 #define REFIT_STAMP(phase) refit_stamp(phase, false)
 #define REFIT_STAMP_START() refit_stamp(0, true)
+#define REFIT_STAMP_BARRIER(phase) do { __syncthreads(); refit_stamp(phase, false); } while (0)
 #define REFIT_SPAN_ENTER() refit_span_enter()
 #define REFIT_SPAN_EXIT() refit_span_exit()
 #define REFIT_STAMP_SPAN(span, gap) refit_stamp_span(span, gap)
@@ -134,6 +136,7 @@ def _bind(so: Path) -> ctypes.CDLL:
 def build_copies(source: Path):
     """(stamped library, unstamped library, the unstamped build's log)."""
     out = OUT / hashlib.sha256(str(source.resolve()).encode()).hexdigest()[:8]
+    # both copies are rebuilt every run: a copy's name says which source, not which contents
     out.mkdir(parents=True, exist_ok=True)
     stamped = out / "ais_update_stamped.cu"
     stamped.write_text(PRELUDE + f'#include "{source.resolve()}"\n' + SETUP)
@@ -204,9 +207,39 @@ def back_to_back_ms(fn, reps: int = 30) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+class Copy:
+    """A source's stamped and unstamped builds, its phases and stamp buffer."""
+
+    def __init__(self, source: Path):
+        self.source = source
+        self.names = phase_names(source)
+        self.lib_s, self.lib_p, self.log = build_copies(source)
+        self.ns = torch.zeros((len(self.names), 2), dtype=torch.int64, device="cuda")
+        if self.lib_s.phase_setup(self.ns.data_ptr()) != 0:
+            raise RuntimeError("could not point the kernel at the stamp buffer")
+
+    def launcher(self, lib, n, k, e, wts, mu, mid, m, corrected):
+        scratch = torch.empty(max(int(self.lib_p.ais_refit_scratch_elems(n, k, 0)), 1),
+                              device="cuda")
+        out = torch.empty((n, n), device="cuda")
+
+        def launch():
+            rc = lib.ais_refit_chol_f32(
+                e.data_ptr(), wts.data_ptr(), mu.data_ptr(), n, k, mid, float(m), 1e-8,
+                corrected, scratch.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+            return out
+
+        return launch
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", type=Path, default=build.CSRC_DIR / "ais_update.cu")
+    ap.add_argument("--source", type=Path, nargs="+", default=[build.CSRC_DIR / "ais_update.cu"],
+                    help="one or more copies of ais_update.cu; with two or more, the "
+                         "unstamped ones are timed in turns: each in order, then in reverse")
     ap.add_argument("--n", type=int, nargs="+", default=[100, 136])
     ap.add_argument("--k", type=int, default=8192)
     ap.add_argument("--m", type=int, default=round(0.2 * 8192))
@@ -215,53 +248,48 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("refit_phase_times: needs a CUDA card")
-    print(card(), "| source", args.source)
-    names = phase_names(args.source)
-    lib_s, lib_p, log = build_copies(args.source)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
-    ns = torch.zeros((len(names), 2), dtype=torch.int64, device="cuda")
-    if lib_s.phase_setup(ns.data_ptr()) != 0:
-        raise RuntimeError("could not point the kernel at the stamp buffer")
+    print(card(), "| sources", *args.source)
+    with ThreadPoolExecutor(max_workers=len(args.source)) as pool:
+        copies = list(pool.map(Copy, args.source))
+    for label, cp in enumerate(copies):
+        print(f"[{label}] {cp.source}")
+        for line in cp.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("  ptxas:", line.strip())
+    order = list(range(len(copies))) + list(range(len(copies)))[::-1]
     for n in args.n:
         e, mask, w, pmc = inputs(n, args.k, args.m)
-        layout = (f", layout {lib_p.ais_refit_layout(n, args.k, 0)}"
-                  if hasattr(lib_p, "ais_refit_layout") else "")
         for method in args.methods:
             wts, mu, mid, m, corrected, want = case(method, e, mask, w, pmc, args.m)
-            scratch = torch.empty(max(int(lib_p.ais_refit_scratch_elems(n, args.k, 0)), 1),
-                                  device="cuda")
-            outs = {lib: torch.empty((n, n), device="cuda") for lib in ("s", "p")}
-
-            def launch(lib, out):
-                rc = lib.ais_refit_chol_f32(
-                    e.data_ptr(), wts.data_ptr(), mu.data_ptr(), n, args.k, mid, float(m), 1e-8,
-                    corrected, scratch.data_ptr(), out.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"launch failed: CUDA error {rc}")
-
-            launch(lib_s, outs["s"])
-            launch(lib_p, outs["p"])
-            torch.cuda.synchronize()
             scale = float(want.abs().max())
-            errs = {k: float((o - want).abs().max()) / scale for k, o in outs.items()}
-            ns.zero_()
-            for _ in range(args.reps):
-                launch(lib_s, outs["s"])
-            torch.cuda.synchronize()
-            per = ns.double().cpu().numpy() / args.reps
-            total = per[:, 0].sum()
-            run_p = lambda: launch(lib_p, outs["p"])  # noqa: E731
-            dev, b2b = device_ms(run_p), back_to_back_ms(run_p)
-            print(f"n={n} K={args.k} {method} f32{layout}: stamped {total / 1e3:.2f} us from the "
-                  f"first stamp to the last (mean of {args.reps} calls); unstamped {dev:.4f} ms "
-                  f"device-only (CUDA graph of 30), {b2b:.4f} ms back to back; max|err| / "
-                  f"max|plain| {errs['p']:.2e} (stamped {errs['s']:.2e})")
-            print("  " + ", ".join(
-                f"{name} {per[i, 0] / 1e3:.2f} us ({100 * per[i, 0] / total:.1f}%, "
-                f"{int(per[i, 1])} stamps)" for i, name in enumerate(names) if per[i, 1] > 0))
+            runs = []
+            for label, cp in enumerate(copies):
+                run_s = cp.launcher(cp.lib_s, n, args.k, e, wts, mu, mid, m, corrected)
+                run_p = cp.launcher(cp.lib_p, n, args.k, e, wts, mu, mid, m, corrected)
+                errs = [float((run() - want).abs().max()) / scale for run in (run_p, run_s)]
+                torch.cuda.synchronize()
+                cp.ns.zero_()
+                for _ in range(args.reps):
+                    run_s()
+                torch.cuda.synchronize()
+                per = cp.ns.double().cpu().numpy() / args.reps
+                total = per[:, 0].sum()
+                layout = (f", layout {cp.lib_p.ais_refit_layout(n, args.k, 0)}"
+                          if hasattr(cp.lib_p, "ais_refit_layout") else "")
+                print(f"[{label}] n={n} K={args.k} {method} f32{layout}: stamped "
+                      f"{total / 1e3:.2f} us from the first stamp to the last (mean of "
+                      f"{args.reps} calls); max|err| / max|plain| {errs[0]:.2e} (stamped "
+                      f"{errs[1]:.2e})")
+                print("  " + ", ".join(
+                    f"{name} {per[i, 0] / 1e3:.2f} us ({100 * per[i, 0] / total:.1f}%, "
+                    f"{int(per[i, 1])} stamps)" for i, name in enumerate(cp.names)
+                    if per[i, 1] > 0))
+                runs.append(run_p)
+            timed = [(label, device_ms(runs[label]), back_to_back_ms(runs[label]))
+                     for label in order]
+            print("  unstamped, in turns: " + "; ".join(
+                f"[{label}] {dev:.4f} ms device-only (CUDA graph of 30), {b2b:.4f} back to back"
+                for label, dev, b2b in timed))
 
 
 if __name__ == "__main__":

@@ -768,28 +768,128 @@ def _refit_data(device, dtype, cs=100, k=8192, m=1638, seed=0):
     return (t.to(device=device, dtype=dtype) for t in (e, mask, w))
 
 
+def _pmc_counts(w, seed=0):
+    """PMC's resampling weights: multinomial counts over the K columns / K,
+    zero for the columns no draw fell on."""
+    k = w.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    draws = torch.multinomial(w.double().cpu(), k, replacement=True, generator=g)
+    return (torch.bincount(draws, minlength=k).double() / k).to(device=w.device, dtype=w.dtype)
+
+
+# (n, K, m): the bench's n = 100, K = 8192, m = 1638; a tile's n = 4 at the
+# CLI's K = 150 with a warp less one of elites; n = 33 (a panel and one row)
+# at K = 8193 (a ragged ballot word); the humanoids' n = 136 (float64 in
+# global memory); every column elite at K = 8193 and at K = 150
+REFIT_SHAPES = [(100, 8192, 1638), (4, 150, 31), (33, 8193, 1638), (136, 8192, 1638),
+                (100, 8193, 8193), (136, 150, 150)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("method", ["mle", "lw", "ss", "rblw", "oas"])
-def test_masked_refit_kernel_matches_plain_version(cuda_device, dtype, method):
-    e, mask, _ = _refit_data(cuda_device, dtype)
-    mu = (e @ mask) / 1638
+@pytest.mark.parametrize("n,k,m", REFIT_SHAPES)
+def test_masked_refit_kernel_matches_plain_version(cuda_device, dtype, method, n, k, m):
+    e, mask, _ = _refit_data(cuda_device, dtype, n, k, m, seed=n + m)
+    mu = (e @ mask) / m
     before = ais_update.MASKED_LAUNCHES
-    got = ais_update.masked_refit_chol(e, mask, mu, 1638, method, 1e-8)
+    got = ais_update.masked_refit_chol(e, mask, mu, m, method, 1e-8)
     assert ais_update.MASKED_LAUNCHES == before + 1
-    want = ais_update.masked_refit_chol_reference(e, mask, mu, 1638, method, 1e-8)
+    want = ais_update.masked_refit_chol_reference(e, mask, mu, m, method, 1e-8)
     _ais_close(got, want, "refit", dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("corrected", [False, True])
-def test_weighted_refit_kernel_matches_plain_version(cuda_device, dtype, corrected):
-    e, _, w = _refit_data(cuda_device, dtype)
+@pytest.mark.parametrize("weights", ["w4", "pmc_counts"])
+@pytest.mark.parametrize("n,k", [(100, 8192), (4, 150), (33, 8193), (136, 8192)])
+def test_weighted_refit_kernel_matches_plain_version(cuda_device, dtype, corrected, weights, n, k):
+    """μΣ-AIS's weights (every column counts) and PMC's counts / K (about a
+    third of the columns zero), each in both forms."""
+    e, _, w = _refit_data(cuda_device, dtype, n, k, 1, seed=n + k)
+    if weights == "pmc_counts":
+        w = _pmc_counts(w, seed=n)
+        assert 0 < int((w != 0).sum()) < k
     mu = e @ w
     before = ais_update.WEIGHTED_LAUNCHES
     got = ais_update.weighted_refit_chol(e, w, mu, corrected, 1e-8)
     assert ais_update.WEIGHTED_LAUNCHES == before + 1
     _ais_close(got, ais_update.weighted_refit_chol_reference(e, w, mu, corrected, 1e-8),
                "refit", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 31])
+def test_masked_mle_refit_rank_deficient_matches_plain_version(cuda_device, dtype, m):
+    """m < n elites: the `mle` estimate has rank m - 1, and only the jitter
+    (1e-8 plus 100 eps of the mean diagonal) keeps it positive definite. The
+    factor is finite, and L Lᵀ matches the plain version's at the refit
+    tolerance; in float32 the trailing columns of L are square roots of
+    pivots about 100 eps of the diagonal, which the order of the sums moves,
+    so L itself is held only in float64."""
+    n, k = 100, 8192
+    e, mask, _ = _refit_data(cuda_device, dtype, n, k, m, seed=m)
+    mu = (e @ mask) / m
+    got = ais_update.masked_refit_chol(e, mask, mu, m, "mle", 1e-8)
+    want = ais_update.masked_refit_chol_reference(e, mask, mu, m, "mle", 1e-8)
+    assert bool(torch.isfinite(got).all())
+    _ais_close(got @ got.T, want @ want.T, "refit", dtype)
+    if dtype == torch.float64:
+        _ais_close(got, want, "refit", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["mle", "lw", "ss", "weighted"])
+def test_refit_kernel_not_positive_definite_gives_the_plain_nans(cuda_device, dtype, case):
+    """An estimate whose pivot 70 of 100 fails: the masked refits with row 70
+    of the elite columns at the mean and a jitter of -1e-3, the weighted one
+    with a weight of -1 on a column that is 10 in row 70 and 0 elsewhere.
+    NaN where the plain version has NaN (on and below the diagonal from
+    column 70), the columns before it at the refit tolerance."""
+    n, k, m, piv = 100, 8192, 1638, 70
+    e, mask, w = _refit_data(cuda_device, dtype, n, k, m, seed=piv)
+    if case == "weighted":
+        e[:, 5] = 0.0
+        e[piv, 5] = 10.0
+        w[5] = -1.0
+        mu = torch.zeros(n, device=cuda_device, dtype=dtype)
+        got = ais_update.weighted_refit_chol(e, w, mu, False, 1e-8)
+        want = ais_update.weighted_refit_chol_reference(e, w, mu, False, 1e-8)
+    else:
+        e[piv, mask != 0] = 0.0
+        mu = (e @ mask) / m
+        got = ais_update.masked_refit_chol(e, mask, mu, m, case, -1e-3)
+        want = ais_update.masked_refit_chol_reference(e, mask, mu, m, case, -1e-3)
+    torch.cuda.synchronize()
+    low = torch.tril(torch.ones((n, n), dtype=torch.bool, device=cuda_device))
+    assert bool(torch.isnan(want[piv:, piv:][low[piv:, piv:]]).all())
+    assert not bool(torch.isnan(want[:, :piv]).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    _ais_close(got[:, :piv], want[:, :piv], "refit", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [100, 136])
+def test_refit_kernel_repeats_bit_for_bit(cuda_device, dtype, n):
+    """Two calls on the same inputs give the same bits: the blocks' partial
+    moments are summed in rank order, with no atomics (n = 136 in float64
+    through global memory)."""
+    e, mask, w = _refit_data(cuda_device, dtype, n, 8192, 1638, seed=n)
+    mu_m, mu_w = (e @ mask) / 1638, e @ w
+    for run in (lambda: ais_update.masked_refit_chol(e, mask, mu_m, 1638, "ss", 1e-8),
+                lambda: ais_update.weighted_refit_chol(e, w, mu_w, True, 1e-8)):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_refit_layout_per_size(cuda_device):
+    """The library's layout: a cluster of 16 blocks; partials and factor in
+    shared memory at the car's n = 100 (both dtypes) and the humanoids' 136
+    in float32, in global memory at 136 in float64."""
+    assert ais_update.refit_layout(100, 8192, torch.float32) == (16, "shared")
+    assert ais_update.refit_layout(100, 8192, torch.float64) == (16, "shared")
+    assert ais_update.refit_layout(136, 8192, torch.float32) == (16, "shared")
+    assert ais_update.refit_layout(136, 8192, torch.float64) == (16, "global")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
