@@ -19,17 +19,20 @@
 //   block ballots the K mask entries or weights 32 at a time and lists its
 //   equal share of the columns that count, in ascending order: the m elite
 //   columns of CEMPPI's mask, the nonzero weights of PMC's counts (~63% of
-//   K), every column of muSigma-AIS's weights. It gathers those columns of
-//   E by cp.async, 32 at a time a lane each, two stages in flight, centres
-//   and weights them in shared memory, and adds their products to its
-//   partial moments: only the lower triangle of A = Xl Xr^T (and, lw/ss,
-//   B = (Xl o Xl)(Xr o Xr)^T), in 4 x 4 register tiles a thread (two
-//   16-byte loads for 16 multiply-adds, where the kernel pair before took
-//   two loads for one), each chunk summed in registers and added to the
-//   partial. A cluster barrier; each block sums a slice of the tiles over
-//   the 16 partials in rank order (distributed shared memory; no atomics,
-//   so double repeats bit for bit), writes it into block 0's factor buffer
-//   and its part of the estimator's two sums into block 0's slots. A second
+//   K), every column of muSigma-AIS's weights. It gathers them 32 at a time
+//   into registers (a lane a column, coalesced where the columns are
+//   dense), centres them and stores them into one of two stages in shared
+//   memory, the next chunk's loads in flight over this chunk's products.
+//   Only the lower triangle of A = Xl Xr^T (and, lw/ss, B = (Xl o Xl)
+//   (Xr o Xr)^T) is summed, in register tiles: 8 x 8 where only A is
+//   (four 16-byte loads of a column for 64 multiply-adds, where the kernel
+//   pair before took two loads for one), 4 x 4 where B is too, with up to 8
+//   column groups per tile where the tiles leave threads idle, their
+//   accumulators in registers over all chunks and added in group order.
+//   A cluster barrier; each block sums a slice of the tiles over the 16
+//   partials in rank order (distributed shared memory; no atomics, so
+//   double repeats bit for bit), writes it into block 0's factor buffer and
+//   its part of the estimator's two sums into block 0's slots. A second
 //   barrier; block 0 alone forms the estimate and its jitter in place (the
 //   per-entry math of refit_math.cuh, which the host check builds with
 //   g++) and factors it with block_linalg.cuh at 384 threads, where the
@@ -62,10 +65,15 @@
 // 5050 x 1638 multiply-adds (33 MFLOP, ~0.5 us at the 67 TFLOP/s float
 // peak), the weighted refit's 5050 x 8192 (83 MFLOP), against 3.3 MB of E
 // read (~1 us at 3.35 TB/s): bound by bytes, but on 16 SMs the weighted
-// moments take ~10 us of their multiply-adds alone, and block 0's factor is
-// a latency-bound chain of ~15 us on one SM (scripts/refit_phase_times.py
-// splits the time). The CMA tail's 60 products (2 MFLOP each, 120 MFLOP)
-// are ~1.8 us of the card's float peak but ~270 us of one SM's; on 16 SMs
+// moments take ~11 us of their multiply-adds alone, and block 0's factor is
+// a latency-bound chain on one SM. Measured (f32, device-only; H100 80GB
+// HBM3, 700 W): ss 0.056, mle 0.051, weighted 0.082 ms (the kernel pair
+// before: 0.098 / 0.082 / 0.084), of which ~35 us are fixed (the factor
+// 21.7 us at 384 threads, the cluster reduction 5-9, the compaction 3.7,
+// the estimate 3-4) and the moments run at ~30% of 16 SMs' multiply-add
+// rate (scripts/refit_phase_times.py splits the time). The CMA tail's 60
+// products (2 MFLOP each, 120 MFLOP) are ~1.8 us of the card's float peak
+// but ~270 us of one SM's; on 16 SMs
 // each of its 40 dependent stages costs the copy of a whole operand (~1
 // us), a band product of ~25 dependent steps of loads and multiply-adds and
 // a cluster barrier, ~4.5 us a stage in all at n = 100
@@ -80,7 +88,6 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <cfloat>
 #include <cmath>
 
 #include <cooperative_groups.h>

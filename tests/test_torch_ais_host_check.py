@@ -131,6 +131,7 @@ def test_weighted_refit_built_for_the_host_matches_the_plain_version(host_check,
     (136, torch.float32, "shared"),   # the humanoids' H·nu
     (100, torch.float64, "shared"),
     (136, torch.float64, "global"),   # A and B alone are 2 x 136^2 x 8 B = 296 KB
+    (200, torch.float32, "global"),
 ])
 def test_refit_layout_per_size(host_check, n, dtype, where):
     """The kernel's layout at K = 8192: partials and factor in shared memory

@@ -780,9 +780,11 @@ def _pmc_counts(w, seed=0):
 # (n, K, m): the bench's n = 100, K = 8192, m = 1638; a tile's n = 4 at the
 # CLI's K = 150 with a warp less one of elites; n = 33 (a panel and one row)
 # at K = 8193 (a ragged ballot word); the humanoids' n = 136 (float64 in
-# global memory); every column elite at K = 8193 and at K = 150
+# global memory); every column elite at K = 8193 and at K = 150; n = 200,
+# past the 144 rows a gather holds in flight and in global memory in both
+# dtypes
 REFIT_SHAPES = [(100, 8192, 1638), (4, 150, 31), (33, 8193, 1638), (136, 8192, 1638),
-                (100, 8193, 8193), (136, 150, 150)]
+                (100, 8193, 8193), (136, 150, 150), (200, 2048, 400)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -801,7 +803,7 @@ def test_masked_refit_kernel_matches_plain_version(cuda_device, dtype, method, n
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("corrected", [False, True])
 @pytest.mark.parametrize("weights", ["w4", "pmc_counts"])
-@pytest.mark.parametrize("n,k", [(100, 8192), (4, 150), (33, 8193), (136, 8192)])
+@pytest.mark.parametrize("n,k", [(100, 8192), (4, 150), (33, 8193), (136, 8192), (200, 2048)])
 def test_weighted_refit_kernel_matches_plain_version(cuda_device, dtype, corrected, weights, n, k):
     """μΣ-AIS's weights (every column counts) and PMC's counts / K (about a
     third of the columns zero), each in both forms."""
@@ -885,11 +887,12 @@ def test_refit_kernel_repeats_bit_for_bit(cuda_device, dtype, n):
 def test_refit_layout_per_size(cuda_device):
     """The library's layout: a cluster of 16 blocks; partials and factor in
     shared memory at the car's n = 100 (both dtypes) and the humanoids' 136
-    in float32, in global memory at 136 in float64."""
+    in float32, in global memory at 136 in float64 and at 200."""
     assert ais_update.refit_layout(100, 8192, torch.float32) == (16, "shared")
     assert ais_update.refit_layout(100, 8192, torch.float64) == (16, "shared")
     assert ais_update.refit_layout(136, 8192, torch.float32) == (16, "shared")
     assert ais_update.refit_layout(136, 8192, torch.float64) == (16, "global")
+    assert ais_update.refit_layout(200, 2048, torch.float32) == (16, "global")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
