@@ -7,14 +7,15 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds the kernels of `mpopis_tpu_torch/csrc/` with nvcc (one process
 per library, all at once) and drives the port's paths (`--only` names
-them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
+them: car, planar, ais, ant, swimmer, pusher, humanoid, standup, cars,
+reacher, pendulums, classic):
 
 - phases 1-5, the car: the car rollout kernel against its plain PyTorch
   version (f32 at the JAX kernel tests' tolerance or, at K=8192 T=50, by
   its median relative error; f64 sample by sample at 1e-9 or within 10x
   the plain version's own spread under a nudge), a car race with CEMPPI at
   K=8192, H=50, 10 AIS iterations, `ss`, λ=10 through the harness (every
-  rollout on the kernel, clean laps), the race at K=150, and the kernel's
+  rollout on the kernel, lap 1 clean), the race at K=150, and the kernel's
   time at K=8192 and K=150 against the plain version's;
 - phases 6-10, the planar-contact MuJoCo tasks: the planar rollout kernel
   and its control-step entry against their plain versions for HalfCheetah,
@@ -67,10 +68,30 @@ them: car, planar, ais, ant, swimmer, pusher, humanoid, standup):
   (floor and self-pair rows counted), `simulate_mujoco_on_device` at the
   JAX bench's configurations (K=1024, H=8, 2 AIS iterations, λ=1.0 / 0.3)
   for 50 steps, the torso's height against a zero-action run, and the
-  timings.
+  timings;
+- phases 37-41, the multi-car race and the car harness's options: kernel
+  1's 2-, 3- and 4-car builds through `MultiCarRacingEnv` against the plain
+  version (f32 at the JAX multi-car tolerance, rtol 2e-4 / atol 2e-2, and by
+  its median at the race's shape; f64 sample by sample at 1e-9 or the nudge
+  rule), `simulate_car_racing(num_cars=3, policy_type="cmamppi")` at K=8192,
+  H=50, 10 AIS iterations (every rollout on the kernel), the f64 CEMPPI
+  step at 3 cars through the kernel against the plain path, the one-car
+  race with state noise, the race at 10 control steps a call against one
+  (f64, K=150, equal metrics), and the kernel's time at 2, 3 and 4 cars;
+- phase 42, the Reacher at the JAX bench's configuration (CEMPPI, K=8192,
+  H=15, 3 AIS iterations, λ=0.05, Σ=0.02·I) with the JAX test's criterion
+  after 30 steps; phases 43-44, InvertedDoublePendulum (the JAX test's
+  K=32, H=15, 2 iterations; reward > 9 a step over 30 steps) and
+  InvertedPendulum (healthy at every step); phase 45, MountainCar (2 trials
+  × 200 steps at the CLI's defaults, one above 9e4) and CartPole. These
+  have no hand-written kernel: their rollouts are plain PyTorch, and no
+  kernel may launch on them (scripts/plain_task_times.py times their
+  control and env steps and counts their device operations).
 
 The f64 comparisons of Ant and the Pusher at the main path's K run the
-first 3 of its T steps; each plain version is timed once. Phases 9
+first 3 of its T steps; each plain version is timed once, the rollouts'
+on the comparison's own run. The nudged plain runs of phases 8 and 18 run
+only where the rule needs them. Phases 9
 (HalfCheetah), 19, 23 (the Swimmer), 27, 31 and 35 also replay ten of the
 main path's own rollout launches (launches 20-29, their inputs recorded as
 the path ran) for their device time and its share of the control step;
@@ -104,7 +125,10 @@ import torch
 
 K, H, ITS = 8192, 50, 10
 SEED = 1
-RACE_STEPS = 1000
+# the race runs to past lap 1 (at step 483), and the reference config K=150
+# for 50 steps: enough to show both on the kernel, short enough to leave the
+# time limit to the later paths
+RACE_STEPS, RACE150_STEPS = 520, 50
 # the planar-contact path: the JAX package's end-to-end contact configuration
 PK, PH, PITS, PLAM = 2048, 15, 3, 0.1
 # Hopper and Walker2d run 20 steps and the other kinds' races 30: enough to
@@ -154,7 +178,8 @@ HUMANOID_STEPS = 50
 # launches 20 .. 29, after the first steps' transient
 MAIN_WINDOW = (20, 10)
 # the paths `--only` selects, in the order of a full run
-PATHS = ("car", "planar", "ais", "ant", "swimmer", "pusher", "humanoid", "standup")
+PATHS = ("car", "planar", "ais", "ant", "swimmer", "pusher", "humanoid", "standup", "cars",
+         "reacher", "pendulums", "classic")
 # the H100's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -188,13 +213,14 @@ def _hold(what: str, err: float, err_nudged: float, bound: float) -> None:
                  f"{what}: {err:.3e} beyond 10x the plain version's own {err_nudged:.3e}")
 
 
-def _candidates(k, horizon, seed, dtype):
-    """Clamped candidate controls (T, 2, K) as the CEMPPI step forms them
-    in its first iteration: U = 0 plus N(0, diag(0.0625, 0.1)) noise."""
+def _candidates(k, horizon, seed, dtype, cars=1):
+    """Clamped candidate controls (T, 2·cars, K) as the CEMPPI step forms
+    them in its first iteration: U = 0 plus N(0, diag(0.0625, 0.1)) noise
+    for each car."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    std = torch.tensor([0.25, 0.1**0.5], dtype=dtype, device="cuda")
-    z = torch.randn((horizon, 2, k), generator=g, dtype=dtype, device="cuda")
+    std = torch.tensor([0.25, 0.1**0.5] * cars, dtype=dtype, device="cuda")
+    z = torch.randn((horizon, 2 * cars, k), generator=g, dtype=dtype, device="cuda")
     return torch.clamp(z * std[None, :, None], -1.0, 1.0).contiguous()
 
 
@@ -536,10 +562,17 @@ def _planar_path(card: str) -> list:
                   f"1e-9; {spread}")
             _hold(f"{task} f64 from {start}: kernel median relative error", med, med_pert, 1e-9)
 
-        # f32, K=2048 T=15, from reset: median relative error < 2e-4
+        # f32, K=2048 T=15, from reset: median relative error < 2e-4; the
+        # plain run is timed here for phase 10
         env, x = env_x(task, torch.float32)
         ctrl32 = ctrl64.float()
-        got, want = kern(env, x, ctrl32), ref(env, x, ctrl32)
+        got = kern(env, x, ctrl32)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ref(env, x, ctrl32)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
         rel32 = _rel_err(got, want)
         max_abs = float(torch.max(torch.abs(got - want)))
         print(f"phase 7: {task} f32 K={PK} T={PH} from reset: rel err max {rel32.max():.3e} "
@@ -547,7 +580,8 @@ def _planar_path(card: str) -> list:
               f"max|err| {max_abs:.3e}")
         _require(bool(torch.all(torch.isfinite(got))), f"{task}: non-finite f32 kernel costs")
         _require(float(np.median(rel32)) < 2e-4, f"{task}: f32 median relative error >= 2e-4")
-        results[task] = {"max_abs_err": max_abs, "median_rel_err_f32": float(np.median(rel32))}
+        results[task] = {"max_abs_err": max_abs, "median_rel_err_f32": float(np.median(rel32)),
+                         "plain_ms": plain_ms}
 
         # planar_step_states against the plain step, 256 lowered states
         for dtype, bound in ((torch.float64, 1e-9), (torch.float32, 2e-4)):
@@ -559,17 +593,21 @@ def _planar_path(card: str) -> list:
             got = planar_step.planar_step_states(env, xs, acts)
             want = env.plain_step(make_state(xs), acts).x
             rel = _rel_state_err(got, want)
-            rel_pert = _rel_state_err(env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x,
-                                      want)
+            med, med_pert = float(np.median(rel)), 0.0
+            spread = "the plain version's own spread not needed"
+            if med > bound:  # the nudged plain step only where the rule needs it
+                rel_pert = _rel_state_err(
+                    env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x, want)
+                med_pert = float(np.median(rel_pert))
+                spread = (f"plain vs plain at actions·(1 + {NUDGE[dtype]:g}): max "
+                          f"{rel_pert.max():.3e} median {med_pert:.3e}, "
+                          f"{int(np.sum(rel_pert > bound))} beyond")
             name = str(dtype)[6:]
             results[task][f"step_max_abs_err_{name}"] = float((got - want).abs().max())
             print(f"phase 7: {task} planar_step_states {name} B=256 from the lowered start "
-                  f"±0.05: rel err max {rel.max():.3e} median {np.median(rel):.3e}, "
-                  f"{int(np.sum(rel > bound))} beyond {bound:g}; plain vs plain at actions·(1 + "
-                  f"{NUDGE[dtype]:g}): max {rel_pert.max():.3e} median {np.median(rel_pert):.3e}, "
-                  f"{int(np.sum(rel_pert > bound))} beyond")
-            _hold(f"{task} {name} step kernel: median relative error", float(np.median(rel)),
-                  float(np.median(rel_pert)), bound)
+                  f"±0.05: rel err max {rel.max():.3e} median {med:.3e}, "
+                  f"{int(np.sum(rel > bound))} beyond {bound:g}; {spread}")
+            _hold(f"{task} {name} step kernel: median relative error", med, med_pert, bound)
     torch.cuda.synchronize()
     print(f"phase 6-7: {time.perf_counter() - t_phase:.1f} s")
 
@@ -583,9 +621,8 @@ def _planar_path(card: str) -> list:
     t_phase = time.perf_counter()
     z = torch.randn((PITS, 6 * PH, PK), generator=torch.Generator("cuda").manual_seed(5),
                     dtype=torch.float64, device="cuda")
-    outs = []
-    for cls, fused, nudge in ((CheetahDeviceEnv, True, 0.0), (PlainCheetah, False, 0.0),
-                              (PlainCheetah, False, NUDGE[torch.float64])):
+
+    def cheetah_step(cls, fused, nudge):
         env64 = cls(dtype=torch.float64, device="cuda")
         cfg = PolicyConfig(kind="cemppi", num_samples=PK, horizon=PH, lam=PLAM, opt_its=PITS,
                            sigma_est="mle", use_fused_rollout=fused)
@@ -594,15 +631,22 @@ def _planar_path(card: str) -> list:
         t0 = time.perf_counter()
         a, ps, inf = pol.step(env64.reset(), pol.init_state(0), z=z * (1 + nudge))
         torch.cuda.synchronize()
-        outs.append((a, ps.U, inf["ais_its"], time.perf_counter() - t0, _counts()))
-    (a_k, u_k, its_k, s_k, n_k), (a_p, u_p, its_p, s_p, n_p), (a_n, u_n, its_n, _, _) = outs
+        return a, ps.U, inf["ais_its"], time.perf_counter() - t0, _counts()
+
+    # the plain path at z·(1 + 1e-15) runs only where the nudge rule needs it
+    a_k, u_k, its_k, s_k, n_k = cheetah_step(CheetahDeviceEnv, True, 0.0)
+    a_p, u_p, its_p, s_p, n_p = cheetah_step(PlainCheetah, False, 0.0)
     err_a, err_u = _rel_norm(a_k, a_p), _rel_norm(u_k, u_p)
-    own_a, own_u = _rel_norm(a_n, a_p), _rel_norm(u_n, u_p)
+    own_a = own_u = 0.0
+    spread = "the plain path's own spread not needed"
+    if max(err_a, err_u) > 1e-8:
+        a_n, u_n, its_n, _, _ = cheetah_step(PlainCheetah, False, NUDGE[torch.float64])
+        own_a, own_u = _rel_norm(a_n, a_p), _rel_norm(u_n, u_p)
+        spread = f"plain vs plain at z·(1+1e-15): {its_n} its, action {own_a:.3e}, U {own_u:.3e}"
     print(f"phase 8: HalfCheetah CEMPPI f64 step K={PK} H={PH}: kernel path {its_k} its "
           f"{s_k:.2f} s, launches {json.dumps(n_k)}; plain path {its_p} its {s_p:.2f} s, "
           f"launches {json.dumps(n_p)}; kernel vs plain, max|Δ| / max|plain|: action {err_a:.3e}, "
-          f"U {err_u:.3e} (bound 1e-8); plain vs plain at z·(1+1e-15): {its_n} its, action "
-          f"{own_a:.3e}, U {own_u:.3e} ({time.perf_counter() - t_phase:.1f} s)")
+          f"U {err_u:.3e} (bound 1e-8); {spread} ({time.perf_counter() - t_phase:.1f} s)")
     _require(n_k["planar_rollout"] == its_k and n_k["planar_step_states"] == 0,
              "the kernel path did not roll out on the kernel")
     _require(n_p["planar_rollout"] == n_p["planar_step_states"] == 0,
@@ -645,20 +689,22 @@ def _planar_path(card: str) -> list:
                                     "planar_rollout", "planar_step_states", sps, card)
 
     # -- phase 10: timings by CUDA events ------------------------------------------
+    # The rollouts are timed on phase 7's f32 inputs from reset, whose plain
+    # run was timed there.
     t_phase = time.perf_counter()
     times = {}
     for task in envs:
         env, x = env_x(task, torch.float32)
-        ctrl = _uniform(PK, PH, envs[task].action_dim, 10, torch.float32)
+        ctrl = _uniform(PK, PH, envs[task].action_dim, 2048, torch.float64).float()
         xs = x[None].contiguous()
         act = torch.zeros((1, envs[task].action_dim), device="cuda")
         times[(task, "rollout")] = _timed(
             f"phase 10: {task} rollout", f"K={PK} T={PH}", lambda: kern(env, x, ctrl), 20,
-            lambda: ref(env, x, ctrl), card)
+            results[task]["plain_ms"], card)
         times[(task, "step")] = _timed(
             f"phase 10: {task} step", "one state",
             lambda: planar_step.planar_step_states(env, xs, act), 50,
-            lambda: env.plain_step(make_state(xs), act), card, reps_p=5)
+            lambda: env.plain_step(make_state(xs), act), card)
     k_ms, p_ms = times[("HalfCheetah-v4", "rollout")]
 
     _step_split("phase 10: HalfCheetah", CheetahDeviceEnv, PK, PH, PITS, PLAM, k_ms)
@@ -674,7 +720,7 @@ def _planar_path(card: str) -> list:
     # written.
     env = CheetahDeviceEnv(dtype=torch.float32, device="cuda")
     x = env.reset().x
-    ctrl = _uniform(PK, PH, env.action_dim, 10, torch.float32)
+    ctrl = _uniform(PK, PH, env.action_dim, 2048, torch.float64).float()
     xs, act = x[None].contiguous(), torch.zeros((1, env.action_dim), device="cuda")
     na, n_sub = env.action_dim, PH * PK * env.FRAME_SKIP
     with _qp_tally(planar_contact, env) as tally:
@@ -1174,17 +1220,21 @@ def _spatial_path(card: str) -> list:
         _require(ok, f"Ant: f32 kernel disagrees from {start}")
 
         # f64, K=64 T=3: 1e-9 relative, beside the plain version's own spread
-        # under controls·(1 + 1e-15)
+        # under controls·(1 + 1e-15) where the error is beyond it (the nudged
+        # plain run is skipped otherwise)
         env64, x64 = env_x(torch.float64, start)
         ctrl64 = _uniform(64, 3, na, 64, torch.float64)
         want = ref(env64, x64, ctrl64)
         rel = _rel_err(kern(env64, x64, ctrl64), want)
-        rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want)
+        own, spread = 0.0, "the plain version's own spread not needed"
+        if rel.max() > 1e-9:
+            rel_pert = _rel_err(ref(env64, x64, ctrl64 * (1 + NUDGE[torch.float64])), want)
+            own = float(rel_pert.max())
+            spread = (f"plain vs plain at controls·(1+1e-15): max {rel_pert.max():.3e} median "
+                      f"{np.median(rel_pert):.3e}")
         print(f"phase 17: Ant f64 K=64 T=3 from {start}: rel err max {rel.max():.3e} median "
-              f"{np.median(rel):.3e}; plain vs plain at controls·(1+1e-15): max "
-              f"{rel_pert.max():.3e} median {np.median(rel_pert):.3e}")
-        _hold(f"Ant f64 from {start}: kernel max relative error", float(rel.max()),
-              float(rel_pert.max()), 1e-9)
+              f"{np.median(rel):.3e}; {spread}")
+        _hold(f"Ant f64 from {start}: kernel max relative error", float(rel.max()), own, 1e-9)
 
     # CUDA reserves local memory for every thread that can be resident at the
     # largest stack launched so far: the first f64 launch's shows here
@@ -1202,16 +1252,20 @@ def _spatial_path(card: str) -> list:
         got = spatial_step.spatial_step_states(env, xs, acts)
         want = env.plain_step(make_state(xs), acts).x
         rel = _rel_state_err(got, want)
-        rel_pert = _rel_state_err(env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x,
-                                  want)
+        med, med_pert = float(np.median(rel)), 0.0
+        spread = "the plain version's own spread not needed"
+        if med > bound:  # the nudged plain step only where the rule needs it
+            rel_pert = _rel_state_err(
+                env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x, want)
+            med_pert = float(np.median(rel_pert))
+            spread = (f"plain vs plain at actions·(1 + {NUDGE[dtype]:g}): max "
+                      f"{rel_pert.max():.3e} median {med_pert:.3e}")
         name = str(dtype)[6:]
         step_err[name] = float((got - want).abs().max())
         print(f"phase 17: Ant spatial_step_states {name} B=256 from the grounded start ±0.05: "
-              f"rel err max {rel.max():.3e} median {np.median(rel):.3e}, "
-              f"{int(np.sum(rel > bound))} beyond {bound:g}; plain vs plain at actions·(1 + "
-              f"{NUDGE[dtype]:g}): max {rel_pert.max():.3e} median {np.median(rel_pert):.3e}")
-        _hold(f"Ant {name} step kernel: median relative error", float(np.median(rel)),
-              float(np.median(rel_pert)), bound)
+              f"rel err max {rel.max():.3e} median {med:.3e}, "
+              f"{int(np.sum(rel > bound))} beyond {bound:g}; {spread}")
+        _hold(f"Ant {name} step kernel: median relative error", med, med_pert, bound)
     torch.cuda.synchronize()
     print(f"phase 16-17: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1224,9 +1278,8 @@ def _spatial_path(card: str) -> list:
     sk, sh = 64, 4
     z = torch.randn((AITS, na * sh, sk), generator=torch.Generator("cuda").manual_seed(18),
                     dtype=torch.float64, device="cuda")
-    outs = []
-    for cls, fused, nudge in ((AntDeviceEnv, True, 0.0), (PlainAnt, False, 0.0),
-                              (PlainAnt, False, NUDGE[torch.float64])):
+
+    def ant_step(cls, fused, nudge):
         env64 = cls(dtype=torch.float64, device="cuda")
         cfg = PolicyConfig(kind="cemppi", num_samples=sk, horizon=sh, lam=ALAM, opt_its=AITS,
                            sigma_est="mle", use_fused_rollout=fused)
@@ -1234,14 +1287,21 @@ def _spatial_path(card: str) -> list:
         _zero_counts()
         a, ps, inf = pol.step(env64.reset(), pol.init_state(0), z=z * (1 + nudge))
         torch.cuda.synchronize()
-        outs.append((a, ps.U, inf["ais_its"], _counts()))
-    (a_k, u_k, its_k, n_k), (a_p, u_p, its_p, n_p), (a_n, u_n, its_n, _) = outs
+        return a, ps.U, inf["ais_its"], _counts()
+
+    # the plain path at z·(1 + 1e-15) runs only where the nudge rule needs it
+    a_k, u_k, its_k, n_k = ant_step(AntDeviceEnv, True, 0.0)
+    a_p, u_p, its_p, n_p = ant_step(PlainAnt, False, 0.0)
     err_a, err_u = _rel_norm(a_k, a_p), _rel_norm(u_k, u_p)
-    own_a, own_u = _rel_norm(a_n, a_p), _rel_norm(u_n, u_p)
+    own_a = own_u = 0.0
+    spread = "the plain path's own spread not needed"
+    if max(err_a, err_u) > 1e-8:
+        a_n, u_n, its_n, _ = ant_step(PlainAnt, False, NUDGE[torch.float64])
+        own_a, own_u = _rel_norm(a_n, a_p), _rel_norm(u_n, u_p)
+        spread = f"plain vs plain at z·(1+1e-15): {its_n} its, action {own_a:.3e}, U {own_u:.3e}"
     print(f"phase 18: Ant CEMPPI f64 step K={sk} H={sh} {AITS} its: kernel path {its_k} its, "
           f"plain path {its_p} its; kernel vs plain, max|Δ| / max|plain|: action {err_a:.3e}, U "
-          f"{err_u:.3e} (bound 1e-8); plain vs plain at z·(1+1e-15): {its_n} its, action "
-          f"{own_a:.3e}, U {own_u:.3e} ({time.perf_counter() - t_phase:.1f} s)")
+          f"{err_u:.3e} (bound 1e-8); {spread} ({time.perf_counter() - t_phase:.1f} s)")
     _require(n_k["spatial_rollout"] == its_k and n_k["spatial_step_states"] == 0,
              "the kernel path did not roll out on the kernel")
     _require(n_p["spatial_rollout"] == n_p["spatial_step_states"] == 0,
@@ -1431,7 +1491,9 @@ def _step_vs_plain(label, step_fn, make, start, jitter, act_hi, na, n_state_jitt
     """The step entry against the plain step on 256 states around a start
     (±jitter on the first `n_state_jitter` entries), f64 at 1e-9 and f32 at
     2e-4 by the median per-state relative error beside the plain version's
-    own spread under actions·(1 + nudge). Returns max|err| per dtype name."""
+    own spread under actions·(1 + nudge) where the median is beyond the
+    bound (the nudged plain step is skipped otherwise). Returns max|err| per
+    dtype name."""
     from mpopis_tpu_torch.models.base import make_state
 
     errs = {}
@@ -1446,16 +1508,20 @@ def _step_vs_plain(label, step_fn, make, start, jitter, act_hi, na, n_state_jitt
         got = step_fn(env, xs, acts)
         want = env.plain_step(make_state(xs), acts).x
         rel = _rel_state_err(got, want)
-        rel_pert = _rel_state_err(env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x,
-                                  want)
+        med, med_pert = float(np.median(rel)), 0.0
+        spread = "the plain version's own spread not needed"
+        if med > bound:
+            rel_pert = _rel_state_err(
+                env.plain_step(make_state(xs), acts * (1 + NUDGE[dtype])).x, want)
+            med_pert = float(np.median(rel_pert))
+            spread = (f"plain vs plain at actions·(1 + {NUDGE[dtype]:g}): max "
+                      f"{rel_pert.max():.3e} median {med_pert:.3e}")
         name = str(dtype)[6:]
         errs[name] = float((got - want).abs().max())
         print(f"{label} step entry {name} B=256 from {start} ±{jitter:g}: rel err max "
-              f"{rel.max():.3e} median {np.median(rel):.3e}, {int(np.sum(rel > bound))} beyond "
-              f"{bound:g}; plain vs plain at actions·(1 + {NUDGE[dtype]:g}): max "
-              f"{rel_pert.max():.3e} median {np.median(rel_pert):.3e}")
-        _hold(f"{label} {name} step kernel: median relative error", float(np.median(rel)),
-              float(np.median(rel_pert)), bound)
+              f"{rel.max():.3e} median {med:.3e}, {int(np.sum(rel > bound))} beyond "
+              f"{bound:g}; {spread}")
+        _hold(f"{label} {name} step kernel: median relative error", med, med_pert, bound)
     return errs
 
 
@@ -1986,7 +2052,8 @@ def _humanoid_path(card: str, which: str) -> list:
 _LIBRARIES = {"car": ("car_rollout",), "planar": ("planar_rollout",),
               "ais": ("ais_update", "linalg"), "ant": ("spatial_rollout",),
               "swimmer": ("swimmer_rollout",), "pusher": ("spatial_rollout",),
-              "humanoid": ("spatial_rollout",), "standup": ("spatial_rollout",)}
+              "humanoid": ("spatial_rollout",), "standup": ("spatial_rollout",),
+              "cars": ("car_rollout",), "reacher": (), "pendulums": (), "classic": ()}
 
 
 def _parse_paths(argv) -> tuple:
@@ -2038,10 +2105,19 @@ def main(argv=None) -> int:
                       ("ant", _spatial_path), ("swimmer", _swimmer_path),
                       ("pusher", _pusher_path),
                       ("humanoid", lambda c: _humanoid_path(c, "humanoid")),
-                      ("standup", lambda c: _humanoid_path(c, "standup"))):
+                      ("standup", lambda c: _humanoid_path(c, "standup")),
+                      ("cars", _cars_path), ("reacher", _reacher_path),
+                      ("pendulums", _pendulums_path), ("classic", _classic_path)):
         if path in paths:
             t_path = time.perf_counter()
-            kernels += run(card)
+            for entry in run(card):
+                # kernel 1 runs on two paths: the multi-car race's numbers
+                # join the one-car race's entry under "multi_car"
+                same = [e for e in kernels if e["name"] == entry["name"]]
+                if same:
+                    same[0]["multi_car"] = {k: v for k, v in entry.items() if k != "name"}
+                else:
+                    kernels.append(entry)
             print(f"path {path}: {time.perf_counter() - t_path:.1f} s")
 
     print(card)
@@ -2058,7 +2134,7 @@ def _car_path(card: str) -> list:
     `kernels` entry of car_rollout."""
     from mpopis_tpu_torch.harness.simulate import simulate_car_racing
     from mpopis_tpu_torch.kernels import build, car_rollout
-    from mpopis_tpu_torch.models import CarRacingEnv
+    from mpopis_tpu_torch.models import CarRacingEnv, MultiCarRacingEnv
     from mpopis_tpu_torch.policies import PolicyConfig, make_policy
 
     build.load_library("car_rollout")
@@ -2072,9 +2148,6 @@ def _car_path(card: str) -> list:
     ref = car_rollout.car_rollout_costs_tak_reference
     kern = car_rollout.car_rollout_costs_tak
 
-    class ThreeCars(CarRacingEnv):
-        num_cars = 3
-
     env32 = CarRacingEnv(dtype=torch.float32, device="cuda")
     env64 = CarRacingEnv(dtype=torch.float64, device="cuda")
     x32, x64 = env32.reset().x, env64.reset().x
@@ -2086,11 +2159,8 @@ def _car_path(card: str) -> list:
         ok = bool(torch.allclose(got, want, rtol=2e-4, atol=2e-3))
         print(f"phase 2: f32 K={k} T={t}: max|err| {err:.3e} (rtol 2e-4, atol 2e-3) ok={ok}")
         _require(ok, f"f32 kernel disagrees at K={k} T={t}")
-    env3 = ThreeCars(dtype=torch.float32, device="cuda")
-    x3 = torch.tensor(
-        [0, 0, np.deg2rad(90.0), 10, 0, 0, 0, 0, 5, 0, np.deg2rad(90.0), 10, 0, 0, 0, 0,
-         -5, 0, np.deg2rad(90.0), 10, 0, 0, 0, 0], dtype=torch.float32, device="cuda",
-    )
+    env3 = MultiCarRacingEnv(num_cars=3, dtype=torch.float32, device="cuda")
+    x3 = env3.reset().x
     ctrl = _uniform(40, 6, 6, 7, torch.float32)
     got, want = kern(env3, x3, ctrl, 6), ref(env3, x3, ctrl, 6)
     err = float(torch.max(torch.abs(got - want)))
@@ -2173,7 +2243,7 @@ def _car_path(card: str) -> list:
     _require(m["track_violations"][0] == 0, "track violations in the race")
     _require(np.isfinite(m["rewards"][0]), "non-finite race reward")
     m150 = simulate_car_racing(
-        num_trials=1, num_steps=100, num_samples=150, horizon=H, lam=10.0,
+        num_trials=1, num_steps=RACE150_STEPS, num_samples=150, horizon=H, lam=10.0,
         ais_its=ITS, ce_sigma_est="ss", laps=2, seed=SEED, device="cuda",
         dtype=torch.float32,
     )
@@ -2197,10 +2267,10 @@ def _car_path(card: str) -> list:
     run_kernel150()
     run_plain()
     torch.cuda.synchronize()
-    plain_a = _time_ms(run_plain, 3)
+    plain_a = _time_ms(run_plain, 1)
     kern_a = _time_ms(run_kernel, 50)
     kern_b = _time_ms(run_kernel, 50)
-    plain_b = _time_ms(run_plain, 3)
+    plain_b = _time_ms(run_plain, 1)
     kernel_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
     k150 = (_time_ms(run_kernel150, 50), _time_ms(run_kernel150, 50))
     print(f"phase 5: f32 K={K} T={H}: kernel {kern_a:.4f} / {kern_b:.4f} ms, "
@@ -2218,7 +2288,7 @@ def _car_path(card: str) -> list:
         states[tol] = pols[tol].init_state(5)
         for _ in range(5):
             _, states[tol], _ = pols[tol].step(env32.reset(), states[tol])
-    for tol in (0.0, 1e-30, 1e-30, 0.0) * 3:
+    for tol in (0.0, 1e-30, 1e-30, 0.0):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
@@ -2256,6 +2326,333 @@ def _car_path(card: str) -> list:
         "median_rel_err_f32": float(np.median(rel32)),
         "ms_k150": sum(k150) / 2,
     }]
+
+
+# -- the multi-car race and the car harness's options ------------------------
+
+# the multi-car race: the reference's multi-car example (CMAMPPI, 3 cars) at
+# the car path's width (K=8192, H=50, 10 AIS iterations) for 40 steps; the
+# CEMPPI f64 step at 3 cars at K=1024, H=20, 3 iterations; the noisy race and
+# the chunked race as the car path's
+CARS_STEPS, NOISE_STEPS, CHUNK_STEPS = 40, 20, 30
+CK, CH, CITS = 1024, 20, 3
+
+
+def _car_ops_bytes(env, k, horizon, num_cars, m_track):
+    """(operations, bytes) of kernel 1 at N cars, counted as for one car
+    (phase 5) per car, plus ~8 operations per pair and action step."""
+    n_sub = int(round(env.dt / env.ddt))
+    pairs = num_cars * (num_cars - 1) // 2
+    ops = k * horizon * (num_cars * (n_sub * 135.0 + 6.0 * m_track + 40.0) + 8.0 * pairs)
+    nbytes = 4.0 * (2 * num_cars * horizon * k + k + 3 * m_track + 8 * num_cars)
+    return ops, nbytes
+
+
+def _cars_path(card: str) -> list:
+    """Phases 37-41: kernel 1's 2-, 3- and 4-car builds through
+    MultiCarRacingEnv, the 3-car CMAMPPI race, the f64 CEMPPI step at 3 cars,
+    the one-car race with state noise and the chunked loop against one step
+    a call. Returns kernel 1's entry for the 3-car race, with its ms at 2,
+    3 and 4 cars."""
+    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
+    from mpopis_tpu_torch.kernels import build, car_rollout
+    from mpopis_tpu_torch.models import MultiCarRacingEnv
+    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+
+    build.load_library("car_rollout")
+    ref = car_rollout.car_rollout_costs_tak_reference
+    kern = car_rollout.car_rollout_costs_tak
+
+    # -- phase 37: the N-car builds against the plain version ------------------
+    t_phase = time.perf_counter()
+    results = {}
+    for n in (2, 3, 4):
+        env32 = MultiCarRacingEnv(num_cars=n, dtype=torch.float32, device="cuda")
+        env64 = MultiCarRacingEnv(num_cars=n, dtype=torch.float64, device="cuda")
+        x32, x64 = env32.reset().x, env64.reset().x
+        # f32 from the staggered reset, K=256 T=10: the JAX multi-car tolerance
+        ctrl = _uniform(256, 10, 2 * n, 37 + n, torch.float32)
+        got, want = kern(env32, x32, ctrl, 10), ref(env32, x32, ctrl, 10)
+        err = float(torch.max(torch.abs(got - want)))
+        ok = bool(torch.allclose(got, want, rtol=2e-4, atol=2e-2))
+        print(f"phase 37: {n} cars f32 K=256 T=10 from the reset: max|err| {err:.3e} (rtol 2e-4, "
+              f"atol 2e-2) ok={ok}")
+        _require(ok, f"f32 {n}-car kernel disagrees")
+        # f64 sample by sample (1e-9 or the nudge rule) on the CEMPPI step's
+        # first candidates; the race's shape at 3 cars
+        k, t = (K, H) if n == 3 else (1024, 20)
+        ctrl64 = _candidates(k, t, 370 + n, torch.float64, cars=n)
+        got, want = kern(env64, x64, ctrl64, t), ref(env64, x64, ctrl64, t)
+        rel64 = _rel_err(got, want)
+        far = np.flatnonzero(rel64 > 1e-9)
+        ratio = 0.0
+        if len(far):
+            runs = (ref(env64, x64, ctrl64 * (1 + 1e-15), t), ref(env64, x64, ctrl64 * (1 - 1e-15), t),
+                    ref(env64, x64 * (1 + 1e-15), ctrl64, t))
+            own = np.max([_rel_err(r, want)[far] for r in runs], axis=0)
+            ratio = float(np.max(rel64[far] / np.maximum(own, 1e-300)))
+        print(f"phase 37: {n} cars f64 K={k} T={t}: max rel {rel64.max():.3e}, median "
+              f"{np.median(rel64):.3e}; {len(far)} samples beyond 1e-9, the largest at "
+              f"{ratio:.3f}x its own spread under a nudge (bound 10x)")
+        _require(bool(torch.all(torch.isfinite(got))), f"{n}-car f64 kernel: non-finite costs")
+        _require(ratio <= 10.0, f"f64 {n}-car kernel disagrees beyond the plain version's spread")
+        results[n] = {"max_abs_err_f64": float(torch.max(torch.abs(got - want)))}
+        # f32 at the race's shape on the first candidates: median relative
+        # error, and the plain time
+        ctrl32 = _candidates(K, H, 3700 + n, torch.float32, cars=n)
+        got = kern(env32, x32, ctrl32, H)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ref(env32, x32, ctrl32, H)
+        end.record()
+        torch.cuda.synchronize()
+        rel32 = _rel_err(got, want)
+        results[n].update(max_abs_err=float(torch.max(torch.abs(got - want))),
+                          median_rel_err_f32=float(np.median(rel32)),
+                          plain_ms=start.elapsed_time(end), env=env32, x=x32, ctrl=ctrl32)
+        print(f"phase 37: {n} cars f32 K={K} T={H}: rel err max {rel32.max():.3e} median "
+              f"{np.median(rel32):.3e}, max|err| {results[n]['max_abs_err']:.3e}")
+        _require(float(np.median(rel32)) < 2e-4, f"{n}-car f32 median relative error >= 2e-4")
+    print(f"phase 37: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 38: the 3-car CMAMPPI race (the reference's multi-car example) --
+    t_phase = time.perf_counter()
+    _zero_counts()
+    m = simulate_car_racing(
+        num_trials=1, num_steps=CARS_STEPS, num_cars=3, policy_type="cmamppi", num_samples=K,
+        horizon=H, lam=10.0, ais_its=ITS, laps=2, seed=SEED, device="cuda",
+        dtype=torch.float32, print_output=False,
+    )
+    counts = _counts()
+    launches, calls = counts["car_rollout"], int(m["ais_iterations"][0])
+    race_sps = float(m["control_steps_per_s"][0])
+    print(f"phase 38: CMAMPPI 3 cars K={K} H={H} {ITS} its: {int(m['steps'][0])} steps, reward "
+          f"{float(m['rewards'][0]):.4f}, {int(m['crash_violations'][0])} C / "
+          f"{int(m['beta_violations'][0])} β / {int(m['track_violations'][0])} track violations, "
+          f"mean V {float(m['mean_vs'][0]):.2f}, {race_sps:.3f} control steps/s, rollout calls "
+          f"{calls}, kernel launches {json.dumps({k: v for k, v in counts.items() if v})} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    _require(launches == calls > 0, "the 3-car race did not run every rollout on the kernel")
+    _require(set(k for k, v in counts.items() if v) == {"car_rollout"}, "other kernels launched")
+    _require(np.isfinite(m["rewards"][0]), "non-finite 3-car race reward")
+
+    # -- phase 39: the CEMPPI step at 3 cars, kernel path vs plain path, f64 ----
+    t_phase = time.perf_counter()
+    env64 = MultiCarRacingEnv(num_cars=3, dtype=torch.float64, device="cuda")
+    z = torch.randn((CITS, 6 * CH, CK), generator=torch.Generator("cuda").manual_seed(39),
+                    dtype=torch.float64, device="cuda")
+
+    def step(fused, nudge):
+        cfg = PolicyConfig(kind="cemppi", num_samples=CK, horizon=CH, lam=10.0, opt_its=CITS,
+                           sigma_est="ss", use_fused_rollout=fused)
+        pol = make_policy(env64, cfg, cov_mat=np.diag([0.0625, 0.1] * 3))
+        _zero_counts()
+        a, ps, inf = pol.step(env64.reset(), pol.init_state(0), z=z * (1 + nudge))
+        torch.cuda.synchronize()
+        return a, ps.U, inf["ais_its"], _counts()["car_rollout"]
+
+    a_k, u_k, its_k, n_k = step(True, 0.0)
+    a_p, u_p, its_p, n_p = step(False, 0.0)
+    err_a, err_u = _rel_norm(a_k, a_p), _rel_norm(u_k, u_p)
+    own_a = own_u = 0.0
+    spread = "the plain path's own spread not needed"
+    if max(err_a, err_u) > 1e-8:
+        a_n, u_n, its_n, _ = step(False, NUDGE[torch.float64])
+        own_a, own_u = _rel_norm(a_n, a_p), _rel_norm(u_n, u_p)
+        spread = f"plain vs plain at z·(1+1e-15): {its_n} its, action {own_a:.3e}, U {own_u:.3e}"
+    print(f"phase 39: CEMPPI f64 step, 3 cars K={CK} H={CH} {CITS} its: kernel path {its_k} its "
+          f"({n_k} launches), plain path {its_p} its ({n_p} launches); kernel vs plain, max|Δ| / "
+          f"max|plain|: action {err_a:.3e}, U {err_u:.3e} (bound 1e-8); {spread} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    _require(n_k == its_k and n_p == 0, "the 3-car CEMPPI step's rollouts are not where they belong")
+    _require(its_k == its_p, "kernel and plain paths ran different iteration counts")
+    _hold("3-car CEMPPI step: action, kernel vs plain path", err_a, own_a, 1e-8)
+    _hold("3-car CEMPPI step: U, kernel vs plain path", err_u, own_u, 1e-8)
+
+    # -- phase 40: the one-car race with state noise; chunked against per step --
+    t_phase = time.perf_counter()
+    _zero_counts()
+    m = simulate_car_racing(
+        num_trials=1, num_steps=NOISE_STEPS, num_samples=K, horizon=H, lam=10.0, ais_its=ITS,
+        ce_sigma_est="ss", state_x_sigma=0.1, state_y_sigma=0.1, state_psi_sigma=0.1, seed=SEED,
+        device="cuda", dtype=torch.float32, print_output=False,
+    )
+    noise_launches = _counts()["car_rollout"]
+    print(f"phase 40: the race with state noise σ = 0.1 (x, y, ψ) K={K}: "
+          f"{int(m['steps'][0])} steps, reward {float(m['rewards'][0]):.4f}, mean V "
+          f"{float(m['mean_vs'][0]):.2f}, {int(m['track_violations'][0])} track / "
+          f"{int(m['beta_violations'][0])} β violations, "
+          f"{float(m['control_steps_per_s'][0]):.3f} control steps/s, kernel launches "
+          f"{noise_launches} for {int(m['ais_iterations'][0])} rollout calls")
+    _require(noise_launches == m["ais_iterations"][0] > 0, "the noisy race left the kernel")
+    _require(np.isfinite(m["rewards"][0]), "non-finite noisy race reward")
+    runs = {}
+    for chunk in (10, 1):
+        _zero_counts()
+        runs[chunk] = simulate_car_racing(
+            num_trials=1, num_steps=CHUNK_STEPS, num_samples=150, horizon=H, lam=10.0,
+            ais_its=ITS, ce_sigma_est="ss", seed=SEED, device="cuda", dtype=torch.float64,
+            print_output=False, steps_per_call=chunk,
+        )
+        _require(_counts()["car_rollout"] == runs[chunk]["ais_iterations"][0],
+                 f"steps_per_call {chunk}: not every rollout on the kernel")
+    keys = ("rewards", "steps", "lap_times", "mean_vs", "max_vs", "mean_betas", "max_betas",
+            "beta_violations", "track_violations")
+    diff = max(float(np.max(np.abs(runs[10][k] - runs[1][k]))) for k in keys)
+    print(f"phase 40: f64 K=150, {CHUNK_STEPS} steps: 10 steps a call {runs[10]['rewards'][0]:.6f} "
+          f"at {float(runs[10]['control_steps_per_s'][0]):.3f} control steps/s, one a call "
+          f"{runs[1]['rewards'][0]:.6f} at {float(runs[1]['control_steps_per_s'][0]):.3f}; max "
+          f"|Δ| over the metrics {diff:.3e} ({time.perf_counter() - t_phase:.1f} s)")
+    for key in keys:
+        _require(np.allclose(runs[10][key], runs[1][key], rtol=1e-12, atol=0.0),
+                 f"the chunked race's {key} differs from one step a call")
+
+    # -- phase 41: kernel 1's times at 2, 3 and 4 cars --------------------------
+    ms = {}
+    for n in (2, 3, 4):
+        r = results[n]
+
+        def run(r=r):
+            kern(r["env"], r["x"], r["ctrl"], H)
+
+        run()
+        torch.cuda.synchronize()
+        ms[n] = (_time_ms(run, 20) + _time_ms(run, 20)) / 2
+        print(f"phase 41: {n} cars f32 K={K} T={H}: kernel {ms[n]:.4f} ms, plain "
+              f"{r['plain_ms']:.2f} ms (CUDA events, the plain time from the comparison's run; "
+              f"{card})")
+    env3 = results[3]["env"]
+    ops, nbytes = _car_ops_bytes(env3, K, H, 3, env3.track_xyw.shape[1])
+    bound = _bound(ops, nbytes)
+    print(f"phase 41: bound at 3 cars {bound[0]:.6f} ms ({bound[1]})")
+    return [{
+        "name": "car_rollout",
+        "route": "cuda",
+        "source": "mpopis_tpu_torch/csrc/car_rollout.cu",
+        "replaces": "mpopis_tpu/kernels/car_rollout.py:79",
+        "launches": launches,
+        "max_abs_err": results[3]["max_abs_err"],
+        "ms": ms[3],
+        "plain_ms": results[3]["plain_ms"],
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+        "cars": 3,
+        "ms_cars": {str(n): ms[n] for n in (2, 3, 4)},
+        "plain_ms_cars": {str(n): results[n]["plain_ms"] for n in (2, 3, 4)},
+        "max_abs_err_f64_cars": {str(n): results[n]["max_abs_err_f64"] for n in (2, 3, 4)},
+        "median_rel_err_f32_cars": {str(n): results[n]["median_rel_err_f32"] for n in (2, 3, 4)},
+    }]
+
+
+# -- the contact-free MuJoCo tasks and the classic tasks (plain PyTorch) ------
+
+# the Reacher: the JAX bench's entry (bench.py:317-329): CEMPPI, K=8192, H=15,
+# 3 AIS iterations, λ=0.05, Σ=0.02·I, `mle`; the pendulums: the JAX tests'
+# CEMPPI (tests/test_pendulum_device.py:105-117): K=32, H=15, 2 AIS
+# iterations, λ=0.1, Σ=0.1; 30 steps each
+RK, RH, RITS, RLAM = 8192, 15, 3, 0.05
+PEND_K, PEND_H, PEND_ITS, PEND_LAM = 32, 15, 2, 0.1
+PLAIN_STEPS = 30
+
+
+def _plain_task(label, task, k, horizon, its, lam, cov, steps, seed, card):
+    """`simulate_mujoco_on_device(task)` on the card for `steps` executed
+    control steps (three chunks of 10 for 30), f32, CEMPPI `mle`: no
+    hand-written kernel may launch (these tasks have none; their rollouts
+    are the plain batched rollout). Replays the executed actions through the
+    env's step, and prints the control steps/s (scripts/plain_task_times.py
+    splits the step and counts its device operations). Returns (metrics,
+    env, states, step rewards)."""
+    import tempfile
+
+    from mpopis_tpu_torch.harness.simulate import PORTED_MUJOCO_TASKS, simulate_mujoco_on_device
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as acts_dir:
+        _zero_counts()
+        m = simulate_mujoco_on_device(
+            task, num_trials=1, num_steps=steps - 1, num_samples=k, horizon=horizon, lam=lam,
+            ais_its=its, ce_sigma_est="mle", cov_mat=cov, seed=seed, device="cuda",
+            dtype=torch.float32, output_acts_file=True, acts_dir=acts_dir, print_output=False,
+        )
+        counts = _counts()
+        (csv,) = [os.path.join(acts_dir, f) for f in os.listdir(acts_dir)]
+        acts = np.loadtxt(csv, delimiter=",", ndmin=2)
+    _require(len(acts) == steps, f"{task}: {len(acts)} executed steps for {steps}")
+    sps = float(m["control_steps_per_s"][0])
+    print(f"{label} {task} K={k} H={horizon} {its} its: reward {float(m['rewards'][0]):.4f} "
+          f"over {len(acts)} executed steps, {sps:.3f} control steps/s ({1e3 / sps:.3f} ms a "
+          f"control step; {card}), ais_iterations {int(m['ais_iterations'][0])} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    _require(not any(counts.values()), f"{task}: a kernel launched: {counts}")
+    _require(np.isfinite(m["rewards"][0]), f"{task}: non-finite reward")
+    env = PORTED_MUJOCO_TASKS[task](dtype=torch.float32, device="cuda")
+    states, rews = [env.reset()], []
+    for a in acts:
+        s2, r = env.step_reward(states[-1], torch.as_tensor(a, dtype=torch.float32, device="cuda"))
+        states.append(s2)
+        rews.append(float(r))
+    return m, env, states, rews
+
+
+def _reacher_path(card: str) -> list:
+    """Phase 42: the Reacher at the JAX bench's configuration, the JAX test's
+    criterion after 30 steps (the fingertip's distance under half its start
+    and under 0.03)."""
+    m, env, states, _ = _plain_task("phase 42:", "Reacher-v4", RK, RH, RITS, RLAM, (0.02, 0.02),
+                                    PLAIN_STEPS, 2, card)
+    d0, d1 = -float(env.reward(states[0])), -float(env.reward(states[PLAIN_STEPS]))
+    print(f"phase 42: the fingertip's distance to the target {d0:.4f} at the reset, {d1:.4f} "
+          f"after {PLAIN_STEPS} steps (criterion: < {0.5 * d0:.4f} and < 0.03)")
+    _require(d1 < 0.5 * d0 and d1 < 0.03, "the Reacher did not reach its target")
+    return []
+
+
+def _pendulums_path(card: str) -> list:
+    """Phases 43-44: InvertedDoublePendulum with the JAX test's criterion
+    (reward > 9·30 over 30 steps) and InvertedPendulum healthy at every
+    step."""
+    m, env, states, rews = _plain_task("phase 43:", "InvertedDoublePendulum-v4", PEND_K, PEND_H,
+                                       PEND_ITS, PEND_LAM, (0.1,), PLAIN_STEPS, 3, card)
+    total = float(np.sum(rews[:PLAIN_STEPS]))
+    print(f"phase 43: InvertedDoublePendulum reward over {PLAIN_STEPS} steps {total:.4f} "
+          f"(criterion > {9.0 * PLAIN_STEPS}); the poles at {float(states[PLAIN_STEPS].x[1]):.4f}"
+          f" / {float(states[PLAIN_STEPS].x[2]):.4f} rad, the cart at "
+          f"{float(states[PLAIN_STEPS].x[0]):.4f}")
+    _require(total > 9.0 * PLAIN_STEPS, "the double pendulum fell")
+    m, env, states, rews = _plain_task("phase 44:", "InvertedPendulum-v4", PEND_K, PEND_H,
+                                       PEND_ITS, PEND_LAM, (0.1,), PLAIN_STEPS, 3, card)
+    worst = max(abs(float(s.x[1])) for s in states)
+    print(f"phase 44: InvertedPendulum healthy at {int(sum(rews))} of {len(rews)} steps, "
+          f"max |θ| {worst:.4f}")
+    _require(sum(rews) == len(rews) and m["rewards"][0] == len(rews),
+             "the pendulum left its healthy range")
+    return []
+
+
+def _classic_path(card: str) -> list:
+    """Phase 45: MountainCar and CartPole at the CLI's defaults (CEMPPI,
+    K=20, H=15, λ=0.1, 5 AIS iterations, λ_ais=0.1, `mle`, Σ=1.5)."""
+    from mpopis_tpu_torch.harness.simulate import simulate_cartpole, simulate_mountaincar
+
+    common = dict(policy_type="cemppi", num_samples=20, horizon=15, lam=0.1, ais_its=5,
+                  lambda_ais=0.1, ce_sigma_est="mle", seed=SEED, device="cuda",
+                  dtype=torch.float32, print_output=False)
+    for name, run, trials in (("MountainCar", simulate_mountaincar, 2),
+                              ("CartPole", simulate_cartpole, 1)):
+        t_phase = time.perf_counter()
+        _zero_counts()
+        m = run(num_trials=trials, num_steps=200, **common)
+        print(f"phase 45: {name}: rewards {json.dumps([round(float(r), 4) for r in m['rewards']])}"
+              f" over {json.dumps([int(s) for s in m['steps']])} steps, control steps/s "
+              f"{json.dumps([round(float(r), 3) for r in m['control_steps_per_s']])} "
+              f"({time.perf_counter() - t_phase:.1f} s; {card})")
+        _require(not any(_counts().values()), f"{name}: a kernel launched")
+        _require(bool(np.all(np.isfinite(m["rewards"]))), f"{name}: non-finite rewards")
+        if name == "MountainCar":
+            _require(float(np.max(m["rewards"])) > 9e4, "no MountainCar trial reached the goal")
+    return []
 
 
 if __name__ == "__main__":

@@ -1,16 +1,18 @@
 """Command-line interface of the port:
 
     python -m mpopis_tpu_torch car --samples 8192 --horizon 50 --ais-its 10
+    python -m mpopis_tpu_torch car --cars 3 --policy cmamppi --samples 8192
+    python -m mpopis_tpu_torch mountaincar --policy cemppi --trials 2
+    python -m mpopis_tpu_torch cartpole --policy cemppi
     python -m mpopis_tpu_torch mujoco --on-device --env-name HalfCheetah-v4 \
         --samples 2048 --horizon 15 --ais-its 3 --lam 0.1 --ce-sigma-est mle
 
-`car` and `mujoco` take the flags and defaults of the JAX package's
+Every subcommand takes the flags and defaults of the JAX package's
 (`python -m mpopis_tpu ...`), plus `--device` (default `cuda`). `mujoco`
-runs with `--on-device` for the tasks of `harness.simulate.PORTED_MUJOCO_TASKS`
-(Ant-v4, HalfCheetah-v4, Hopper-v4, Humanoid-v4, HumanoidStandup-v4,
-Pusher-v4, Swimmer-v4, Walker2d-v4); the other on-device tasks, the host
-engine (no `--on-device`) and the other subcommands exit with "not yet
-ported".
+runs with `--on-device`, for all 11 tasks of
+`harness.simulate.ON_DEVICE_MUJOCO_TASKS`. Still not ported, and exiting
+with "not yet ported": the host engine (`mujoco` without `--on-device`),
+`car --sharded`, and `--save-gif` / `--plot-traj`.
 """
 
 from __future__ import annotations
@@ -19,9 +21,6 @@ import argparse
 import warnings
 
 from mpopis_tpu_torch.policies.config import POLICY_KINDS
-
-_NOT_PORTED = ("mountaincar", "cartpole")
-
 
 def _common(p: argparse.ArgumentParser, samples: int, horizon: int, lam: float,
             ais_its: int = 10, lambda_ais: float = 20.0,
@@ -43,8 +42,8 @@ def _common(p: argparse.ArgumentParser, samples: int, horizon: int, lam: float,
     p.add_argument("--f64", action="store_true", help="use float64")
     p.add_argument(
         "--steps-per-call", type=int, default=None,
-        help="control steps per host read-back (car: 1 only, other values are not yet "
-        "ported; on-device mujoco: default 10)",
+        help="control steps per host read-back (default: 10, or 1 when state noise "
+        "or logging needs the host every step)",
     )
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
@@ -68,6 +67,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="shard the K rollouts across devices (not yet ported)",
     )
 
+    # the JAX package's mountaincar/cartpole defaults: 5 AIS iterations,
+    # λ_ais = 0.1, `mle`
+    mc = sub.add_parser("mountaincar", help="continuous mountain car")
+    _common(mc, 20, 15, 0.1, ais_its=5, lambda_ais=0.1, ce_sigma_est="mle")
+    mc.add_argument("--save-gif", action="store_true", help="not yet ported")
+
+    cp = sub.add_parser("cartpole", help="continuous cart-pole")
+    _common(cp, 20, 15, 0.1, ais_its=5, lambda_ais=0.1, ce_sigma_est="mle")
+    cp.add_argument("--save-gif", action="store_true", help="not yet ported")
+
     from mpopis_tpu_torch.harness.simulate import PORTED_MUJOCO_TASKS
 
     mj = sub.add_parser("mujoco", help="MuJoCo tasks (on-device dynamics with --on-device)")
@@ -81,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host engine only (not yet ported)")
     mj.add_argument(
         "--on-device", action="store_true",
-        help=f"run the dynamics on the card (ported: {', '.join(PORTED_MUJOCO_TASKS)}; "
+        help=f"run the dynamics on the card ({', '.join(PORTED_MUJOCO_TASKS)}; "
         "without it the host engine is not yet ported)",
     )
     mj.add_argument(
@@ -90,34 +99,26 @@ def build_parser() -> argparse.ArgumentParser:
         "(default 3,6, control grade; 6,40 matches mj_step to solver tolerance)",
     )
 
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help="not yet ported")
     return ap
 
 
 def main(argv=None) -> int:
-    ap = build_parser()
-    args, unknown = ap.parse_known_args(argv)
-    if args.cmd in _NOT_PORTED:
-        raise SystemExit(f"mpopis_tpu_torch {args.cmd}: not yet ported")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = build_parser().parse_args(argv)
     if args.cmd == "mujoco":
         return _mujoco(args)
-    if args.sharded:
-        raise SystemExit("mpopis_tpu_torch car --sharded: not yet ported")
-    if args.steps_per_call not in (None, 1):
-        raise SystemExit("mpopis_tpu_torch car --steps-per-call > 1: not yet ported")
+    for flag, name in ((getattr(args, "sharded", False), "--sharded"),
+                       (args.save_gif, "--save-gif"),
+                       (getattr(args, "plot_traj", False), "--plot-traj")):
+        if flag:
+            raise SystemExit(f"mpopis_tpu_torch {args.cmd} {name}: not yet ported")
     import torch
 
-    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
+    from mpopis_tpu_torch.harness import simulate
 
-    simulate_car_racing(
+    common = dict(
         num_trials=args.trials,
         num_steps=args.steps,
-        num_cars=args.cars,
         policy_type=args.policy,
-        laps=args.laps,
         num_samples=args.samples,
         horizon=args.horizon,
         lam=args.lam,
@@ -128,15 +129,26 @@ def main(argv=None) -> int:
         ce_sigma_est=args.ce_sigma_est,
         cma_sigma=args.cma_sigma,
         cma_elite_threshold=args.cma_elite_threshold,
+        seed=args.seed,
+        steps_per_call=args.steps_per_call,
+        dtype=torch.float64 if args.f64 else torch.float32,
+        device=args.device,
+    )
+    if args.cmd == "mountaincar":
+        simulate.simulate_mountaincar(**common)
+        return 0
+    if args.cmd == "cartpole":
+        simulate.simulate_cartpole(**common)
+        return 0
+
+    simulate.simulate_car_racing(
+        num_cars=args.cars,
+        laps=args.laps,
+        track=args.track,
         state_x_sigma=args.state_x_sigma,
         state_y_sigma=args.state_y_sigma,
         state_psi_sigma=args.state_psi_sigma,
-        seed=args.seed,
-        save_gif=args.save_gif,
-        plot_traj=args.plot_traj,
-        track=args.track,
-        dtype=torch.float64 if args.f64 else torch.float32,
-        device=args.device,
+        **common,
     )
     return 0
 
@@ -147,15 +159,8 @@ def _mujoco(args) -> int:
                          "not yet ported")
     import torch
 
-    from mpopis_tpu_torch.harness.simulate import (
-        ON_DEVICE_MUJOCO_TASKS,
-        PORTED_MUJOCO_TASKS,
-        simulate_mujoco_on_device,
-    )
+    from mpopis_tpu_torch.harness.simulate import simulate_mujoco_on_device
 
-    if args.env_name in ON_DEVICE_MUJOCO_TASKS and args.env_name not in PORTED_MUJOCO_TASKS:
-        raise SystemExit(f"mpopis_tpu_torch mujoco --on-device --env-name {args.env_name}: "
-                         "not yet ported")
     for flag, name in ((args.frame_skip is not None, "--frame-skip"),
                        (args.no_native, "--no-native")):
         if flag:

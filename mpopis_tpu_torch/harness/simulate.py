@@ -2,18 +2,24 @@
 AVE/STD/MED/L95/U95/MIN/MAX summary table.
 
 Counterpart of `mpopis_tpu/harness/simulate.py`:
-- `simulate_car_racing` for one car. The MPC loop runs one control step
-  per iteration — policy step, env step, reward — and brings the packed
-  per-step telemetry to the host in one transfer; the step counting, lap
-  detection and violation accounting follow the JAX harness exactly, and so
-  do the printed rows.
-- `simulate_mujoco_on_device` for HalfCheetah, Hopper, Walker2d and Ant,
-  through `_simulate_simple` (the chunked loop, the action CSV).
+- `simulate_car_racing` for 1..4 cars (`num_cars` > 1 is the multi-car
+  race, `mcr`). The MPC loop runs `steps_per_call` control steps (default
+  10) per host read: the packed per-step telemetry rows of a chunk stack
+  on the device and reach the host in one copy, and steps past the stop
+  inside a chunk are discarded. Additive state noise (one car) and policy
+  logging need the host every step and force one step a call. The step
+  counting, lap detection and violation accounting follow the JAX harness
+  exactly, and so do the printed rows.
+- `simulate_mountaincar`, `simulate_cartpole` and `simulate_mujoco_on_device`
+  (all 11 on-device MuJoCo tasks), through `_simulate_simple` (the same
+  chunked loop, the action CSV).
+Every trial shows a progress line while it runs, on a terminal only.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 import warnings
 
@@ -25,14 +31,21 @@ from mpopis_tpu_torch.harness.stats import SUMMARY_ROWS, summary_value
 from mpopis_tpu_torch.models import (
     AntDeviceEnv,
     CarRacingEnv,
+    CartPoleEnv,
     CheetahDeviceEnv,
     HopperDeviceEnv,
     HumanoidDeviceEnv,
     HumanoidStandupDeviceEnv,
+    InvertedDoublePendulumDeviceEnv,
+    InvertedPendulumDeviceEnv,
+    MountainCarEnv,
+    MultiCarRacingEnv,
     PusherDeviceEnv,
+    ReacherDeviceEnv,
     SwimmerDeviceEnv,
     Walker2dDeviceEnv,
 )
+from mpopis_tpu_torch.models.base import done_mask
 from mpopis_tpu_torch.policies.config import canonical_kind
 
 _AIS_KINDS = {"imppi", "cemppi", "cmamppi", "muaismppi", "musigmaaismppi", "pmcmppi", "nesmppi"}
@@ -42,6 +55,43 @@ _LAMBDA_AIS_KINDS = {"muaismppi", "musigmaaismppi", "pmcmppi"}
 def _print(enabled: bool, fmt: str, *args) -> None:
     if enabled:
         print(fmt % args if args else fmt, flush=True)
+
+
+class _Progress:
+    """Per-trial progress line (bar, step count, rate, ETA), redrawn in
+    place at most ~10 times a second and erased at the end, only when
+    printing is on and stdout is a terminal, so piped output stays clean."""
+
+    def __init__(self, enabled: bool, trial: int, num_trials: int, total_steps: int):
+        self.on = bool(enabled and sys.stdout.isatty() and total_steps > 0)
+        self.trial = trial
+        self.num_trials = num_trials
+        self.total = total_steps
+        self.t0 = time.perf_counter()
+        self._last = 0.0
+
+    def update(self, step: int) -> None:
+        if not self.on:
+            return
+        now = time.perf_counter()
+        if now - self._last < 0.1 and step < self.total:
+            return
+        self._last = now
+        frac = min(step / self.total, 1.0)
+        filled = int(frac * 20)
+        rate = step / max(now - self.t0, 1e-9)
+        eta = (self.total - step) / max(rate, 1e-9)
+        sys.stdout.write(
+            f"\rTrial {self.trial}/{self.num_trials} "
+            f"[{'#' * filled}{'.' * (20 - filled)}] "
+            f"{step}/{self.total} steps  {rate:5.1f}/s  ETA {eta:4.0f}s\x1b[K"
+        )
+        sys.stdout.flush()
+
+    def finish(self) -> None:
+        if self.on:
+            sys.stdout.write("\r\x1b[K")
+            sys.stdout.flush()
 
 
 def _banner(
@@ -103,13 +153,14 @@ def _default_seed() -> int:
 
 
 def _resolve_chunk(steps_per_call, needs_host_every_step: bool) -> int:
-    """Control steps per host read-back. Policy logging needs the host every
-    control step, so it forces 1, even over an explicit request."""
+    """Control steps per host read-back. State noise and policy logging need
+    the host every control step, so they force 1, even over an explicit
+    request."""
     if needs_host_every_step:
         if steps_per_call is not None and steps_per_call > 1:
             warnings.warn(
-                f"steps_per_call={steps_per_call} ignored: logging needs the host every "
-                "control step; using 1",
+                f"steps_per_call={steps_per_call} ignored: noise/logging need the host "
+                "every control step; using 1",
                 stacklevel=3,
             )
         return 1
@@ -171,14 +222,15 @@ def _simulate_simple(
     )
 
     def run_chunk(s, ps):
-        """`chunk` control steps; the rows stack on the device."""
+        """`chunk` control steps; the rows, `done` included, stack on the
+        device."""
         rows, its = [], 0
         for _ in range(chunk):
             act, ps, info = pol.step(s, ps)
             s2, r = env.step_reward(s, act)
             its += info["ais_its"]
             rows.append(torch.cat([
-                torch.stack([r.to(env.dtype), r.new_tensor(float(s2.done), dtype=env.dtype)]),
+                torch.stack([r.to(env.dtype), done_mask(s2).to(env.dtype)]),
                 act.to(env.dtype),
             ]))
             s = s2
@@ -190,11 +242,14 @@ def _simulate_simple(
     ais_iterations = np.zeros(num_trials)
     for k in range(1, num_trials + 1):
         ps = pol.init_state(seed + k)
-        s = env.reset()
+        # a seeded random start where the task draws one (MountainCar, CartPole)
+        s = env.reset(torch.Generator().manual_seed(seed + k)) if env.random_reset else env.reset()
         t0 = time.perf_counter()
         rew, cnt, done, its = 0.0, 0, False, 0
         acts: list[np.ndarray] = []
+        prog = _Progress(print_output, k, num_trials, num_steps)
         while not done and cnt <= num_steps:
+            prog.update(cnt)
             if chunk > 1:
                 s, ps, rows_d, n_its = run_chunk(s, ps)
                 its += n_its
@@ -215,6 +270,7 @@ def _simulate_simple(
             done = bool(s.done)
             if output_acts_file:
                 acts.append(act.cpu().numpy().astype(np.float64))
+        prog.finish()
         dt = time.perf_counter() - t0
         rews[k - 1] = rew
         steps[k - 1] = cnt - 1
@@ -252,6 +308,23 @@ def _simulate_simple(
     return metrics
 
 
+def simulate_mountaincar(**kwargs):
+    """The reference's MountainCar example: `_simulate_simple` on
+    `MountainCarEnv`, each trial from a random start seeded with seed + k.
+    `dtype` and `device` (default cuda) place the run."""
+    env = MountainCarEnv(dtype=kwargs.pop("dtype", torch.float32),
+                         device=kwargs.pop("device", "cuda"))
+    return _simulate_simple(env, "MountainCar", **kwargs)
+
+
+def simulate_cartpole(**kwargs):
+    """The reference's CartPole example: `_simulate_simple` on
+    `CartPoleEnv`, each trial from a random start seeded with seed + k."""
+    env = CartPoleEnv(dtype=kwargs.pop("dtype", torch.float32),
+                      device=kwargs.pop("device", "cuda"))
+    return _simulate_simple(env, "CartPole", **kwargs)
+
+
 ON_DEVICE_MUJOCO_TASKS = (
     "Ant-v4",
     "Humanoid-v4",
@@ -274,7 +347,10 @@ PORTED_MUJOCO_TASKS = {
     "Hopper-v4": HopperDeviceEnv,
     "Humanoid-v4": HumanoidDeviceEnv,
     "HumanoidStandup-v4": HumanoidStandupDeviceEnv,
+    "InvertedDoublePendulum-v4": InvertedDoublePendulumDeviceEnv,
+    "InvertedPendulum-v4": InvertedPendulumDeviceEnv,
     "Pusher-v4": PusherDeviceEnv,
+    "Reacher-v4": ReacherDeviceEnv,
     "Swimmer-v4": SwimmerDeviceEnv,
     "Walker2d-v4": Walker2dDeviceEnv,
 }
@@ -283,13 +359,14 @@ PORTED_MUJOCO_TASKS = {
 def simulate_mujoco_on_device(task: str, **kwargs):
     """A MuJoCo task with on-device dynamics: the K×T rollouts of each
     control step run on the card (for the planar- and spatial-contact
-    families, one kernel launch per AIS iteration). Counterpart of the JAX
-    package's `simulate_mujoco_on_device`; ported for the tasks of
-    PORTED_MUJOCO_TASKS. `solver_iters=(outer, cg)` sets the contact QP's fixed
-    iteration counts (default (3, 6)); `dtype` and `device` (default cuda)
-    place the run. Returns the metrics dict, `ais_iterations` and
-    `control_steps_per_s` included."""
-    if task not in ON_DEVICE_MUJOCO_TASKS:
+    families, one kernel launch per AIS iteration; for the contact-free
+    Reacher and pendulums, the plain batched rollout). Counterpart of the
+    JAX package's `simulate_mujoco_on_device`, for all 11 tasks of
+    ON_DEVICE_MUJOCO_TASKS. `solver_iters=(outer, cg)` sets the contact
+    QP's fixed iteration counts (default (3, 6)); `dtype` and `device`
+    (default cuda) place the run. Returns the metrics dict,
+    `ais_iterations` and `control_steps_per_s` included."""
+    if task not in PORTED_MUJOCO_TASKS:
         raise ValueError(
             f"no on-device dynamics for {task!r}; options {ON_DEVICE_MUJOCO_TASKS} "
             "(the host engine supports all 11 tasks: python -m mpopis_tpu mujoco)"
@@ -297,8 +374,6 @@ def simulate_mujoco_on_device(task: str, **kwargs):
     solver_iters = kwargs.pop("solver_iters", None)
     if solver_iters is not None and task not in CONTACT_SOLVER_TASKS:
         raise ValueError(f"{task!r} has no contact solver (solver_iters)")
-    if task not in PORTED_MUJOCO_TASKS:
-        raise NotImplementedError(f"simulate_mujoco_on_device({task!r}): not yet ported")
     cls = PORTED_MUJOCO_TASKS[task]
     dtype = kwargs.pop("dtype", torch.float32)
     device = kwargs.pop("device", "cuda")
@@ -342,58 +417,92 @@ def simulate_car_racing(
     print_output=True,
     dtype=torch.float32,
     device="cuda",
+    steps_per_call=None,
 ):
-    """Race `num_trials` trials of up to `num_steps` control steps; trial k
-    is seeded with seed + k. Returns the metrics dict (one entry per trial
-    in each array), including `ais_iterations`, the rollout calls made."""
-    for flag, what in (
-        (num_cars != 1, "num_cars > 1"),
-        (save_gif, "save_gif"),
-        (plot_traj, "plot_traj"),
-        (bool(state_x_sigma or state_y_sigma or state_psi_sigma), "state noise"),
-    ):
+    """Race `num_trials` trials of up to `num_steps` control steps with
+    `num_cars` cars (1..4 on the rollout kernel); trial k is seeded with
+    seed + k, its state noise (one car only) drawn from numpy's
+    `default_rng(seed + k)` in the JAX harness's order. Returns the metrics
+    dict (one entry per trial in each array), including `ais_iterations`,
+    the rollout calls made."""
+    for flag, what in ((save_gif, "save_gif"), (plot_traj, "plot_traj")):
         if flag:
             raise NotImplementedError(f"simulate_car_racing: {what} is not yet ported")
     if seed is None:
         seed = _default_seed()
+    sim_type = "mcr" if num_cars > 1 else "cr"
     if u0 is None:
-        u0 = [0.0, 0.0]
+        u0 = [0.0, 0.0] * num_cars
     if cov_mat is None:
-        cov_mat = np.diag([0.0625, 0.1])
+        cov_mat = np.diag([0.0625, 0.1] * num_cars)
 
     _banner(
-        print_output, "cr", policy_type, num_trials, num_steps, num_samples,
+        print_output, sim_type, policy_type, num_trials, num_steps, num_samples,
         horizon, lam, alpha, ais_its, lambda_ais, ce_elite_threshold,
         ce_sigma_est, cma_sigma, cma_elite_threshold, seed,
         extra=[("Num Cars:", num_cars), ("Max Num Laps:", laps)],
     )
 
-    env = CarRacingEnv(dtype=dtype, device=device, track_name=track)
+    if num_cars > 1:
+        env = MultiCarRacingEnv(num_cars=num_cars, dtype=dtype, device=device, track_name=track)
+    else:
+        env = CarRacingEnv(dtype=dtype, device=device, track_name=track)
     pol = get_policy(
         policy_type, env, num_samples, horizon, lam, alpha, u0, cov_mat,
         pol_log, ais_its, lambda_ais, ce_elite_threshold, ce_sigma_est,
         cma_sigma, cma_elite_threshold,
     )
+    has_noise = sim_type == "cr" and bool(state_x_sigma or state_y_sigma or state_psi_sigma)
+    chunk = _resolve_chunk(steps_per_call, needs_host_every_step=has_noise or pol_log)
 
     def stats_vec(s, rew):
         """Per-step bookkeeping packed into one tensor, so the host pays a
-        single transfer per control step: [rew, within, d, curr_y, v, β]."""
-        x = s.x
+        single transfer per read: [rew, within, d, curr_y, vs(N), betas(N)]."""
+        cars = s.x.reshape(num_cars, 8)
         within, _ = env.within_track(s)
-        return torch.stack([
+        head = torch.stack([
             rew,
             within.to(rew.dtype),
-            torch.sqrt(x[0] ** 2 + x[1] ** 2),
-            x[1],
-            torch.sqrt(x[3] ** 2 + x[4] ** 2),
-            torch.abs(torch.atan2(x[4], x[3])),
+            torch.min(torch.sqrt(cars[:, 0] ** 2 + cars[:, 1] ** 2)),
+            torch.min(cars[:, 1]),
         ])
+        vs = torch.sqrt(cars[:, 3] ** 2 + cars[:, 4] ** 2)
+        betas = torch.abs(torch.atan2(cars[:, 4], cars[:, 3]))
+        return torch.cat([head, vs, betas])
+
+    def add_noise(s, rng):
+        """Additive state noise for one car: x, y, ψ, then the velocity
+        rotated by dψ, on the host in the state's dtype."""
+        x = s.x.cpu().numpy().copy()
+        x[0] += state_x_sigma * rng.standard_normal()
+        x[1] += state_y_sigma * rng.standard_normal()
+        dpsi = state_psi_sigma * rng.standard_normal()
+        x[2] += dpsi
+        rot = np.array([[np.cos(dpsi), np.sin(dpsi)], [-np.sin(dpsi), np.cos(dpsi)]])
+        x[3:5] = rot @ x[3:5]
+        return s.replace(x=env.tensor(x))
+
+    def run_chunk(s, ps, rng):
+        """`chunk` control steps (1 with noise); the telemetry rows stack on
+        the device and come back in one copy."""
+        rows, its = [], 0
+        for _ in range(chunk):
+            act, ps, info = pol.step(s, ps)
+            s = env.step(s, act)
+            its += info["ais_its"]
+            rew = env.reward(s)
+            if has_noise:
+                s = add_noise(s, rng)
+            rows.append(stats_vec(s, rew))
+        return s, ps, torch.stack(rows).cpu().numpy(), its
 
     header = f"Trial    #: {'Reward':>12} : {'Steps':>7}: {'Reward/Step':>12}"
     for ii in range(1, laps + 1):
         header += f" : {'lap ':>6}{ii}"
     header += f" : {'Mean V':>7} : {'Max V':>7} : {'Mean β':>7} : {'Max β':>7}"
     header += f" : {'β Viol':>7} : {'T Viol':>7}"
+    if sim_type == "mcr":
+        header += f" : {'C Viol':>7}"
     header += f" : {'Ex Time':>7}"
     _print(print_output, header)
 
@@ -414,58 +523,66 @@ def simulate_car_racing(
     for k in range(1, n_t + 1):
         ps = pol.init_state(seed + k)
         s = env.reset()
+        noise_rng = np.random.default_rng(seed + k)
         t0 = time.perf_counter()
 
         lap_time = np.zeros(laps, dtype=int)
-        v_log, b_log = [], []
+        v_mean_log, v_max_log, b_mean_log, b_max_log = [], [], [], []
         rew, cnt, lap, prev_y = 0.0, 0, 0, 0.0
         trk_viol, b_viol, crash_viol, its = 0, 0, 0, 0
         done = False
 
+        prog = _Progress(print_output, k, n_t, num_steps)
         while not done and cnt <= num_steps:
-            act, ps, info = pol.step(s, ps)
-            s = env.step(s, act)
-            its += info["ais_its"]
-            stats = stats_vec(s, env.reward(s)).cpu().numpy()
+            prog.update(cnt)
+            s, ps, stats_block, n_its = run_chunk(s, ps, noise_rng)
+            its += n_its
+            for stats in stats_block:
+                if done or cnt > num_steps:
+                    break  # steps run past the stop are discarded
+                cnt += 1
+                step_rew = float(stats[0])
+                rew += step_rew
+                within_t = bool(stats[1] != 0.0)
+                d = float(stats[2])
+                curr_y = float(stats[3])
+                vs = stats[4 : 4 + num_cars]
+                bs = stats[4 + num_cars :]
+                v_mean_log.append(float(np.mean(vs)))
+                v_max_log.append(float(np.max(vs)))
+                b_mean_log.append(float(np.mean(bs)))
+                b_max_log.append(float(np.max(bs)))
 
-            cnt += 1
-            step_rew = float(stats[0])
-            rew += step_rew
-            within_t = bool(stats[1] != 0.0)
-            d = float(stats[2])
-            curr_y = float(stats[3])
-            v_log.append(float(stats[4]))
-            b_log.append(float(stats[5]))
+                # violation accounting
+                if step_rew < -4000:
+                    ex_b = bool(np.max(bs) > env.params.beta_limit)
+                    if ex_b:
+                        b_viol += 1
+                    if not within_t:
+                        trk_viol += 1
+                    temp_rew = step_rew + ex_b * 5000 + (not within_t) * 1000000
+                    if temp_rew < -10500:
+                        crash_viol += 1
 
-            # violation accounting
-            if step_rew < -4000:
-                ex_b = bool(stats[5] > env.params.beta_limit)
-                if ex_b:
-                    b_viol += 1
-                if not within_t:
-                    trk_viol += 1
-                temp_rew = step_rew + ex_b * 5000 + (not within_t) * 1000000
-                if temp_rew < -10500:
-                    crash_viol += 1
+                # lap detection on curve.csv
+                if prev_y < 0.0 <= curr_y and d <= 15.0:
+                    lap += 1
+                    if lap <= laps:
+                        lap_time[lap - 1] = cnt
+                if lap >= laps or trk_viol > 10 or b_viol > 50:
+                    done = True
+                prev_y = curr_y
 
-            # lap detection on curve.csv
-            if prev_y < 0.0 <= curr_y and d <= 15.0:
-                lap += 1
-                if lap <= laps:
-                    lap_time[lap - 1] = cnt
-            if lap >= laps or trk_viol > 10 or b_viol > 50:
-                done = True
-            prev_y = curr_y
-
+        prog.finish()
         dt_s = time.perf_counter() - t0
         rews[k - 1] = rew
         steps[k - 1] = cnt - 1
         exec_times[k - 1] = dt_s
         lap_ts[:, k - 1] = lap_time
-        mean_vs[k - 1] = np.mean(v_log)
-        max_vs[k - 1] = np.max(v_log)
-        mean_bs[k - 1] = np.mean(b_log)
-        max_bs[k - 1] = np.max(b_log)
+        mean_vs[k - 1] = np.mean(v_mean_log)
+        max_vs[k - 1] = np.max(v_max_log)
+        mean_bs[k - 1] = np.mean(b_mean_log)
+        max_bs[k - 1] = np.max(b_max_log)
         b_viols[k - 1] = b_viol
         t_viols[k - 1] = trk_viol
         c_viols[k - 1] = crash_viol
@@ -475,9 +592,11 @@ def simulate_car_racing(
             row = f"Trial {k:4d}: {rew:12.2f} : {cnt - 1:7d}: {rew / max(cnt - 1, 1):12.2f}"
             for ii in range(laps):
                 row += f" : {lap_time[ii]:7d}"
-            row += f" : {np.mean(v_log):7.2f} : {np.max(v_log):7.2f}"
-            row += f" : {np.mean(b_log):7.2f} : {np.max(b_log):7.2f}"
+            row += f" : {np.mean(v_mean_log):7.2f} : {np.max(v_max_log):7.2f}"
+            row += f" : {np.mean(b_mean_log):7.2f} : {np.max(b_max_log):7.2f}"
             row += f" : {b_viol:7d} : {trk_viol:7d}"
+            if sim_type == "mcr":
+                row += f" : {crash_viol:7d}"
             row += f" : {dt_s:7.2f}"
             _print(print_output, row)
 
@@ -503,6 +622,9 @@ def simulate_car_racing(
         metrics[f"lap{ii + 1}_times"] = lap_ts[ii]
         order.append(f"lap{ii + 1}_times")
     order += ["mean_vs", "max_vs", "mean_betas", "max_betas",
-              "beta_violations", "track_violations", "exec_times"]
+              "beta_violations", "track_violations"]
+    if sim_type == "mcr":
+        order.append("crash_violations")
+    order.append("exec_times")
     _summary_table(print_output, metrics, order)
     return metrics

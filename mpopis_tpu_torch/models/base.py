@@ -16,11 +16,15 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class EnvState:
     """Value-type environment state: the flat state vector `x` (..., n),
-    the step counter `t` and the termination flag `done`."""
+    the step counter `t` and the termination flag `done`. `done` is a
+    Python bool for the environments that never end, and a bool tensor (...)
+    on x's device for those that compute it from the state each step
+    (MountainCar, CartPole), so a batch of rollouts ends per sample and
+    nothing is read back to the host to know it."""
 
     x: torch.Tensor
     t: int = 0
-    done: bool = False
+    done: bool | torch.Tensor = False
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -28,6 +32,14 @@ class EnvState:
 
 def make_state(x, t: int = 0, done: bool = False) -> EnvState:
     return EnvState(x=torch.as_tensor(x), t=int(t), done=bool(done))
+
+
+def done_mask(state: EnvState) -> torch.Tensor:
+    """`state.done` as a bool tensor of x's batch shape on x's device (a
+    Python bool is filled in on the device, never copied from the host)."""
+    if isinstance(state.done, torch.Tensor):
+        return state.done
+    return torch.full(state.x.shape[:-1], bool(state.done), device=state.x.device)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -42,6 +54,8 @@ class Env:
 
     dtype: torch.dtype = torch.float32
     device: torch.device | str = "cuda"
+    # True where `reset(generator)` draws a random start from a torch.Generator
+    random_reset = False
 
     def reset(self) -> EnvState:
         raise NotImplementedError

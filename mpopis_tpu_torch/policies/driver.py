@@ -115,6 +115,13 @@ def make_policy(env: Env, cfg: PolicyConfig, u0=None, cov_mat=None) -> Policy:
     return Policy(env=env, cfg=cfg, u0_flat=u0_flat, sigma=sigma, step=step)
 
 
+def _uses_kernel_rollout(env, cfg) -> bool:
+    """The env's rollout kernel when it has one (and nothing is logged);
+    an env without one (the Reacher, the pendulums, the classic tasks)
+    rolls out through the plain `rollout_batch`."""
+    return cfg.use_fused_rollout and not cfg.log and hasattr(env, "fused_rollout_costs_tak")
+
+
 def _make_gmppi_step(env, cfg, u0_flat, sigma0):
     dtype, device = env.dtype, env.device
     action_dim = env.action_dim
@@ -135,7 +142,7 @@ def _make_gmppi_step(env, cfg, u0_flat, sigma0):
         extra0 = strategy.make_extra(env.tensor(sigma0))
     else:
         extra0 = None
-    use_fused = cfg.use_fused_rollout and not cfg.log
+    use_fused = _uses_kernel_rollout(env, cfg)
     n_its = cfg.opt_its if cfg.kind != "gmppi" else 1
 
     def compute_costs(env_state, u_cur, e, chol, u_orig, z_n):
@@ -222,7 +229,7 @@ def _make_mppi_step(env, cfg, u0_flat, sigma_as):
     sigma_t = env.tensor(sigma_as)
     chol_as = torch.linalg.cholesky(sigma_t)
     sigma_inv = torch.linalg.inv(sigma_t)
-    use_fused = cfg.use_fused_rollout and not cfg.log
+    use_fused = _uses_kernel_rollout(env, cfg)
 
     def policy_step(env_state: EnvState, pol_state: PolicyState, z=None):
         """z: optional (K, T, as) standard normals in place of the policy's

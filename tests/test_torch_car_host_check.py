@@ -26,7 +26,7 @@ import torch
 
 from mpopis_tpu_torch.kernels import car_rollout
 from mpopis_tpu_torch.kernels.build import CSRC_DIR
-from mpopis_tpu_torch.models import CarRacingEnv
+from mpopis_tpu_torch.models import CarRacingEnv, MultiCarRacingEnv
 from mpopis_tpu_torch.models.car_racing import step_car_state
 
 K, T = 48, 20
@@ -45,10 +45,6 @@ STARTS = {
 
 class _Cars(CarRacingEnv):
     num_cars = 1
-
-
-class _ThreeCars(CarRacingEnv):
-    num_cars = 3
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +102,8 @@ def _plain(env, x0, ctrl):
 @pytest.mark.parametrize("start", sorted(STARTS))
 def test_car_kernel_code_built_for_the_host_matches_the_plain_version_f64(host_check, start,
                                                                          num_cars):
-    env = (_Cars if num_cars == 1 else _ThreeCars)(dtype=torch.float64, device="cpu")
+    env = (_Cars(dtype=torch.float64, device="cpu") if num_cars == 1 else
+           MultiCarRacingEnv(num_cars=num_cars, dtype=torch.float64, device="cpu"))
     x0 = _start(start, num_cars)
     ctrl = np.random.default_rng(num_cars).uniform(-1, 1, size=(T, 2 * num_cars, K))
     got = _run_host(host_check, env, x0, ctrl, f"{start}.{num_cars}")

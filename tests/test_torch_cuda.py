@@ -1,4 +1,5 @@
-"""The CUDA kernels (car rollout, planar-contact, Swimmer and spatial-contact
+"""The CUDA kernels (car rollout at 1-4 cars, the multi-car harness's
+chunked loop, planar-contact, Swimmer and spatial-contact
 rollouts and control steps, the AIS-update refits and CMA tail, Cholesky and
 forward solve) against their plain PyTorch versions, on the card.
 
@@ -20,6 +21,7 @@ from mpopis_tpu_torch.models import (
     HopperDeviceEnv,
     HumanoidDeviceEnv,
     HumanoidStandupDeviceEnv,
+    MultiCarRacingEnv,
     PusherDeviceEnv,
     SwimmerDeviceEnv,
     Walker2dDeviceEnv,
@@ -76,14 +78,10 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         car_rollout.car_rollout_costs_tak(env, x0, ctrl.transpose(0, 2)[:5], 5)
 
 
-class _Cars(CarRacingEnv):
-    """The car environment seen by the kernel as `num_cars` jointly controlled
-    cars (set per subclass)."""
-
-    num_cars = 1
-
-
-CAR_ENVS = {n: type(f"_Cars{n}", (_Cars,), {"num_cars": n}) for n in (1, 2, 3, 4)}
+def _car_env(num_cars, dtype, device):
+    if num_cars == 1:
+        return CarRacingEnv(dtype=dtype, device=device)
+    return MultiCarRacingEnv(num_cars=num_cars, dtype=dtype, device=device)
 
 
 def _car_start(num_cars, device, dtype):
@@ -102,7 +100,7 @@ def test_car_kernel_car_counts_and_partial_blocks(cuda_device, num_cars, dtype):
     atol 2e-3 (atol 2e-2 with several cars, as the JAX multi-car test),
     float64 sample by sample at 1e-9 or within 10x the plain version's own
     spread (_hold_f64)."""
-    env = CAR_ENVS[num_cars](dtype=dtype, device=cuda_device)
+    env = _car_env(num_cars, dtype, cuda_device)
     x0 = _car_start(num_cars, cuda_device, dtype)
 
     def ref(e, x, u):
@@ -122,6 +120,51 @@ def test_car_kernel_car_counts_and_partial_blocks(cuda_device, num_cars, dtype):
                                        rtol=2e-4, atol=2e-3 if num_cars == 1 else 2e-2)
         else:
             _hold_f64(env, x0, ctrl, got, ref=ref)
+
+
+@pytest.mark.parametrize("num_cars", [2, 3, 4])
+def test_car_kernel_from_the_multi_car_reset(cuda_device, num_cars):
+    """Kernel 1's N-car build through MultiCarRacingEnv from its staggered
+    reset (the pairs 5 m apart, the collision term near), K = 300, T = 20:
+    float32 at the JAX multi-car tolerance, float64 sample by sample."""
+    for dtype in (torch.float32, torch.float64):
+        env = MultiCarRacingEnv(num_cars=num_cars, dtype=dtype, device=cuda_device)
+        s0 = env.reset()
+        ctrl = torch.as_tensor(
+            np.random.default_rng(num_cars).uniform(-1, 1, size=(300, 20, 2 * num_cars)),
+            dtype=dtype, device=cuda_device)
+        before = car_rollout.LAUNCHES
+        got = env.fused_rollout_costs(s0, ctrl)
+        assert car_rollout.LAUNCHES == before + 1
+        want = env.fused_rollout_costs(make_state(s0.x.cpu()), ctrl.cpu())
+        torch.cuda.synchronize()
+        assert car_rollout.LAUNCHES == before + 1
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4, atol=2e-2)
+        else:
+            def ref(e, x, u):
+                return car_rollout.car_rollout_costs_tak_reference(e, x, u, u.shape[0])
+
+            _hold_f64(env, s0.x, ctrl.permute(1, 2, 0).contiguous(), got, ref=ref)
+
+
+def test_chunked_car_loop_on_the_card(cuda_device):
+    """The car harness at f64 on the card, 10 control steps a call against
+    one, K = 150, 3 cars: every rollout launches the kernel, and the two
+    loops keep the same metrics."""
+    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
+
+    kw = dict(num_trials=1, num_steps=23, num_cars=3, num_samples=150, horizon=20, ais_its=3,
+              seed=2, dtype=torch.float64, device=cuda_device, print_output=False)
+    runs = []
+    for chunk in (1, 10):
+        before = car_rollout.LAUNCHES
+        m = simulate_car_racing(steps_per_call=chunk, **kw)
+        assert car_rollout.LAUNCHES - before == m["ais_iterations"][0]
+        runs.append(m)
+    for key in ("rewards", "steps", "lap_times", "mean_vs", "max_vs", "beta_violations",
+                "track_violations", "crash_violations"):
+        np.testing.assert_allclose(runs[1][key], runs[0][key], rtol=1e-9, err_msg=key)
 
 
 PLANAR = {"cheetah": CheetahDeviceEnv, "hopper": HopperDeviceEnv, "walker2d": Walker2dDeviceEnv}
@@ -537,7 +580,9 @@ def _hold_f64(env, x0, ctrl, got, bound=1e-9, ref=spatial_step.spatial_rollout_c
     runs = [ref(env, x0, ctrl * (1 + 1e-15)), ref(env, x0, ctrl * (1 - 1e-15)),
             ref(env, x0 * (1 + 1e-15), ctrl)]
     own = torch.stack([((r[idx] - want[idx]) / want[idx]).abs() for r in runs]).amax(0)
-    cpu = ref(type(env)(dtype=torch.float64, device="cpu"), x0.cpu(), ctrl[..., idx].cpu())
+    cars = {"num_cars": env.num_cars} if isinstance(env, MultiCarRacingEnv) else {}
+    cpu = ref(type(env)(dtype=torch.float64, device="cpu", **cars), x0.cpu(),
+              ctrl[..., idx].cpu())
     own = torch.maximum(own, ((cpu.to(want.device) - want[idx]) / want[idx]).abs())
     if pool:
         own = own.amax().expand(far.numel())

@@ -57,10 +57,10 @@ def test_cli_car_runs_every_kind_on_cpu(kind, capsys):
 def test_simulate_car_racing_counts_rollouts_of_every_kind(kind, per_step):
     m = simulate.simulate_car_racing(
         policy_type=kind, num_trials=1, num_steps=2, num_samples=8, horizon=4, ais_its=2,
-        seed=1, print_output=False, device="cpu", dtype=torch.float64,
+        seed=1, print_output=False, device="cpu", dtype=torch.float64, steps_per_call=1,
     )
     assert np.isfinite(m["rewards"][0]) and m["steps"][0] == 2
-    # 3 policy steps (the JAX loop bound), 1-2 rollouts each
+    # 3 policy steps one at a time (the JAX loop bound), 1-2 rollouts each
     lo, hi = per_step
     assert 3 * lo <= m["ais_iterations"][0] <= 3 * hi
 

@@ -15,13 +15,7 @@ from mpopis_tpu.models import MultiCarRacingEnv as JMultiCarRacingEnv
 from mpopis_tpu.models import rollout_batch as jrollout_batch
 
 from mpopis_tpu_torch.kernels import car_rollout
-from mpopis_tpu_torch.models import CarRacingEnv, rollout_batch
-
-
-class _ThreeCars(CarRacingEnv):
-    """The car environment seen by the kernel as three jointly controlled cars."""
-
-    num_cars = 3
+from mpopis_tpu_torch.models import CarRacingEnv, MultiCarRacingEnv, rollout_batch
 
 
 def _controls(seed, k, t, na=2, dtype=np.float32):
@@ -52,10 +46,9 @@ def test_plain_version_three_cars_matches_jax_kernel_f32():
     jenv = JMultiCarRacingEnv(num_cars=3, dtype=jnp.float32)
     x0 = jenv.reset().x
     want = jcr.car_rollout_costs_tak(jenv, x0, jnp.asarray(ctrl), 6, interpret=True)
-    env = _ThreeCars(dtype=torch.float32, device="cpu")
-    got = car_rollout.car_rollout_costs_tak_reference(
-        env, torch.as_tensor(np.array(x0)), torch.as_tensor(ctrl), 6
-    )
+    env = MultiCarRacingEnv(num_cars=3, dtype=torch.float32, device="cpu")
+    np.testing.assert_array_equal(env.reset().x.numpy(), np.asarray(x0))
+    got = car_rollout.car_rollout_costs_tak_reference(env, env.reset().x, torch.as_tensor(ctrl), 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-2)
 
 

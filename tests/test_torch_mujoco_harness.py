@@ -116,7 +116,6 @@ def test_action_csv_replays_to_the_trial_reward_in_jax(trial):
 @pytest.mark.parametrize("task,kw,exc,match", [
     ("Cheetah-v9", {}, ValueError, "no on-device dynamics"),
     ("Reacher-v4", {"solver_iters": (3, 6)}, ValueError, "no contact solver"),
-    ("Reacher-v4", {}, NotImplementedError, "not yet ported"),
     ("Swimmer-v4", {"solver_iters": (3, 6)}, ValueError, "no contact solver"),
     ("HalfCheetah-v4", {"save_gif": True}, NotImplementedError, "not yet ported"),
     ("HalfCheetah-v4", {"plot_traj": True}, NotImplementedError, "not yet ported"),
@@ -159,7 +158,6 @@ def test_cli_mujoco_on_device_prints_banner_and_table(capsys):
 @pytest.mark.parametrize("argv", [
     ["mujoco"],
     ["mujoco", "--env-name", "Hopper-v4"],
-    ["mujoco", "--on-device", "--env-name", "Reacher-v4"],
 ])
 def test_cli_unported_mujoco_paths_exit(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
@@ -167,17 +165,18 @@ def test_cli_unported_mujoco_paths_exit(argv):
 
 
 def test_cli_on_device_help_names_every_ported_task(capsys, monkeypatch):
-    """The `--on-device` help lists PORTED_MUJOCO_TASKS, all eight."""
+    """The `--on-device` help lists PORTED_MUJOCO_TASKS: all 11 on-device tasks."""
     monkeypatch.setenv("COLUMNS", "1000")  # no line breaks inside a task name
     with pytest.raises(SystemExit) as exit_info:
         main(["mujoco", "--help"])
     assert exit_info.value.code == 0
     line = next(ln for ln in capsys.readouterr().out.splitlines()
                 if ln.strip().startswith("--on-device"))
-    assert len(simulate.PORTED_MUJOCO_TASKS) == 8
+    assert len(simulate.PORTED_MUJOCO_TASKS) == 11
+    assert set(simulate.PORTED_MUJOCO_TASKS) == set(simulate.ON_DEVICE_MUJOCO_TASKS)
     for task in simulate.PORTED_MUJOCO_TASKS:
         assert task in line
-    assert "Humanoid-v4" in line and "HumanoidStandup-v4" in line
+    assert "Humanoid-v4" in line and "HumanoidStandup-v4" in line and "Reacher-v4" in line
 
 
 def test_cli_mujoco_parser_defaults_match_jax():
