@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the kernels of `mpopis_tpu_torch/csrc/` with nvcc (one process
 per library, all at once) and drives the port's paths (`--only` names
 them: car, planar, ais, ant, swimmer, pusher, humanoid, standup, cars,
-reacher, pendulums, classic):
+reacher, pendulums, classic, resume, gif, host):
 
 - phases 1-5, the car: the car rollout kernel against its plain PyTorch
   version (f32 at the JAX kernel tests' tolerance or, at K=8192 T=50, by
@@ -86,7 +86,25 @@ reacher, pendulums, classic):
   × 200 steps at the CLI's defaults, one above 9e4) and CartPole. These
   have no hand-written kernel: their rollouts are plain PyTorch, and no
   kernel may launch on them (scripts/plain_task_times.py times their
-  control and env steps and counts their device operations).
+  control and env steps and counts their device operations);
+- phase 46, checkpoints: a car CEMPPI run at K=150 (H=50, 10 AIS iterations,
+  `ss`, λ=10) on the card, checkpointed after 3 steps and resumed for 3,
+  equals the 6 uninterrupted steps bit for bit (kernel 1 on the path), with
+  PhaseTimer's and timed's times of the policy step; and the host driver's
+  f64 policy math on the card against the CPU's under the same normals, at
+  BASELINE.md row 1's K, H and iterations over a numpy stand-in for the
+  host engine (which needs mujoco);
+- phase 47, gifs: the car race at K=150 with `save_gif` (kernel 1 on the
+  path, one frame a step, 10 steps), then 2 steps with `plot_traj` (the
+  logged rollouts take the plain version, as in the JAX package);
+- phase 48, the host MuJoCo engine with the policy math on the card, at
+  the reference's published configuration (BASELINE.md row 1: HalfCheetah,
+  CEMPPI, K=100, H=50, 5 AIS iterations, λ=1, Σ=0.25·I, frame skip 5, `ss`,
+  seed 1, 2 trials × 50 steps): the rewards, control steps/s and the host's
+  cores, and each trial's action CSV replayed in gymnasium to its reward.
+  Phases 47 and 48 need matplotlib and imageio, and mujoco and gymnasium:
+  where the machine lacks one, the path prints the package's name and that
+  it was not run.
 
 The f64 comparisons of Ant and the Pusher at the main path's K run the
 first 3 of its T steps; each plain version is timed once, the rollouts'
@@ -179,7 +197,10 @@ HUMANOID_STEPS = 50
 MAIN_WINDOW = (20, 10)
 # the paths `--only` selects, in the order of a full run
 PATHS = ("car", "planar", "ais", "ant", "swimmer", "pusher", "humanoid", "standup", "cars",
-         "reacher", "pendulums", "classic")
+         "reacher", "pendulums", "classic", "resume", "gif", "host")
+# the packages beyond torch and numpy that a path needs: where one is
+# missing, the path is not run and says so
+PACKAGES = {"gif": ("matplotlib", "imageio"), "host": ("mujoco", "gymnasium")}
 # the H100's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -2053,7 +2074,14 @@ _LIBRARIES = {"car": ("car_rollout",), "planar": ("planar_rollout",),
               "ais": ("ais_update", "linalg"), "ant": ("spatial_rollout",),
               "swimmer": ("swimmer_rollout",), "pusher": ("spatial_rollout",),
               "humanoid": ("spatial_rollout",), "standup": ("spatial_rollout",),
-              "cars": ("car_rollout",), "reacher": (), "pendulums": (), "classic": ()}
+              "cars": ("car_rollout",), "reacher": (), "pendulums": (), "classic": (),
+              "resume": ("car_rollout",), "gif": ("car_rollout",), "host": ()}
+
+
+def _missing_packages(path: str) -> list:
+    import importlib.util
+
+    return [p for p in PACKAGES.get(path, ()) if importlib.util.find_spec(p) is None]
 
 
 def _parse_paths(argv) -> tuple:
@@ -2107,8 +2135,13 @@ def main(argv=None) -> int:
                       ("humanoid", lambda c: _humanoid_path(c, "humanoid")),
                       ("standup", lambda c: _humanoid_path(c, "standup")),
                       ("cars", _cars_path), ("reacher", _reacher_path),
-                      ("pendulums", _pendulums_path), ("classic", _classic_path)):
+                      ("pendulums", _pendulums_path), ("classic", _classic_path),
+                      ("resume", _resume_path), ("gif", _gif_path), ("host", _host_path)):
         if path in paths:
+            missing = _missing_packages(path)
+            if missing:
+                print(f"path {path}: not run: the machine lacks {', '.join(missing)}")
+                continue
             t_path = time.perf_counter()
             for entry in run(card):
                 # kernel 1 runs on two paths: the multi-car race's numbers
@@ -2652,6 +2685,252 @@ def _classic_path(card: str) -> list:
         _require(bool(np.all(np.isfinite(m["rewards"]))), f"{name}: non-finite rewards")
         if name == "MountainCar":
             _require(float(np.max(m["rewards"])) > 9e4, "no MountainCar trial reached the goal")
+    return []
+
+
+# -- checkpoints, gifs and the host engine ----------------------------------
+
+# the reference's car configuration (car_example.jl; bench.py:243-264):
+# CEMPPI, K=150, H=50, 10 AIS iterations, `ss`, λ=10, Σ=diag(0.0625, 0.1)
+RK150 = dict(kind="cemppi", num_samples=150, horizon=H, lam=10.0, opt_its=ITS, sigma_est="ss")
+RESUME_STEPS, GIF_STEPS, PLOT_STEPS, HOST_STEPS = 3, 10, 2, 5
+# BASELINE.md row 1, the reference's one published result: HalfCheetah-v4,
+# CEMPPI, K=100, H=50, 5 AIS iterations, λ=1, Σ=0.25·I₆, frame skip 5, `ss`,
+# seed 1, 2 trials × 50 steps
+BASELINE_ROW1 = dict(frame_skip=5, num_trials=2, num_steps=50, policy_type="cemppi",
+                     num_samples=100, horizon=50, lam=1.0, ais_its=5, ce_sigma_est="ss",
+                     seed=1, cov_mat=0.25 * np.eye(6))
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def resume_run(device, cfg_kw, steps, dtype=torch.float32):
+    """A car run of 2·`steps` control steps, checkpointed after `steps` and
+    resumed from the file for `steps` more: returns (the uninterrupted run's
+    actions, the resumed run's, the kernel counts of the uninterrupted run,
+    the PhaseTimer report of its steps and the resumed ones after a warm-up
+    step, timed's ms of a policy step)."""
+    import tempfile
+
+    from mpopis_tpu_torch.models import CarRacingEnv
+    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+    from mpopis_tpu_torch.utils import PhaseTimer, load_checkpoint, save_checkpoint, timed
+
+    env = CarRacingEnv(dtype=dtype, device=device)
+    pol = make_policy(env, PolicyConfig(**cfg_kw), cov_mat=np.diag([0.0625, 0.1]))
+    # one step of another seed first, so that the timer holds no first-call set-up
+    env.step(env.reset(), pol.step(env.reset(), pol.init_state(SEED + 1))[0])
+    timer = PhaseTimer()
+
+    def run(s, ps, n):
+        acts = []
+        for _ in range(n):
+            with timer.phase("policy step"):
+                a, ps, _ = pol.step(s, ps)
+                _sync(device)
+            with timer.phase("env step"):
+                s = env.step(s, a)
+                _sync(device)
+            acts.append(a.cpu().numpy())
+        return acts, s, ps
+
+    _zero_counts()
+    first, s, ps = run(env.reset(), pol.init_state(SEED), steps)
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(os.path.join(d, "ck"), ps, s, step=steps)
+        direct, s_direct, _ = run(s, ps, steps)
+        counts = _counts()
+        ps_r, s_r, step, _ = load_checkpoint(path, dtype=dtype, device=device)
+    _require(step == steps, f"the checkpoint's step {step} for {steps}")
+    resumed, s_resumed, ps_r = run(s_r, ps_r, steps)
+    _require(bool(torch.equal(s_resumed.x, s_direct.x)), "the resumed state differs")
+    step_s = timed(pol.step, s_resumed, ps_r, iters=5, warmup=2)
+    return (np.stack(first + direct), np.stack(first + resumed), counts, timer.report(),
+            1e3 * step_s)
+
+
+class HostStub:
+    """A numpy stand-in for the host engine's surface (num_envs, action_dim,
+    action bounds, step, snapshot, restore): K point masses driven by their
+    actions, each paying its distance from a target. For the host driver
+    where mujoco is missing."""
+
+    def __init__(self, num_envs: int, action_dim: int = 6):
+        self.num_envs, self.action_dim = num_envs, action_dim
+        self.action_low, self.action_high = -np.ones(action_dim), np.ones(action_dim)
+        self.target = np.linspace(-0.5, 0.5, action_dim)
+        self.x = np.zeros((num_envs, action_dim))
+        self.rews = np.zeros(num_envs)
+        self._snap = None
+
+    def step(self, actions):
+        actions = np.asarray(actions, dtype=np.float64)
+        if actions.ndim == 1:
+            actions = np.tile(actions, (self.num_envs, 1))
+        self.x = self.x + 0.1 * actions
+        self.rews = -np.sum((self.x - self.target) ** 2, axis=1)
+        return self.x, self.rews
+
+    def snapshot(self):
+        self._snap = self.x.copy()
+
+    def restore(self):
+        self.x = self._snap.copy()
+
+
+def host_policy_run(device, kind, k, horizon, its, steps):
+    """`steps` closed-loop host-driver steps (f64 policy math on `device`) on
+    a `HostStub`, with normals drawn by numpy: returns the actions."""
+    from mpopis_tpu_torch.policies import PolicyConfig
+    from mpopis_tpu_torch.policies.host_driver import make_host_policy
+
+    env = HostStub(k)
+    cfg = PolicyConfig(kind=kind, num_samples=k, horizon=horizon, lam=1.0, opt_its=its,
+                       sigma_est="ss")
+    pol = make_host_policy(env, cfg, cov_mat=0.25 * np.eye(6), device=device)
+    ps, rng, acts = pol.init_state(SEED), np.random.default_rng(SEED), []
+    shape = (k, horizon, 6) if kind == "mppi" else (its, 6 * horizon, k)
+    for _ in range(steps):
+        act, ps, _ = pol.step(ps, z=torch.as_tensor(rng.standard_normal(shape), device=device))
+        env.step(act)
+        acts.append(act)
+    return np.stack(acts)
+
+
+def gif_run(device, cfg_kw, gif_steps, plot_steps, out_dir, dtype=torch.float32):
+    """The car race with `save_gif` for `gif_steps` control steps, then with
+    `plot_traj` for `plot_steps`: returns (the gif's path, its frames, the
+    kernel counts of each run, the metrics of each run)."""
+    import imageio.v2 as imageio
+
+    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
+
+    race = dict(num_trials=1, policy_type=cfg_kw["kind"], num_samples=cfg_kw["num_samples"],
+                horizon=cfg_kw["horizon"], lam=cfg_kw["lam"], ais_its=cfg_kw["opt_its"],
+                ce_sigma_est=cfg_kw["sigma_est"], seed=SEED, device=device, dtype=dtype,
+                print_output=False)
+    gif = os.path.join(out_dir, "race.gif")
+    _zero_counts()
+    m_gif = simulate_car_racing(num_steps=gif_steps - 1, save_gif=True, gif_name=gif, **race)
+    c_gif = _counts()
+    _zero_counts()
+    m_plot = simulate_car_racing(num_steps=plot_steps - 1, plot_traj=True, **race)
+    c_plot = _counts()
+    return gif, len(imageio.mimread(gif)), (c_gif, c_plot), (m_gif, m_plot)
+
+
+def replay_in_gymnasium(csv_path: str, env_name: str) -> float:
+    """Total reward of an action CSV stepped through gymnasium from the
+    engine's deterministic reset."""
+    import gymnasium
+
+    actions = np.loadtxt(csv_path, delimiter=",", ndmin=2)
+    try:
+        env = gymnasium.make(env_name, reset_noise_scale=0.0)
+    except TypeError:
+        env = gymnasium.make(env_name)
+    env.reset(seed=1)
+    env.unwrapped.set_state(env.unwrapped.init_qpos, env.unwrapped.init_qvel)
+    total = 0.0
+    for a in actions:
+        _, r, term, trunc, _ = env.step(a)
+        total += float(r)
+        if term or trunc:
+            break
+    env.close()
+    return total
+
+
+def host_run(device, config, acts_dir):
+    """`simulate_mujoco("HalfCheetah-v4", **config)` with the policy math on
+    `device`: returns (metrics, each trial's gymnasium replay reward, the
+    kernel counts)."""
+    from mpopis_tpu_torch.harness.simulate_mujoco import simulate_mujoco
+
+    _zero_counts()
+    m = simulate_mujoco("HalfCheetah-v4", output_acts_file=True, acts_dir=acts_dir,
+                        print_output=False, device=device, **config)
+    counts = _counts()
+    csvs = sorted(os.listdir(acts_dir), key=lambda f: int(f.rsplit("trial-", 1)[1][:-4]))
+    _require(len(csvs) == config["num_trials"], f"{len(csvs)} action CSVs")
+    replays = [replay_in_gymnasium(os.path.join(acts_dir, f), "HalfCheetah-v4") for f in csvs]
+    return m, replays, counts
+
+
+def _resume_path(card: str) -> list:
+    """Phase 46: a checkpointed and resumed car run on the card equals the
+    uninterrupted one bit for bit."""
+    t_phase = time.perf_counter()
+    uninterrupted, resumed, counts, report, step_ms = resume_run("cuda", RK150, RESUME_STEPS)
+    _require(counts["car_rollout"] > 0, f"kernel 1 did not launch: {counts}")
+    same = bool(np.array_equal(uninterrupted, resumed))
+    print(f"phase 46: car CEMPPI K=150 H={H} {ITS} its f32: {RESUME_STEPS} steps, a checkpoint, "
+          f"{RESUME_STEPS} more; resumed from the file: actions bit-equal={same} (max |diff| "
+          f"{float(np.max(np.abs(uninterrupted - resumed))):.3e}); kernel 1 launched "
+          f"{counts['car_rollout']} times in the uninterrupted run")
+    for line in report.splitlines():
+        print(f"phase 46: PhaseTimer: {line}")
+    print(f"phase 46: timed(policy step) {step_ms:.3f} ms a call (5 calls after 2; {card}) "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    _require(same, "the resumed run differs from the uninterrupted one")
+    hk, hh, hits = (BASELINE_ROW1[n] for n in ("num_samples", "horizon", "ais_its"))
+    for kind in ("cemppi", "mppi"):
+        t0 = time.perf_counter()
+        on_card = host_policy_run("cuda", kind, hk, hh, hits, HOST_STEPS)
+        card_s = time.perf_counter() - t0
+        on_cpu = host_policy_run("cpu", kind, hk, hh, hits, HOST_STEPS)
+        err = float(np.max(np.abs(on_card - on_cpu)))
+        print(f"phase 46: host driver {kind} K={hk} H={hh} {hits} its f64 on the card over the "
+              f"numpy stand-in, {HOST_STEPS} steps ({1e3 * card_s / HOST_STEPS:.1f} ms a step): "
+              f"max |action - the CPU's| {err:.3e} (bound 1e-9)")
+        _require(err <= 1e-9, f"the host driver's {kind} on the card differs from the CPU's")
+    return []
+
+
+def _gif_path(card: str) -> list:
+    """Phase 47: the car race's gif (kernel 1 on the path) and its
+    trajectory plots (the plain rollout, as in the JAX package)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        gif, n_frames, (c_gif, c_plot), (m_gif, m_plot) = gif_run(
+            "cuda", RK150, GIF_STEPS, PLOT_STEPS, d)
+        size = os.path.getsize(gif)
+    print(f"phase 47: car race K=150 with save_gif: {n_frames} frames for {GIF_STEPS} steps "
+          f"({size} bytes), reward {float(m_gif['rewards'][0]):.4f}, kernel 1 launched "
+          f"{c_gif['car_rollout']} times; {PLOT_STEPS} steps with plot_traj: reward "
+          f"{float(m_plot['rewards'][0]):.4f}, kernel 1 launched {c_plot['car_rollout']} times "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    _require(n_frames == GIF_STEPS, f"{n_frames} gif frames for {GIF_STEPS} steps")
+    _require(c_gif["car_rollout"] >= GIF_STEPS, f"kernel 1 did not carry the gif race: {c_gif}")
+    _require(c_plot["car_rollout"] == 0, "the logged rollouts launched kernel 1")
+    _require(bool(np.all(np.isfinite(m_gif["rewards"]))) and m_plot["steps"][0] == PLOT_STEPS - 1,
+             "the gif races did not run")
+    return []
+
+
+def _host_path(card: str) -> list:
+    """Phase 48: the host engine at BASELINE.md row 1, the policy math on the
+    card; each trial's action CSV replays in gymnasium to its reward."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        m, replays, counts = host_run("cuda", BASELINE_ROW1, d)
+    print(f"phase 48: host engine HalfCheetah-v4 CEMPPI K=100 H=50 5 its (BASELINE.md row 1), "
+          f"policy math f64 on the card: rewards {json.dumps([float(r) for r in m['rewards']])} "
+          f"over {json.dumps([int(s) for s in m['steps']])} steps, control steps/s "
+          f"{json.dumps([float(r) for r in m['control_steps_per_s']])}, host cores "
+          f"{os.cpu_count()} ({card}); gymnasium replays {json.dumps(replays)} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    _require(not any(counts.values()), f"a kernel launched on the host path: {counts}")
+    _require(bool(np.all(np.isfinite(m["rewards"]))), "non-finite rewards")
+    _require(bool(np.allclose(replays, m["rewards"], rtol=1e-9, atol=1e-9)),
+             "the gymnasium replays differ from the trials' rewards")
     return []
 
 

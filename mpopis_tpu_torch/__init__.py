@@ -7,8 +7,9 @@ never jax. The hot rollout of the car-racing main path is a hand-written
 CUDA kernel (`csrc/car_rollout.cu`), built with nvcc at first use; on CPU
 tensors every kernel wrapper runs its plain PyTorch version instead.
 
-Ported so far: car racing (one car; the rollout kernel takes 1..4) with
-the GMPPI and CEMPPI policies, the `car` CLI subcommand and its harness.
+Ported: every environment and policy kind of the JAX package, its
+harness and CLI, the host MuJoCo engine, plots and gifs, checkpoints and
+phase timers. Not yet: the sample axis over several GPUs (`car --sharded`).
 """
 
 from mpopis_tpu_torch.models import CarParams, CarRacingEnv, Env, EnvState, Track

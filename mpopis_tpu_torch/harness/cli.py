@@ -6,13 +6,16 @@
     python -m mpopis_tpu_torch cartpole --policy cemppi
     python -m mpopis_tpu_torch mujoco --on-device --env-name HalfCheetah-v4 \
         --samples 2048 --horizon 15 --ais-its 3 --lam 0.1 --ce-sigma-est mle
+    python -m mpopis_tpu_torch mujoco --env-name HalfCheetah-v4 --samples 100 \
+        --horizon 50 --ais-its 5 --seed 1 --output-acts-file
 
 Every subcommand takes the flags and defaults of the JAX package's
 (`python -m mpopis_tpu ...`), plus `--device` (default `cuda`). `mujoco`
-runs with `--on-device`, for all 11 tasks of
-`harness.simulate.ON_DEVICE_MUJOCO_TASKS`. Still not ported, and exiting
-with "not yet ported": the host engine (`mujoco` without `--on-device`),
-`car --sharded`, and `--save-gif` / `--plot-traj`.
+steps the host MuJoCo engine with the policy math on `--device`, or with
+`--on-device` runs the dynamics on the card too, for all 11 tasks of
+`harness.simulate.ON_DEVICE_MUJOCO_TASKS`. `--save-gif` and `--plot-traj`
+write gifs and trajectory plots (`mujoco --on-device` as well). Still not
+ported, and exiting with "not yet ported": `car --sharded`.
 """
 
 from __future__ import annotations
@@ -71,28 +74,32 @@ def build_parser() -> argparse.ArgumentParser:
     # λ_ais = 0.1, `mle`
     mc = sub.add_parser("mountaincar", help="continuous mountain car")
     _common(mc, 20, 15, 0.1, ais_its=5, lambda_ais=0.1, ce_sigma_est="mle")
-    mc.add_argument("--save-gif", action="store_true", help="not yet ported")
+    mc.add_argument("--save-gif", action="store_true")
 
     cp = sub.add_parser("cartpole", help="continuous cart-pole")
     _common(cp, 20, 15, 0.1, ais_its=5, lambda_ais=0.1, ce_sigma_est="mle")
-    cp.add_argument("--save-gif", action="store_true", help="not yet ported")
+    cp.add_argument("--save-gif", action="store_true")
 
     from mpopis_tpu_torch.harness.simulate import PORTED_MUJOCO_TASKS
 
-    mj = sub.add_parser("mujoco", help="MuJoCo tasks (on-device dynamics with --on-device)")
+    mj = sub.add_parser("mujoco", help="MuJoCo tasks: the host engine, or on-device dynamics "
+                        "with --on-device")
     _common(mj, 100, 50, 1.0)
     mj.add_argument("--env-name", default="HalfCheetah-v4")
     mj.add_argument("--frame-skip", type=int, default=None,
-                    help="host engine only (not yet ported); on-device tasks use their gym value")
+                    help="host engine only (default: 5); on-device tasks use their gym value")
     mj.add_argument("--output-acts-file", action="store_true")
     mj.add_argument("--log-runs", action="store_true")
-    mj.add_argument("--no-native", action="store_true",
-                    help="host engine only (not yet ported)")
+    mj.add_argument("--no-native", action="store_true", help="use the Python engine")
     mj.add_argument(
         "--on-device", action="store_true",
         help=f"run the dynamics on the card ({', '.join(PORTED_MUJOCO_TASKS)}; "
-        "without it the host engine is not yet ported)",
+        "without it the K rollouts step the host engine)",
     )
+    mj.add_argument("--save-gif", action="store_true",
+                    help="--on-device with --plot-traj: a gif of the sampled rollouts")
+    mj.add_argument("--plot-traj", action="store_true",
+                    help="--on-device: log and plot the sampled rollouts")
     mj.add_argument(
         "--solver-iters", default=None, metavar="OUTER,CG",
         help="on-device contact tasks: fixed iteration counts of the contact QP solve "
@@ -106,11 +113,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "mujoco":
         return _mujoco(args)
-    for flag, name in ((getattr(args, "sharded", False), "--sharded"),
-                       (args.save_gif, "--save-gif"),
-                       (getattr(args, "plot_traj", False), "--plot-traj")):
-        if flag:
-            raise SystemExit(f"mpopis_tpu_torch {args.cmd} {name}: not yet ported")
+    if getattr(args, "sharded", False):
+        raise SystemExit(f"mpopis_tpu_torch {args.cmd} --sharded: not yet ported")
     import torch
 
     from mpopis_tpu_torch.harness import simulate
@@ -133,6 +137,7 @@ def main(argv=None) -> int:
         steps_per_call=args.steps_per_call,
         dtype=torch.float64 if args.f64 else torch.float32,
         device=args.device,
+        save_gif=args.save_gif,
     )
     if args.cmd == "mountaincar":
         simulate.simulate_mountaincar(**common)
@@ -148,15 +153,47 @@ def main(argv=None) -> int:
         state_x_sigma=args.state_x_sigma,
         state_y_sigma=args.state_y_sigma,
         state_psi_sigma=args.state_psi_sigma,
+        plot_traj=args.plot_traj,
         **common,
     )
     return 0
 
 
 def _mujoco(args) -> int:
+    common = dict(
+        num_trials=args.trials,
+        num_steps=args.steps,
+        policy_type=args.policy,
+        num_samples=args.samples,
+        horizon=args.horizon,
+        lam=args.lam,
+        alpha=args.alpha,
+        ais_its=args.ais_its,
+        lambda_ais=args.lambda_ais,
+        ce_elite_threshold=args.ce_elite_threshold,
+        ce_sigma_est=args.ce_sigma_est,
+        cma_sigma=args.cma_sigma,
+        cma_elite_threshold=args.cma_elite_threshold,
+        seed=args.seed,
+        output_acts_file=args.output_acts_file,
+        device=args.device,
+    )
     if not args.on_device:
-        raise SystemExit("mpopis_tpu_torch mujoco without --on-device (host engine): "
-                         "not yet ported")
+        for flag, name in ((args.save_gif, "--save-gif"), (args.plot_traj, "--plot-traj")):
+            if flag:
+                raise SystemExit(f"mpopis_tpu_torch mujoco {name} needs --on-device "
+                                 "(the host engine renders nothing)")
+        from mpopis_tpu_torch.harness.simulate_mujoco import simulate_mujoco
+
+        # the host engine's policy math is float64 whatever --f64 says
+        simulate_mujoco(
+            args.env_name,
+            frame_skip=args.frame_skip if args.frame_skip is not None else 5,
+            log_runs=args.log_runs,
+            native=not args.no_native,
+            **common,
+        )
+        return 0
     import torch
 
     from mpopis_tpu_torch.harness.simulate import simulate_mujoco_on_device
@@ -175,24 +212,11 @@ def _mujoco(args) -> int:
         solver_iters = (outer, cg)
     simulate_mujoco_on_device(
         args.env_name,
-        num_trials=args.trials,
-        num_steps=args.steps,
-        policy_type=args.policy,
-        num_samples=args.samples,
-        horizon=args.horizon,
-        lam=args.lam,
-        alpha=args.alpha,
-        ais_its=args.ais_its,
-        lambda_ais=args.lambda_ais,
-        ce_elite_threshold=args.ce_elite_threshold,
-        ce_sigma_est=args.ce_sigma_est,
-        cma_sigma=args.cma_sigma,
-        cma_elite_threshold=args.cma_elite_threshold,
-        seed=args.seed,
         steps_per_call=args.steps_per_call,
         solver_iters=solver_iters,
-        output_acts_file=args.output_acts_file,
+        save_gif=args.save_gif,
+        plot_traj=args.plot_traj,
         dtype=torch.float64 if args.f64 else torch.float32,
-        device=args.device,
+        **common,
     )
     return 0

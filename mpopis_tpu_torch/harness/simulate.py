@@ -6,14 +6,17 @@ Counterpart of `mpopis_tpu/harness/simulate.py`:
   race, `mcr`). The MPC loop runs `steps_per_call` control steps (default
   10) per host read: the packed per-step telemetry rows of a chunk stack
   on the device and reach the host in one copy, and steps past the stop
-  inside a chunk are discarded. Additive state noise (one car) and policy
-  logging need the host every step and force one step a call. The step
-  counting, lap detection and violation accounting follow the JAX harness
-  exactly, and so do the printed rows.
+  inside a chunk are discarded. Gif frames, trajectory plots, additive state
+  noise (one car) and policy logging need the host every step and force one
+  step a call. The step counting, lap detection and violation accounting
+  follow the JAX harness exactly, and so do the printed rows.
 - `simulate_mountaincar`, `simulate_cartpole` and `simulate_mujoco_on_device`
   (all 11 on-device MuJoCo tasks), through `_simulate_simple` (the same
   chunked loop, the action CSV).
-Every trial shows a progress line while it runs, on a terminal only.
+`save_gif` writes a 10 fps gif of one frame a control step and `plot_traj`
+draws the K sampled rollouts of each step (`harness/plotting.py`, imported
+only then, as are matplotlib and imageio). Every trial shows a progress
+line while it runs, on a terminal only.
 """
 
 from __future__ import annotations
@@ -153,14 +156,14 @@ def _default_seed() -> int:
 
 
 def _resolve_chunk(steps_per_call, needs_host_every_step: bool) -> int:
-    """Control steps per host read-back. State noise and policy logging need
-    the host every control step, so they force 1, even over an explicit
-    request."""
+    """Control steps per host read-back. Gif rendering, trajectory plots,
+    state noise and policy logging need the host every control step, so they
+    force 1, even over an explicit request."""
     if needs_host_every_step:
         if steps_per_call is not None and steps_per_call > 1:
             warnings.warn(
-                f"steps_per_call={steps_per_call} ignored: noise/logging need the host "
-                "every control step; using 1",
+                f"steps_per_call={steps_per_call} ignored: gif/plot/noise/logging need the "
+                "host every control step; using 1",
                 stacklevel=3,
             )
         return 1
@@ -190,7 +193,9 @@ def _simulate_simple(
     log_runs=True,
     pol_log=False,
     plot_traj=False,
+    plot_traj_perc=1.0,
     save_gif=False,
+    gif_name=None,
     print_output=True,
     steps_per_call=None,
     output_acts_file=False,
@@ -201,13 +206,23 @@ def _simulate_simple(
     bound `cnt <= num_steps`), reported as `cnt − 1`. With `steps_per_call`
     > 1 (default 10) the [reward, done, action…] rows of a chunk stay on the
     device and reach the host in one copy; steps past the end of the trial
-    inside a chunk are discarded, so both paths give the same rewards."""
-    for flag, what in ((plot_traj, "plot_traj"), (save_gif, "save_gif")):
-        if flag:
-            raise NotImplementedError(f"{sim_type}: {what} is not yet ported")
+    inside a chunk are discarded, so both paths give the same rewards.
+
+    `save_gif` draws one frame a control step: the MountainCar or CartPole
+    scene, or for a MuJoCo task (which needs `plot_traj`; without it the gif
+    is dropped with a warning) the K sampled rollouts over the executed
+    trail. The gif is `gif_name` (default from the configuration) at 10 fps."""
     if seed is None:
         seed = _default_seed()
-    chunk = _resolve_chunk(steps_per_call, needs_host_every_step=pol_log)
+    if save_gif and sim_type not in ("MountainCar", "CartPole") and not plot_traj:
+        warnings.warn(
+            f"save_gif for {sim_type} needs plot_traj=True (sampled-trajectory overlays); "
+            "disabling",
+            stacklevel=2,
+        )
+        save_gif = False
+    pol_log = pol_log or plot_traj
+    chunk = _resolve_chunk(steps_per_call, needs_host_every_step=save_gif or pol_log)
     _banner(
         print_output, sim_type, policy_type, num_trials, num_steps, num_samples,
         horizon, lam, alpha, ais_its, lambda_ais, ce_elite_threshold,
@@ -236,6 +251,7 @@ def _simulate_simple(
             s = s2
         return s, ps, torch.stack(rows), its
 
+    frames = [] if save_gif else None
     rews = np.zeros(num_trials)
     steps = np.zeros(num_trials)
     exec_times = np.zeros(num_trials)
@@ -247,6 +263,7 @@ def _simulate_simple(
         t0 = time.perf_counter()
         rew, cnt, done, its = 0.0, 0, False, 0
         acts: list[np.ndarray] = []
+        trail: list[np.ndarray] = []  # executed states (plot_traj)
         prog = _Progress(print_output, k, num_trials, num_steps)
         while not done and cnt <= num_steps:
             prog.update(cnt)
@@ -263,6 +280,8 @@ def _simulate_simple(
                         acts.append(row[2:].astype(np.float64))
                 continue
             act, ps, info = pol.step(s, ps)
+            if plot_traj:
+                trail.append(s.x.cpu().numpy())
             s, r_step = env.step_reward(s, act)
             its += info["ais_its"]
             rew += float(r_step)
@@ -270,6 +289,23 @@ def _simulate_simple(
             done = bool(s.done)
             if output_acts_file:
                 acts.append(act.cpu().numpy().astype(np.float64))
+            if frames is not None:
+                from mpopis_tpu_torch.harness import plotting
+
+                if plot_traj and "trajectories" in info:
+                    # the sampled rollouts over the executed trail
+                    fig = plotting.render_mujoco_trajectories(
+                        sim_type.replace(" (on-device)", ""), trail + [s.x.cpu().numpy()],
+                        info["trajectories"], info["weights"], plot_traj_perc,
+                    )
+                else:
+                    render = {
+                        "MountainCar": plotting.render_mountaincar,
+                        "CartPole": plotting.render_cartpole,
+                    }[sim_type]
+                    fig = render(env, s)
+                frames.append(plotting.figure_to_array(fig))
+                plotting.close(fig)
         prog.finish()
         dt = time.perf_counter() - t0
         rews[k - 1] = rew
@@ -305,6 +341,13 @@ def _simulate_simple(
     }
     _print(print_output, "-----------------------------------")
     _summary_table(print_output, metrics, ["rewards", "steps", "rewards_per_step", "exec_times"])
+    if frames:
+        from mpopis_tpu_torch.harness import plotting
+
+        if gif_name is None:
+            gif_name = f"{sim_type}-{num_samples}-{horizon}-{lam}-{num_trials}.gif"
+        plotting.save_gif(frames, gif_name, fps=10)
+        _print(print_output, "Saved gif...%s", gif_name)
     return metrics
 
 
@@ -369,7 +412,7 @@ def simulate_mujoco_on_device(task: str, **kwargs):
     if task not in PORTED_MUJOCO_TASKS:
         raise ValueError(
             f"no on-device dynamics for {task!r}; options {ON_DEVICE_MUJOCO_TASKS} "
-            "(the host engine supports all 11 tasks: python -m mpopis_tpu mujoco)"
+            "(the host engine supports all 11 tasks: python -m mpopis_tpu_torch mujoco)"
         )
     solver_iters = kwargs.pop("solver_iters", None)
     if solver_iters is not None and task not in CONTACT_SOLVER_TASKS:
@@ -412,7 +455,11 @@ def simulate_car_racing(
     log_runs=True,
     pol_log=False,
     plot_traj=False,
+    plot_traj_perc=1.0,
+    text_with_plot=True,
+    text_on_plot_xy=(80.0, -60.0),
     save_gif=False,
+    gif_name=None,
     track="curve",
     print_output=True,
     dtype=torch.float32,
@@ -424,10 +471,9 @@ def simulate_car_racing(
     seed + k, its state noise (one car only) drawn from numpy's
     `default_rng(seed + k)` in the JAX harness's order. Returns the metrics
     dict (one entry per trial in each array), including `ais_iterations`,
-    the rollout calls made."""
-    for flag, what in ((save_gif, "save_gif"), (plot_traj, "plot_traj")):
-        if flag:
-            raise NotImplementedError(f"simulate_car_racing: {what} is not yet ported")
+    the rollout calls made. `save_gif` writes a 10 fps gif of one frame a
+    control step (the track, the cars and, with `text_with_plot`, car 1's
+    telemetry); `plot_traj` draws the K sampled rollouts into each frame."""
     if seed is None:
         seed = _default_seed()
     sim_type = "mcr" if num_cars > 1 else "cr"
@@ -435,6 +481,8 @@ def simulate_car_racing(
         u0 = [0.0, 0.0] * num_cars
     if cov_mat is None:
         cov_mat = np.diag([0.0625, 0.1] * num_cars)
+    if plot_traj:
+        pol_log = True
 
     _banner(
         print_output, sim_type, policy_type, num_trials, num_steps, num_samples,
@@ -453,7 +501,20 @@ def simulate_car_racing(
         cma_sigma, cma_elite_threshold,
     )
     has_noise = sim_type == "cr" and bool(state_x_sigma or state_y_sigma or state_psi_sigma)
-    chunk = _resolve_chunk(steps_per_call, needs_host_every_step=has_noise or pol_log)
+    chunk = _resolve_chunk(steps_per_call, needs_host_every_step=save_gif or has_noise or pol_log)
+    frames = [] if save_gif else None
+
+    def draw(s, info):
+        """One frame of the stepped state (before any state noise)."""
+        from mpopis_tpu_torch.harness import plotting
+
+        fig = plotting.render_frame(
+            env, s, info if plot_traj else None, plot_traj_perc,
+            text_output=text_with_plot, text_xy=text_on_plot_xy,
+        )
+        if frames is not None:
+            frames.append(plotting.figure_to_array(fig))
+        plotting.close(fig)
 
     def stats_vec(s, rew):
         """Per-step bookkeeping packed into one tensor, so the host pays a
@@ -483,14 +544,16 @@ def simulate_car_racing(
         return s.replace(x=env.tensor(x))
 
     def run_chunk(s, ps, rng):
-        """`chunk` control steps (1 with noise); the telemetry rows stack on
-        the device and come back in one copy."""
+        """`chunk` control steps (1 with a gif, plots or noise); the telemetry
+        rows stack on the device and come back in one copy."""
         rows, its = [], 0
         for _ in range(chunk):
             act, ps, info = pol.step(s, ps)
             s = env.step(s, act)
             its += info["ais_its"]
             rew = env.reward(s)
+            if frames is not None or plot_traj:
+                draw(s, info)
             if has_noise:
                 s = add_noise(s, rng)
             rows.append(stats_vec(s, rew))
@@ -627,4 +690,15 @@ def simulate_car_racing(
         order.append("crash_violations")
     order.append("exec_times")
     _summary_table(print_output, metrics, order)
+
+    if frames:
+        from mpopis_tpu_torch.harness import plotting
+
+        if gif_name is None:
+            gif_name = (
+                f"{sim_type}-{num_cars}-{canonical_kind(policy_type)}-{num_samples}-"
+                f"{horizon}-{lam}-{alpha}-{ais_its}-{num_trials}-{laps}.gif"
+            )
+        plotting.save_gif(frames, gif_name, fps=10)
+        _print(print_output, "Saved gif...%s", gif_name)
     return metrics

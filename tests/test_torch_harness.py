@@ -72,16 +72,7 @@ def test_cli_parser_defaults_match_jax():
     assert ours == theirs
 
 
-@pytest.mark.parametrize("argv", [
-    ["mountaincar", "--save-gif"], ["cartpole", "--steps", "3", "--save-gif"], ["mujoco"],
-    ["car", "--sharded"], ["car", "--plot-traj"],
-])
+@pytest.mark.parametrize("argv", [["car", "--sharded"]])
 def test_unported_paths_exit(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         main(argv)
-
-
-@pytest.mark.parametrize("kw", [dict(save_gif=True), dict(plot_traj=True)])
-def test_simulate_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        simulate.simulate_car_racing(device="cpu", print_output=False, **kw)

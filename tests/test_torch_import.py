@@ -64,6 +64,15 @@ _AIS_MODULES = (
     "mpopis_tpu_torch.kernels.linalg",
     "mpopis_tpu_torch.policies.strategies",
 )
+_HOST_MODULES = (
+    "mpopis_tpu_torch.utils.profiling",
+    "mpopis_tpu_torch.utils.checkpoint",
+    "mpopis_tpu_torch.native.build",
+    "mpopis_tpu_torch.models.mujoco_host",
+    "mpopis_tpu_torch.policies.host_driver",
+    "mpopis_tpu_torch.harness.simulate_mujoco",
+    "mpopis_tpu_torch.harness.plotting",
+)
 
 
 def test_port_imports_every_module_without_jax():
@@ -77,6 +86,7 @@ def test_port_imports_every_module_without_jax():
     assert set(_PLANAR_MODULES) <= set(names)
     assert set(_AIS_MODULES) <= set(names)
     assert set(_SPATIAL_MODULES) <= set(names)
+    assert set(_HOST_MODULES) <= set(names)
 
 
 _CHIP_SMOKE = """
@@ -88,6 +98,8 @@ import chip_smoke
 assert chip_smoke._parse_paths([]) == chip_smoke.PATHS
 assert chip_smoke._parse_paths(["--only", "standup,humanoid"]) == ("humanoid", "standup")
 assert set(chip_smoke._LIBRARIES) == set(chip_smoke.PATHS)
+assert chip_smoke.PATHS[-3:] == ("resume", "gif", "host")
+assert set(chip_smoke.PACKAGES) == {"gif", "host"}
 print(chip_smoke.main([]) if not torch.cuda.is_available() else 2)
 """
 

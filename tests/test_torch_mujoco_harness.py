@@ -117,8 +117,6 @@ def test_action_csv_replays_to_the_trial_reward_in_jax(trial):
     ("Cheetah-v9", {}, ValueError, "no on-device dynamics"),
     ("Reacher-v4", {"solver_iters": (3, 6)}, ValueError, "no contact solver"),
     ("Swimmer-v4", {"solver_iters": (3, 6)}, ValueError, "no contact solver"),
-    ("HalfCheetah-v4", {"save_gif": True}, NotImplementedError, "not yet ported"),
-    ("HalfCheetah-v4", {"plot_traj": True}, NotImplementedError, "not yet ported"),
 ])
 def test_simulate_mujoco_on_device_rejects(task, kw, exc, match):
     with pytest.raises(exc, match=match):
@@ -155,15 +153,6 @@ def test_cli_mujoco_on_device_prints_banner_and_table(capsys):
         assert f"Trials {r}:" in out
 
 
-@pytest.mark.parametrize("argv", [
-    ["mujoco"],
-    ["mujoco", "--env-name", "Hopper-v4"],
-])
-def test_cli_unported_mujoco_paths_exit(argv):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(argv)
-
-
 def test_cli_on_device_help_names_every_ported_task(capsys, monkeypatch):
     """The `--on-device` help lists PORTED_MUJOCO_TASKS: all 11 on-device tasks."""
     monkeypatch.setenv("COLUMNS", "1000")  # no line breaks inside a task name
@@ -183,4 +172,7 @@ def test_cli_mujoco_parser_defaults_match_jax():
     ours = vars(build_parser().parse_args(["mujoco"]))
     theirs = vars(jbuild_parser().parse_args(["mujoco"]))
     assert ours.pop("device") == "cuda"
+    # `mujoco --on-device` takes the gif and plot flags that the JAX package's
+    # simulate_mujoco_on_device takes as arguments; both are off by default
+    assert ours.pop("save_gif") is False and ours.pop("plot_traj") is False
     assert ours == theirs
