@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the kernels of `mpopis_tpu_torch/csrc/` with nvcc (one process
 per library, all at once) and drives the port's paths (`--only` names
 them: car, planar, ais, ant, swimmer, pusher, humanoid, standup, cars,
-reacher, pendulums, classic, resume, gif, host):
+reacher, pendulums, classic, sharded, resume, gif, host):
 
 - phases 1-5, the car: the car rollout kernel against its plain PyTorch
   version (f32 at the JAX kernel tests' tolerance or, at K=8192 T=50, by
@@ -104,7 +104,20 @@ reacher, pendulums, classic, resume, gif, host):
   cores, and each trial's action CSV replayed in gymnasium to its reward.
   Phases 47 and 48 need matplotlib and imageio, and mujoco and gymnasium:
   where the machine lacks one, the path prints the package's name and that
-  it was not run.
+  it was not run;
+- phases 49-52, the sample axis over several ranks (`parallel/`; path
+  `sharded`, run before `resume`): the car race with CEMPPI at K=8192, H=50,
+  10 AIS iterations, `ss`, λ=10 on the `curve` track for 100 steps on a
+  one-rank nccl mesh, its metrics bit-equal to the same race without a mesh
+  (kernel 1 on the path; without, with, with, without, each timed); then two gloo ranks sharing the card, each
+  launching the rollout kernel on its block of samples, their actions,
+  costs and U bit-equal to the single-process step: the one-car CEMPPI step
+  in f32 and f64 for 20 steps and at K=8191 (blocks 4096 and 4095) for 5,
+  the 3-car CMAMPPI step (kernel 1's 3-car build) for 10 and HalfCheetah's
+  CEMPPI step (kernel 2; K=2048, H=15, 3 iterations, `mle`) for 5; and the
+  control steps/s of each beside its single-process twin's (two ranks
+  time-sharing one card: not a scaling figure). The card machine has one
+  card, so no multi-GPU scaling is measured.
 
 The f64 comparisons of Ant and the Pusher at the main path's K run the
 first 3 of its T steps; each plain version is timed once, the rollouts'
@@ -197,7 +210,7 @@ HUMANOID_STEPS = 50
 MAIN_WINDOW = (20, 10)
 # the paths `--only` selects, in the order of a full run
 PATHS = ("car", "planar", "ais", "ant", "swimmer", "pusher", "humanoid", "standup", "cars",
-         "reacher", "pendulums", "classic", "resume", "gif", "host")
+         "reacher", "pendulums", "classic", "sharded", "resume", "gif", "host")
 # the packages beyond torch and numpy that a path needs: where one is
 # missing, the path is not run and says so
 PACKAGES = {"gif": ("matplotlib", "imageio"), "host": ("mujoco", "gymnasium")}
@@ -2075,7 +2088,7 @@ _LIBRARIES = {"car": ("car_rollout",), "planar": ("planar_rollout",),
               "swimmer": ("swimmer_rollout",), "pusher": ("spatial_rollout",),
               "humanoid": ("spatial_rollout",), "standup": ("spatial_rollout",),
               "cars": ("car_rollout",), "reacher": (), "pendulums": (), "classic": (),
-              "resume": ("car_rollout",), "gif": ("car_rollout",), "host": ()}
+              "sharded": ("car_rollout", "planar_rollout"), "resume": ("car_rollout",), "gif": ("car_rollout",), "host": ()}
 
 
 def _missing_packages(path: str) -> list:
@@ -2136,7 +2149,7 @@ def main(argv=None) -> int:
                       ("standup", lambda c: _humanoid_path(c, "standup")),
                       ("cars", _cars_path), ("reacher", _reacher_path),
                       ("pendulums", _pendulums_path), ("classic", _classic_path),
-                      ("resume", _resume_path), ("gif", _gif_path), ("host", _host_path)):
+                      ("sharded", _sharded_path), ("resume", _resume_path), ("gif", _gif_path), ("host", _host_path)):
         if path in paths:
             missing = _missing_packages(path)
             if missing:
@@ -2144,13 +2157,20 @@ def main(argv=None) -> int:
                 continue
             t_path = time.perf_counter()
             for entry in run(card):
-                # kernel 1 runs on two paths: the multi-car race's numbers
-                # join the one-car race's entry under "multi_car"
+                # a kernel that runs on several paths: the later path's numbers
+                # join the first one's entry under "multi_car" (the multi-car
+                # race) or the key the entry names ("under"); where that one
+                # did not run, such an entry stands alone as its name and
+                # that key
+                under = entry.pop("under", None)
                 same = [e for e in kernels if e["name"] == entry["name"]]
+                numbers = {k: v for k, v in entry.items() if k != "name"}
                 if same:
-                    same[0]["multi_car"] = {k: v for k, v in entry.items() if k != "name"}
-                else:
+                    same[0][under or "multi_car"] = numbers
+                elif under is None:
                     kernels.append(entry)
+                else:
+                    kernels.append({"name": entry["name"], under: numbers})
             print(f"path {path}: {time.perf_counter() - t_path:.1f} s")
 
     print(card)
@@ -2686,6 +2706,223 @@ def _classic_path(card: str) -> list:
         if name == "MountainCar":
             _require(float(np.max(m["rewards"])) > 9e4, "no MountainCar trial reached the goal")
     return []
+
+
+# -- the sample axis over several ranks ---------------------------------------
+
+# phase 49 races on a one-rank nccl mesh; phases 50-51 run two gloo ranks that
+# share the card, each launching the rollout kernels on its block of samples
+SHARDED_RACE_STEPS = 100
+SHARDED_TIMEOUT = 300.0
+
+
+def _sharded_runs() -> list:
+    """The two-rank runs of phases 50-51: the one-car CEMPPI step (f32 and
+    f64, 20 steps; at K − 1, blocks of uneven size, 5 steps), the 3-car
+    CMAMPPI race's step (10 steps) and HalfCheetah's CEMPPI step (5 steps),
+    each at the car or planar path's configuration."""
+    car = dict(kind="cemppi", horizon=H, lam=10.0, opt_its=ITS, sigma_est="ss")
+    cov = np.diag([0.0625, 0.1])
+    runs = [dict(id=f"car {name} K={n}", task="car", dtype=dtype, cov=cov, steps=steps,
+                 cfg=dict(car, num_samples=n))
+            for n, steps in ((K, 20), (K - 1, 5))
+            for name, dtype in (("f32", torch.float32), ("f64", torch.float64))]
+    runs.append(dict(id=f"3 cars CMAMPPI K={K}", task="cars3", dtype=torch.float32,
+                     cov=np.diag([0.0625, 0.1] * 3), steps=10,
+                     cfg=dict(kind="cmamppi", num_samples=K, horizon=H, lam=10.0,
+                              opt_its=ITS, cma_sigma=0.75)))
+    runs.append(dict(id=f"HalfCheetah CEMPPI K={PK}", task="cheetah", dtype=torch.float32,
+                     cov=[0.25] * 6, steps=5,
+                     cfg=dict(kind="cemppi", num_samples=PK, horizon=PH, lam=PLAM,
+                              opt_its=PITS, sigma_est="mle")))
+    return runs
+
+
+def _sharded_env(task, dtype, device):
+    from mpopis_tpu_torch.models import CarRacingEnv, CheetahDeviceEnv, MultiCarRacingEnv
+
+    if task == "car":
+        return CarRacingEnv(dtype=dtype, device=device)
+    if task == "cars3":
+        return MultiCarRacingEnv(num_cars=3, dtype=dtype, device=device)
+    return CheetahDeviceEnv(dtype=dtype, device=device)
+
+
+def _closed_loop(pol, env, steps, device):
+    """`steps` control steps from the reset (policy seed SEED): per step the
+    action, the next U, the K costs and the iterations run; and each step's
+    seconds."""
+    s, ps, recs, secs = env.reset(), pol.init_state(SEED), [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        a, ps, info = pol.step(s, ps)
+        s = env.step(s, a)
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+        recs.append({"action": a.cpu().numpy(), "U": ps.U.cpu().numpy(),
+                     "costs": info["costs"].cpu().numpy(), "ais_its": info["ais_its"]})
+    return recs, secs
+
+
+def _sharded_rank(rank, world_size, init_method, runs, out_dir):
+    """One gloo rank of phases 50-51, every rank on the one card: each
+    run's steps on the mesh (the kernel counts read around them), then rank
+    0's single-process twin, alone while the others wait; pickled into
+    `out_dir/rank<r>.pkl`."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    from mpopis_tpu_torch.parallel import distributed_init, make_sample_mesh
+    from mpopis_tpu_torch.policies import PolicyConfig, make_policy
+
+    distributed_init("gloo", init_method=init_method, world_size=world_size, rank=rank,
+                     timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT))
+    try:
+        mesh = make_sample_mesh(device="cuda:0")
+        probe = torch.full((2,), rank + 1.0, device=mesh.device)
+        dist.all_reduce(probe, group=mesh.group)
+        want = world_size * (world_size + 1) / 2
+        # one write a line: the ranks share the parent's stdout
+        print(f"phase 50: rank {rank}: gloo all_reduce of a tensor on {mesh.device}: "
+              f"{probe.tolist()} (want {want:g})\n", end="", flush=True)
+        _require(bool(torch.all(probe == want)), f"gloo all_reduce on {mesh.device}")
+        out = {}
+        for run in runs:
+            env = _sharded_env(run["task"], run["dtype"], mesh.device)
+            cfg = PolicyConfig(**run["cfg"])
+            pol = make_policy(env, cfg, cov_mat=run["cov"], sample_mesh=mesh)
+            _zero_counts()
+            rec = {"block": mesh.block(cfg.num_samples)}
+            rec["sharded"], rec["seconds"] = _closed_loop(pol, env, run["steps"], mesh.device)
+            rec["counts"] = _counts()
+            dist.barrier(group=mesh.group)
+            if rank == 0:
+                _zero_counts()
+                twin = make_policy(env, cfg, cov_mat=run["cov"])
+                rec["twin"], rec["twin_seconds"] = _closed_loop(twin, env, run["steps"],
+                                                                mesh.device)
+                rec["twin_counts"] = _counts()
+            dist.barrier(group=mesh.group)
+            out[run["id"]] = rec
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _steps_per_s(secs) -> float:
+    """Control steps/s from the median step after the first."""
+    return 1.0 / float(np.median(secs[1:] if len(secs) > 1 else secs))
+
+
+def _sharded_report(runs, ranks, card) -> None:
+    """Phases 50-52 from the ranks' records: every rank's actions, costs and
+    U equal the single-process twin's bit for bit, and each rank launched
+    its kernel once an AIS iteration; then the timings."""
+    kernel = {"car": "car_rollout", "cars3": "car_rollout", "cheetah": "planar_rollout"}
+    for run in runs:
+        twin = ranks[0][run["id"]]["twin"]
+        equal = []
+        for out in ranks:
+            rec = out[run["id"]]["sharded"]
+            same = len(rec) == len(twin)
+            for got, want in zip(rec, twin):
+                same = same and got["ais_its"] == want["ais_its"] and all(
+                    np.array_equal(got[key], want[key]) for key in ("action", "U", "costs"))
+            equal.append(same)
+        calls = [sum(r["ais_its"] for r in out[run["id"]]["sharded"]) for out in ranks]
+        launches = [out[run["id"]]["counts"][kernel[run["task"]]] for out in ranks]
+        blocks = [out[run["id"]]["block"] for out in ranks]
+        phase = 51 if run["task"] != "car" else 50
+        print(f"phase {phase}: {run['id']} ({run['dtype']}), {run['steps']} steps on "
+              f"{len(ranks)} gloo ranks, blocks {json.dumps(blocks)}: actions, costs and U "
+              f"bit-equal to the single-process step: {equal}; {kernel[run['task']]} launches "
+              f"per rank {launches}, rollout calls {calls}")
+        _require(all(equal), f"{run['id']}: a rank differs from the single-process step")
+        _require(launches == calls and min(launches) > 0,
+                 f"{run['id']}: a rank did not run its rollouts on {kernel[run['task']]}")
+    for run in runs:
+        rates = [_steps_per_s(out[run["id"]]["seconds"]) for out in ranks]
+        alone = _steps_per_s(ranks[0][run["id"]]["twin_seconds"])
+        print(f"phase 52: {run['id']}: {' / '.join(f'{r:.3f}' for r in rates)} control steps/s "
+              f"on ranks {'/'.join(str(r) for r in range(len(ranks)))} (two ranks time-sharing "
+              f"one card — not a scaling figure) beside {alone:.3f} single-process ({card})")
+
+
+def _sharded_path(card: str) -> list:
+    """Phases 49-52: the race on a one-rank nccl mesh bit for bit against
+    the race without one; two gloo ranks sharing the card against the
+    single-process step; the timings. Returns the launches on the mesh, to
+    join kernels 1 and 2's entries under "sharded"."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mpopis_tpu_torch.harness.simulate import simulate_car_racing
+    from mpopis_tpu_torch.kernels import build
+    from mpopis_tpu_torch.parallel import distributed_init, make_sample_mesh
+    from mpopis_tpu_torch.parallel.mesh import spawn_ranks
+
+    build.load_library("car_rollout")
+    build.load_library("planar_rollout")
+
+    # -- phase 49: the race on a one-rank nccl mesh -----------------------------
+    # in turns, without and with the mesh: plain, mesh, mesh, plain
+    t_phase = time.perf_counter()
+    race = dict(num_trials=1, num_steps=SHARDED_RACE_STEPS, num_samples=K, horizon=H, lam=10.0,
+                ais_its=ITS, ce_sigma_est="ss", laps=2, seed=SEED, track="curve",
+                device="cuda", dtype=torch.float32, print_output=False)
+    races, counts = [], []
+    with tempfile.TemporaryDirectory() as d:
+        distributed_init("nccl", init_method=f"file://{os.path.join(d, 'group')}",
+                         world_size=1, rank=0)
+        try:
+            mesh = make_sample_mesh()
+            for sample_mesh in (None, mesh, mesh, None):
+                _zero_counts()
+                races.append(simulate_car_racing(sample_mesh=sample_mesh, **race))
+                counts.append(_counts()["car_rollout"])
+        finally:
+            dist.destroy_process_group()
+    timing = ("exec_times", "control_steps_per_s")
+    differ = sorted({name for m in races[1:] for name in m if name not in timing
+                     and not np.array_equal(races[0][name], m[name], equal_nan=True)})
+    calls = [int(m["ais_iterations"].sum()) for m in races]
+    m_mesh = races[1]
+    print(f"phase 49: race K={K} H={H} {ITS} its f32, {SHARDED_RACE_STEPS} steps on a one-rank "
+          f"nccl mesh ({mesh.device}): laps {json.dumps(m_mesh['lap_times'][:, 0].tolist())}, "
+          f"{int(m_mesh['track_violations'][0])} track / {int(m_mesh['beta_violations'][0])} β "
+          f"violations, reward {float(m_mesh['rewards'][0]):.4f}; metrics of the mesh's races "
+          f"bit-equal to the races without one: {not differ} {differ}; kernel 1 launches "
+          f"{counts}, rollout calls {calls} (without, with, with, without); control steps/s "
+          f"{json.dumps([round(float(m['control_steps_per_s'][0]), 3) for m in races])} ({card}) "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    _require(not differ, f"the one-rank mesh's race differs in {differ}")
+    _require(counts == calls and min(counts) > 0, "a race did not run every rollout on kernel 1")
+
+    # -- phases 50-52: two gloo ranks sharing the card --------------------------
+    t_phase = time.perf_counter()
+    runs = _sharded_runs()
+    with tempfile.TemporaryDirectory() as d:
+        spawn_ranks(_sharded_rank, 2, args=(2, f"file://{os.path.join(d, 'group')}", runs, d),
+                    timeout=SHARDED_TIMEOUT)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    _sharded_report(runs, ranks, card)
+    print(f"phase 50: two ranks {time.perf_counter() - t_phase:.1f} s")
+    # the launches of each kernel on the mesh: phase 49's first race on the
+    # one-rank mesh, and each of the two ranks in phases 50-51 (runs summed)
+    two = {name: [sum(out[run["id"]]["counts"][name] for run in runs) for out in ranks]
+           for name in ("car_rollout", "planar_rollout")}
+    return [{"name": "car_rollout", "under": "sharded", "launches": counts[1],
+             "launches_per_rank_two_ranks": two["car_rollout"]},
+            {"name": "planar_rollout", "under": "sharded",
+             "launches_per_rank_two_ranks": two["planar_rollout"]}]
 
 
 # -- checkpoints, gifs and the host engine ----------------------------------

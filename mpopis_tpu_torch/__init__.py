@@ -9,7 +9,8 @@ tensors every kernel wrapper runs its plain PyTorch version instead.
 
 Ported: every environment and policy kind of the JAX package, its
 harness and CLI, the host MuJoCo engine, plots and gifs, checkpoints and
-phase timers. Not yet: the sample axis over several GPUs (`car --sharded`).
+phase timers, and the sample axis over several GPUs (`parallel/` on
+`torch.distributed`, `car --sharded`).
 """
 
 from mpopis_tpu_torch.models import CarParams, CarRacingEnv, Env, EnvState, Track

@@ -2,6 +2,8 @@
 
     python -m mpopis_tpu_torch car --samples 8192 --horizon 50 --ais-its 10
     python -m mpopis_tpu_torch car --cars 3 --policy cmamppi --samples 8192
+    python -m mpopis_tpu_torch car --samples 8192 --sharded
+    python -m torch.distributed.run --nproc_per_node 2 -m mpopis_tpu_torch car --sharded
     python -m mpopis_tpu_torch mountaincar --policy cemppi --trials 2
     python -m mpopis_tpu_torch cartpole --policy cemppi
     python -m mpopis_tpu_torch mujoco --on-device --env-name HalfCheetah-v4 \
@@ -14,16 +16,26 @@ Every subcommand takes the flags and defaults of the JAX package's
 steps the host MuJoCo engine with the policy math on `--device`, or with
 `--on-device` runs the dynamics on the card too, for all 11 tasks of
 `harness.simulate.ON_DEVICE_MUJOCO_TASKS`. `--save-gif` and `--plot-traj`
-write gifs and trajectory plots (`mujoco --on-device` as well). Still not
-ported, and exiting with "not yet ported": `car --sharded`.
+write gifs and trajectory plots (`mujoco --on-device` as well).
+
+`car --sharded` spreads the K rollouts of each control step over a sample
+mesh (`parallel/`), one rank per card. Under a launcher
+(`torch.distributed.run`, which sets WORLD_SIZE, RANK and LOCAL_RANK) each
+process joins the launcher's group: nccl, or gloo with `--device cpu`.
+Alone it starts one rank per visible card; with `--device cpu` it is one
+gloo rank. Rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+import tempfile
 import warnings
 
 from mpopis_tpu_torch.policies.config import POLICY_KINDS
+
 
 def _common(p: argparse.ArgumentParser, samples: int, horizon: int, lam: float,
             ais_its: int = 10, lambda_ais: float = 20.0,
@@ -67,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     car.add_argument("--plot-traj", action="store_true")
     car.add_argument(
         "--sharded", action="store_true",
-        help="shard the K rollouts across devices (not yet ported)",
+        help="shard the K rollouts across the ranks of a sample mesh: the launcher's, or "
+        "one rank per visible card (one gloo rank with --device cpu)",
     )
 
     # the JAX package's mountaincar/cartpole defaults: 5 AIS iterations,
@@ -110,11 +123,68 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.cmd == "mujoco":
         return _mujoco(args)
-    if getattr(args, "sharded", False):
-        raise SystemExit(f"mpopis_tpu_torch {args.cmd} --sharded: not yet ported")
+    if args.cmd == "car" and args.sharded:
+        return _car_sharded(args, argv)
+    return _run(args)
+
+
+def _car_sharded(args, argv) -> int:
+    """`car --sharded`: join the launcher's group, or start one rank per
+    visible card, or (`--device cpu`) one gloo rank."""
+    from mpopis_tpu_torch.parallel.mesh import spawn_ranks
+
+    if "WORLD_SIZE" in os.environ:
+        _car_rank(None, argv)
+        return 0
+    n = _ranks_alone(args.device)
+    if n == 0:
+        raise SystemExit("mpopis_tpu_torch car --sharded: no CUDA card visible "
+                         "(--device cpu runs one gloo rank)")
+    with tempfile.TemporaryDirectory() as d:
+        init = f"file://{os.path.join(d, 'group')}"
+        if n == 1:
+            _car_rank(0, argv, 1, init)
+        else:
+            spawn_ranks(_car_rank, n, args=(argv, n, init), timeout=float("inf"))
+    return 0
+
+
+def _ranks_alone(device) -> int:
+    """The ranks `car --sharded` starts without a launcher: one per visible
+    card, or one on the CPU."""
+    import torch
+
+    return 1 if torch.device(device).type == "cpu" else torch.cuda.device_count()
+
+
+def _car_rank(rank, argv, world_size=None, init_method=None) -> None:
+    """One rank of `car --sharded`: one started here (rank `rank` of
+    `world_size` at `init_method`), or without `world_size` the launcher's,
+    whose environment names the group, the rank and the local rank."""
+    import torch
+    import torch.distributed as dist
+
+    from mpopis_tpu_torch.parallel import distributed_init, make_sample_mesh
+
+    args = build_parser().parse_args(argv)
+    cpu = torch.device(args.device).type == "cpu"
+    if world_size is None:
+        group, local = {}, int(os.environ.get("LOCAL_RANK", "0"))
+    else:
+        group = dict(init_method=init_method, world_size=world_size, rank=rank)
+        local = rank
+    distributed_init("gloo" if cpu else "nccl", **group)
+    try:
+        _run(args, make_sample_mesh(device="cpu" if cpu else torch.device("cuda", local)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, sample_mesh=None) -> int:
     import torch
 
     from mpopis_tpu_torch.harness import simulate
@@ -154,6 +224,7 @@ def main(argv=None) -> int:
         state_y_sigma=args.state_y_sigma,
         state_psi_sigma=args.state_psi_sigma,
         plot_traj=args.plot_traj,
+        sample_mesh=sample_mesh,
         **common,
     )
     return 0

@@ -25,6 +25,7 @@ def get_policy(
     cma_elite_threshold: float = 0.8,
     nes_step_factor: float = 0.01,
     use_fused_rollout: bool = True,
+    sample_mesh=None,
 ) -> Policy:
     cfg = PolicyConfig(
         kind=str(policy_type),
@@ -42,4 +43,4 @@ def get_policy(
         log=pol_log,
         use_fused_rollout=use_fused_rollout,
     )
-    return make_policy(env, cfg, u0=u0, cov_mat=cov_mat)
+    return make_policy(env, cfg, u0=u0, cov_mat=cov_mat, sample_mesh=sample_mesh)

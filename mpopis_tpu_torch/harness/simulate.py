@@ -16,7 +16,9 @@ Counterpart of `mpopis_tpu/harness/simulate.py`:
 `save_gif` writes a 10 fps gif of one frame a control step and `plot_traj`
 draws the K sampled rollouts of each step (`harness/plotting.py`, imported
 only then, as are matplotlib and imageio). Every trial shows a progress
-line while it runs, on a terminal only.
+line while it runs, on a terminal only. `simulate_car_racing(sample_mesh=)`
+spreads the K rollouts of each step over the ranks of a sample mesh: every
+rank steps the same race, and only rank 0 prints and draws.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed
 
 from mpopis_tpu_torch.harness.factory import get_policy
 from mpopis_tpu_torch.harness.stats import SUMMARY_ROWS, summary_value
@@ -465,6 +468,7 @@ def simulate_car_racing(
     dtype=torch.float32,
     device="cuda",
     steps_per_call=None,
+    sample_mesh=None,
 ):
     """Race `num_trials` trials of up to `num_steps` control steps with
     `num_cars` cars (1..4 on the rollout kernel); trial k is seeded with
@@ -473,9 +477,23 @@ def simulate_car_racing(
     dict (one entry per trial in each array), including `ais_iterations`,
     the rollout calls made. `save_gif` writes a 10 fps gif of one frame a
     control step (the track, the cars and, with `text_with_plot`, car 1's
-    telemetry); `plot_traj` draws the K sampled rollouts into each frame."""
+    telemetry); `plot_traj` draws the K sampled rollouts into each frame.
+
+    `sample_mesh` (a `parallel.SampleMesh`) spreads the K rollouts of each
+    step over its ranks, each rank calling this with the same arguments:
+    every rank steps the same cars on the mesh's device, and only rank 0
+    prints, logs and writes the gif."""
+    # every rank runs the same steps (the chunk included); rank 0 alone shows them
+    is_main = sample_mesh is None or sample_mesh.rank == 0
+    print_output = print_output and is_main
+    if sample_mesh is not None:
+        device = sample_mesh.device
     if seed is None:
         seed = _default_seed()
+        if sample_mesh is not None:  # every rank races rank 0's seed
+            seed_t = torch.tensor([seed], dtype=torch.int64, device=device)
+            torch.distributed.broadcast(seed_t, src=0, group=sample_mesh.group)
+            seed = int(seed_t)
     sim_type = "mcr" if num_cars > 1 else "cr"
     if u0 is None:
         u0 = [0.0, 0.0] * num_cars
@@ -498,11 +516,11 @@ def simulate_car_racing(
     pol = get_policy(
         policy_type, env, num_samples, horizon, lam, alpha, u0, cov_mat,
         pol_log, ais_its, lambda_ais, ce_elite_threshold, ce_sigma_est,
-        cma_sigma, cma_elite_threshold,
+        cma_sigma, cma_elite_threshold, sample_mesh=sample_mesh,
     )
     has_noise = sim_type == "cr" and bool(state_x_sigma or state_y_sigma or state_psi_sigma)
     chunk = _resolve_chunk(steps_per_call, needs_host_every_step=save_gif or has_noise or pol_log)
-    frames = [] if save_gif else None
+    frames = [] if save_gif and is_main else None
 
     def draw(s, info):
         """One frame of the stepped state (before any state noise)."""
@@ -552,7 +570,7 @@ def simulate_car_racing(
             s = env.step(s, act)
             its += info["ais_its"]
             rew = env.reward(s)
-            if frames is not None or plot_traj:
+            if frames is not None or (plot_traj and is_main):
                 draw(s, info)
             if has_noise:
                 s = add_noise(s, rng)

@@ -14,6 +14,16 @@ the reference's host-loop `break`. Strategies that can never stop
 back. Either way the carry freezes at the stopping or last iteration on
 that iteration's samples and costs, not on its update — the strategy's
 `extra` state (CMA's, NES's) included.
+
+On a sample mesh (`sample_mesh=`, `parallel.make_sample_mesh`) the rollouts
+are sharded and the update replicated: every rank draws the same (cs, K)
+normals from its identically seeded generator and forms all K candidates,
+rolls out only its own block of them (`SampleMesh.block`; one kernel launch
+per rank per iteration), and one all_reduce gives every rank all K costs
+(`gather_sample_costs`, exact). Everything after the rollout — the update,
+the early-stop test, the final weights and the roll — then runs unchanged
+on every rank, which so takes the same decisions as every other. Only the
+K costs cross between ranks, never the sample matrix.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from mpopis_tpu_torch.models.base import Env, EnvState
 from mpopis_tpu_torch.models.rollout import rollout_batch
 from mpopis_tpu_torch.ops.controls import clamp_controls, roll_controls
 from mpopis_tpu_torch.ops.weights import information_theoretic_weights
+from mpopis_tpu_torch.parallel.collectives import gather_sample_costs
 from mpopis_tpu_torch.policies.config import PolicyConfig, PolicyState, init_policy_state
 from mpopis_tpu_torch.policies.strategies import (
     AISCarry,
@@ -84,13 +95,22 @@ class Policy:
         return init_policy_state(self.env.tensor(self.u0_flat), seed)
 
 
-def make_policy(env: Env, cfg: PolicyConfig, u0=None, cov_mat=None) -> Policy:
+def make_policy(env: Env, cfg: PolicyConfig, u0=None, cov_mat=None,
+                sample_mesh=None) -> Policy:
     """Build the policy step for `cfg.kind` on `env`.
 
     `cov_mat` may be an (as,) variance vector, an (as,as) per-step block
     (expanded block-diagonally over the horizon for the GMPPI family) or a
     full (cs,cs) joint covariance; `mppi` takes the (as,as) block only.
+    `sample_mesh` (a `parallel.SampleMesh`, the JAX package's
+    `sample_sharding`) spreads the K rollouts over its ranks; every rank of
+    the mesh builds the same policy and steps it in lockstep.
     """
+    if sample_mesh is not None:
+        if torch.device(env.device).type != sample_mesh.device.type:
+            raise ValueError(f"env on {env.device}, the sample mesh on {sample_mesh.device}")
+        if cfg.num_samples < sample_mesh.world_size:
+            raise ValueError(f"{cfg.num_samples} samples over {sample_mesh.world_size} ranks")
     if torch.device(env.device).type == "cuda":
         # cs=100 products must stay full f32, as in the JAX package
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -103,7 +123,7 @@ def make_policy(env: Env, cfg: PolicyConfig, u0=None, cov_mat=None) -> Policy:
         if cov_block.shape[0] != action_dim:
             raise ValueError("mppi expects an (as, as) covariance")
         sigma = cov_block
-        step = _make_mppi_step(env, cfg, u0_flat, sigma)
+        step = _make_mppi_step(env, cfg, u0_flat, sigma, sample_mesh)
     else:
         if cov_block.shape[0] == action_dim:
             sigma = np.kron(np.eye(cfg.horizon), cov_block)
@@ -111,7 +131,7 @@ def make_policy(env: Env, cfg: PolicyConfig, u0=None, cov_mat=None) -> Policy:
             sigma = cov_block
         else:
             raise ValueError("covariance must be (as,as)-block or (cs,cs)")
-        step = _make_gmppi_step(env, cfg, u0_flat, sigma)
+        step = _make_gmppi_step(env, cfg, u0_flat, sigma, sample_mesh)
     return Policy(env=env, cfg=cfg, u0_flat=u0_flat, sigma=sigma, step=step)
 
 
@@ -122,7 +142,16 @@ def _uses_kernel_rollout(env, cfg) -> bool:
     return cfg.use_fused_rollout and not cfg.log and hasattr(env, "fused_rollout_costs_tak")
 
 
-def _make_gmppi_step(env, cfg, u0_flat, sigma0):
+def _gather(costs, trajs, k, sample_mesh):
+    """All K costs (and logged trajectories) from each rank's block."""
+    if sample_mesh is None:
+        return costs, trajs
+    if trajs is not None:
+        trajs = gather_sample_costs(trajs, k, sample_mesh)
+    return gather_sample_costs(costs, k, sample_mesh), trajs
+
+
+def _make_gmppi_step(env, cfg, u0_flat, sigma0, sample_mesh):
     dtype, device = env.dtype, env.device
     action_dim = env.action_dim
     k_samples = cfg.num_samples
@@ -144,19 +173,22 @@ def _make_gmppi_step(env, cfg, u0_flat, sigma0):
         extra0 = None
     use_fused = _uses_kernel_rollout(env, cfg)
     n_its = cfg.opt_its if cfg.kind != "gmppi" else 1
+    start, stop = (0, k_samples) if sample_mesh is None else sample_mesh.block(k_samples)
 
     def compute_costs(env_state, u_cur, e, chol, u_orig, z_n):
-        v = u_cur[:, None] + e  # (cs, K), unclamped candidates
+        v = u_cur[:, None] + e[:, start:stop]  # (cs, K_r), this rank's unclamped candidates
         if use_fused:
-            # clamp in the flat layout; (cs, K) -> (T, as, K) is a free
-            # reshape into the rollout kernel's layout
-            vc = clamp_controls(v, low_f, high_f).reshape(horizon, action_dim, k_samples)
+            # clamp in the flat layout; (cs, K_r) -> (T, as, K_r) is a free
+            # reshape of the contiguous block into the rollout kernel's layout
+            vc = clamp_controls(v, low_f, high_f).contiguous().reshape(
+                horizon, action_dim, stop - start)
             base, trajs = env.fused_rollout_costs_tak(env_state, vc), None
         else:
-            controls = v.T.reshape(k_samples, horizon, action_dim)
+            controls = v.T.reshape(stop - start, horizon, action_dim)
             base, trajs = rollout_batch(
                 env, env_state, clamp_controls(controls, low, high), cfg.log
             )
+        base, trajs = _gather(base, trajs, k_samples, sample_mesh)
         if gamma != 0.0:
             # γ·U_origᵀ Σ⁻¹ (V_k − U_orig) with the current sampling Σ = LLᵀ:
             # with V − U_orig = d + L·z and y₀ = L⁻¹U_orig, y₁ = L⁻¹d the
@@ -215,7 +247,7 @@ def _make_gmppi_step(env, cfg, u0_flat, sigma0):
     return policy_step
 
 
-def _make_mppi_step(env, cfg, u0_flat, sigma_as):
+def _make_mppi_step(env, cfg, u0_flat, sigma_as, sample_mesh):
     """Classic MPPI: one rollout of K sequences whose per-step noise is
     N(0, Σ_as), then the IT-weighted update of the noise."""
     dtype, device = env.dtype, env.device
@@ -230,6 +262,7 @@ def _make_mppi_step(env, cfg, u0_flat, sigma_as):
     chol_as = torch.linalg.cholesky(sigma_t)
     sigma_inv = torch.linalg.inv(sigma_t)
     use_fused = _uses_kernel_rollout(env, cfg)
+    start, stop = (0, k_samples) if sample_mesh is None else sample_mesh.block(k_samples)
 
     def policy_step(env_state: EnvState, pol_state: PolicyState, z=None):
         """z: optional (K, T, as) standard normals in place of the policy's
@@ -240,11 +273,12 @@ def _make_mppi_step(env, cfg, u0_flat, sigma_as):
                             device=device)
         e = z @ chol_as.T  # E[k, t] ~ N(0, Σ_as)
         u_mat = pol_state.U.reshape(horizon, action_dim)
-        controls = clamp_controls(u_mat[None, :, :] + e, low, high)
+        controls = clamp_controls(u_mat[None, :, :] + e[start:stop], low, high)  # this rank's rows
         if use_fused:
             costs, trajs = env.fused_rollout_costs(env_state, controls), None
         else:
             costs, trajs = rollout_batch(env, env_state, controls, cfg.log)
+        costs, trajs = _gather(costs, trajs, k_samples, sample_mesh)
         if gamma != 0.0:
             # γ·Σ_t u_tᵀ Σ⁻¹ ε_kt
             costs = costs + gamma * torch.einsum("ta,ab,ktb->k", u_mat, sigma_inv, e)

@@ -1,5 +1,6 @@
-"""The CUDA kernels (car rollout at 1-4 cars, the multi-car harness's
-chunked loop, planar-contact, Swimmer and spatial-contact
+"""The CUDA kernels (car rollout at 1-4 cars and on the sample mesh's
+column blocks, a one-rank nccl mesh, the multi-car harness's chunked loop,
+planar-contact, Swimmer and spatial-contact
 rollouts and control steps, the AIS-update refits and CMA tail, Cholesky and
 forward solve) against their plain PyTorch versions, on the card.
 
@@ -165,6 +166,62 @@ def test_chunked_car_loop_on_the_card(cuda_device):
     for key in ("rewards", "steps", "lap_times", "mean_vs", "max_vs", "beta_violations",
                 "track_violations", "crash_violations"):
         np.testing.assert_allclose(runs[1][key], runs[0][key], rtol=1e-9, err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_car_kernel_on_mesh_blocks_equals_the_whole_launch(cuda_device, dtype):
+    """Kernel 1 on each of two ranks' column blocks at K = 8191 (4096 and
+    4095 samples, made contiguous as the sharded step makes them), T = 50:
+    the costs, put together, are the whole launch's bit for bit."""
+    from mpopis_tpu_torch.parallel import SampleMesh
+
+    env = CarRacingEnv(dtype=dtype, device=cuda_device)
+    x0 = env.reset().x
+    ctrl = _controls(8191, 8191, 50, dtype, cuda_device)
+    whole = car_rollout.car_rollout_costs_tak(env, x0, ctrl, 50)
+    blocks = [SampleMesh(None, r, 2, cuda_device).block(8191) for r in range(2)]
+    assert blocks == [(0, 4096), (4096, 8191)]
+    before = car_rollout.LAUNCHES
+    parts = [car_rollout.car_rollout_costs_tak(env, x0, ctrl[:, :, a:b].contiguous(), 50)
+             for a, b in blocks]
+    assert car_rollout.LAUNCHES == before + 2
+    assert torch.equal(torch.cat(parts), whole)
+
+
+def test_one_rank_nccl_mesh_steps_as_without_one(cuda_device, tmp_path):
+    """A one-rank nccl sample mesh on the card: the gather is exact, and
+    three CEMPPI control steps at K = 8191 equal the steps without a mesh
+    bit for bit, every rollout on kernel 1."""
+    import torch.distributed as dist
+
+    from mpopis_tpu_torch.parallel import distributed_init, gather_sample_costs, make_sample_mesh
+
+    distributed_init("nccl", init_method=f"file://{tmp_path / 'group'}", world_size=1, rank=0)
+    try:
+        mesh = make_sample_mesh()
+        assert mesh.device.type == "cuda" and (mesh.rank, mesh.world_size) == (0, 1)
+        x = torch.randn(8191, dtype=torch.float64, device=cuda_device)
+        assert torch.equal(gather_sample_costs(x, 8191, mesh), x)
+        env = CarRacingEnv(dtype=torch.float32, device=cuda_device)
+        cfg = PolicyConfig(kind="cemppi", num_samples=8191, horizon=50, lam=10.0, opt_its=3,
+                           sigma_est="ss")
+        cov = np.diag([0.0625, 0.1])
+        runs = []
+        for sample_mesh in (mesh, None):
+            pol = make_policy(env, cfg, cov_mat=cov, sample_mesh=sample_mesh)
+            s, ps, acts = env.reset(), pol.init_state(4), []
+            before = car_rollout.LAUNCHES
+            its = 0
+            for _ in range(3):
+                a, ps, info = pol.step(s, ps)
+                its += info["ais_its"]
+                acts.append(torch.cat([a, ps.U, info["costs"]]))
+                s = env.step(s, a)
+            assert car_rollout.LAUNCHES - before == its
+            runs.append(torch.stack(acts))
+        assert torch.equal(runs[0], runs[1])
+    finally:
+        dist.destroy_process_group()
 
 
 PLANAR = {"cheetah": CheetahDeviceEnv, "hopper": HopperDeviceEnv, "walker2d": Walker2dDeviceEnv}

@@ -3,7 +3,6 @@ mpopis_tpu_torch car` prints the banner, the trial row and the summary
 table, and the summary table is the JAX harness's, character for character."""
 
 import numpy as np
-import pytest
 import torch
 
 from mpopis_tpu.harness import simulate as jsimulate
@@ -70,9 +69,3 @@ def test_cli_parser_defaults_match_jax():
     theirs = vars(jbuild_parser().parse_args(["car"]))
     assert ours.pop("device") == "cuda"
     assert ours == theirs
-
-
-@pytest.mark.parametrize("argv", [["car", "--sharded"]])
-def test_unported_paths_exit(argv):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(argv)

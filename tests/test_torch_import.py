@@ -73,6 +73,11 @@ _HOST_MODULES = (
     "mpopis_tpu_torch.harness.simulate_mujoco",
     "mpopis_tpu_torch.harness.plotting",
 )
+_PARALLEL_MODULES = (
+    "mpopis_tpu_torch.parallel",
+    "mpopis_tpu_torch.parallel.mesh",
+    "mpopis_tpu_torch.parallel.collectives",
+)
 
 
 def test_port_imports_every_module_without_jax():
@@ -87,6 +92,7 @@ def test_port_imports_every_module_without_jax():
     assert set(_AIS_MODULES) <= set(names)
     assert set(_SPATIAL_MODULES) <= set(names)
     assert set(_HOST_MODULES) <= set(names)
+    assert set(_PARALLEL_MODULES) <= set(names)
 
 
 _CHIP_SMOKE = """
@@ -98,7 +104,7 @@ import chip_smoke
 assert chip_smoke._parse_paths([]) == chip_smoke.PATHS
 assert chip_smoke._parse_paths(["--only", "standup,humanoid"]) == ("humanoid", "standup")
 assert set(chip_smoke._LIBRARIES) == set(chip_smoke.PATHS)
-assert chip_smoke.PATHS[-3:] == ("resume", "gif", "host")
+assert chip_smoke.PATHS[-4:] == ("sharded", "resume", "gif", "host")
 assert set(chip_smoke.PACKAGES) == {"gif", "host"}
 print(chip_smoke.main([]) if not torch.cuda.is_available() else 2)
 """
