@@ -20,6 +20,7 @@ import torch
 
 from mpopis_tpu_torch.kernels.build import load_library
 from mpopis_tpu_torch.models.car_racing import _G, car_reward, step_car_state
+from mpopis_tpu_torch.utils.profiling import span
 
 MAX_CARS = 4  # kMaxCars of csrc/car_rollout.cu
 LAUNCHES = 0
@@ -140,12 +141,15 @@ def car_rollout_costs_tak(env, state0_x, controls_tak, horizon: int):
         return out
     fn = _kernel_fn(dtype)
     params = _kernel_params(env)
+    substeps = int(round(env.dt / env.ddt))
     with torch.cuda.device(dev):
-        rc = fn(
-            state0_x.data_ptr(), track.data_ptr(), m_track, controls_tak.data_ptr(),
-            out.data_ptr(), k, horizon, num_cars, ctypes.addressof(params),
-            int(round(env.dt / env.ddt)), torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with span("mpopis.rollout.launch"):
+            rc = fn(
+                state0_x.data_ptr(), track.data_ptr(), m_track, controls_tak.data_ptr(),
+                out.data_ptr(), k, horizon, num_cars, ctypes.addressof(params), substeps,
+                stream,
+            )
     if rc != 0:
         raise RuntimeError(f"car_rollout kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

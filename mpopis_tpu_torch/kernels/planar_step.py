@@ -35,6 +35,7 @@ from mpopis_tpu_torch.models.base import make_state
 from mpopis_tpu_torch.models.planar import MIN_IMP
 from mpopis_tpu_torch.models.planar_contact import contact_rows
 from mpopis_tpu_torch.models.rollout import rollout_batch
+from mpopis_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0
 STEP_LAUNCHES = 0
@@ -223,8 +224,10 @@ def _rollout(kernel, env, state0_x, controls_tak):
     ints, dbl = _env_model(env)
     fn = _kernel_fn(kernel, "rollout", dtype)
     with torch.cuda.device(dev):
-        rc = fn(ints, len(ints), dbl, len(dbl), state0_x.data_ptr(), controls_tak.data_ptr(),
-                out.data_ptr(), k, horizon, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with span("mpopis.rollout.launch"):
+            rc = fn(ints, len(ints), dbl, len(dbl), state0_x.data_ptr(),
+                    controls_tak.data_ptr(), out.data_ptr(), k, horizon, stream)
     if rc != 0:
         raise RuntimeError(f"{kernel}_rollout kernel launch failed: CUDA error {rc}")
     return out, True

@@ -39,6 +39,7 @@ from mpopis_tpu_torch.models.spatial_contact import (
     joint_dofs,
     quat_matrix,
 )
+from mpopis_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0
 STEP_LAUNCHES = 0
@@ -326,8 +327,10 @@ def spatial_rollout_costs_tak(env, state0_x, controls_tak):
     fn = getattr(_lib(), "spatial_rollout_costs_f64" if dtype == torch.float64
                  else "spatial_rollout_costs_f32")
     with torch.cuda.device(dev):
-        rc = fn(*args, state0_x.data_ptr(), controls_tak.data_ptr(), out.data_ptr(), k, horizon,
-                torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with span("mpopis.rollout.launch"):
+            rc = fn(*args, state0_x.data_ptr(), controls_tak.data_ptr(), out.data_ptr(), k,
+                    horizon, stream)
     if rc != 0:
         raise RuntimeError(f"spatial_rollout kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from mpopis_tpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvState:
@@ -69,8 +71,9 @@ class Env:
     def step_reward(self, state: EnvState, action: torch.Tensor):
         """Step + the reward the driver accounts for this action: the
         post-step reward(s') by default."""
-        s2 = self.step(state, action)
-        return s2, self.reward(s2)
+        with span("mpopis.env_step"):
+            s2 = self.step(state, action)
+            return s2, self.reward(s2)
 
     def tensor(self, a) -> torch.Tensor:
         """`a` as a tensor of this environment's dtype on its device."""

@@ -32,6 +32,7 @@ import torch
 
 from mpopis_tpu_torch.models.base import Env, EnvState, make_state
 from mpopis_tpu_torch.models.planar import MIN_IMP, chol_solve, chol_unrolled
+from mpopis_tpu_torch.utils.profiling import span
 
 ARC_STEPS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01)  # the projected arc search's trial ladder
 
@@ -665,8 +666,9 @@ class ContactEnv(Env):
                         done=state.done)
 
     def step_reward(self, state: EnvState, action: torch.Tensor):
-        new = self.step(state, action)
-        return new, self._reward(state.x, new.x, action)
+        with span("mpopis.env_step"):
+            new = self.step(state, action)
+            return new, self._reward(state.x, new.x, action)
 
     def plain_step_reward(self, state: EnvState, action: torch.Tensor):
         new = self.plain_step(state, action)

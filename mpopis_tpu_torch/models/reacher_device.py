@@ -26,6 +26,7 @@ import torch
 
 from mpopis_tpu_torch.models.base import Env, EnvState, make_state
 from mpopis_tpu_torch.models.planar import _kb, impedance
+from mpopis_tpu_torch.utils.profiling import span
 
 # --- constants probed from reacher.xml via mj_fullM / mjModel (f64) -------
 _A = 1.0007051618870246  # M00 constant part (incl. joint0 armature 1.0)
@@ -137,7 +138,8 @@ class ReacherDeviceEnv(Env):
     def step_reward(self, state: EnvState, action: torch.Tensor):
         """Step + gym's reward (pre-step distance + ctrl penalty), so the
         rollout costs equal gym's totals."""
-        return self.step(state, action), self.reward_pre(state, action)
+        with span("mpopis.env_step"):
+            return self.step(state, action), self.reward_pre(state, action)
 
     def reward_pre(self, state: EnvState, action: torch.Tensor) -> torch.Tensor:
         """−‖fingertip − target‖ − Σa² on the pre-step state, through the

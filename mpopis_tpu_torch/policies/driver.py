@@ -15,6 +15,11 @@ back. Either way the carry freezes at the stopping or last iteration on
 that iteration's samples and costs, not on its update — the strategy's
 `extra` state (CMA's, NES's) included.
 
+Spans (`utils.span`, recorded only while a profiler runs): the whole step
+`mpopis.policy_step`; per AIS iteration `mpopis.sample` (the normals and
+the candidates' noise), `mpopis.rollout` (`compute_costs`), `mpopis.update`
+and, where the strategy can stop, `mpopis.sync.stop_flag` around the read.
+
 On a sample mesh (`sample_mesh=`, `parallel.make_sample_mesh`) the rollouts
 are sharded and the update replicated: every rank draws the same (cs, K)
 normals from its identically seeded generator and forms all K candidates,
@@ -47,6 +52,7 @@ from mpopis_tpu_torch.policies.strategies import (
     NESStrategy,
     make_strategy,
 )
+from mpopis_tpu_torch.utils.profiling import span
 
 
 def _prepare_u0(u0, action_dim: int, cs: int) -> np.ndarray:
@@ -202,6 +208,10 @@ def _make_gmppi_step(env, cfg, u0_flat, sigma0, sample_mesh):
         optional (opt_its, K) uniforms for PMC's resampling, in place of
         the policy's generator — the exact-match hooks for comparing
         implementations."""
+        with span("mpopis.policy_step"):
+            return _policy_step(env_state, pol_state, z, uniforms)
+
+    def _policy_step(env_state, pol_state, z, uniforms):
         u_orig = pol_state.U
         gen = pol_state.generator
         carry = AISCarry(
@@ -214,20 +224,26 @@ def _make_gmppi_step(env, cfg, u0_flat, sigma0, sample_mesh):
         )
         its = 0
         for n in range(n_its):
-            if z is None:
-                z_n = torch.randn(
-                    (cs, k_samples), generator=gen, dtype=dtype, device=device
-                )
-            else:
-                z_n = z[n]
-            e = carry.chol @ z_n
-            costs, trajs = compute_costs(env_state, carry.U, e, carry.chol, u_orig, z_n)
+            with span("mpopis.sample"):
+                if z is None:
+                    z_n = torch.randn(
+                        (cs, k_samples), generator=gen, dtype=dtype, device=device
+                    )
+                else:
+                    z_n = z[n]
+                e = carry.chol @ z_n
+            with span("mpopis.rollout"):
+                costs, trajs = compute_costs(env_state, carry.U, e, carry.chol, u_orig, z_n)
             base = carry.replace(E=e, costs=costs, trajs=trajs)
             u_n = None if uniforms is None else uniforms[n]
-            new, stop = strategy.update(base, gen, u_orig, n + 1, uniforms=u_n)
+            with span("mpopis.update"):
+                new, stop = strategy.update(base, gen, u_orig, n + 1, uniforms=u_n)
             its += 1
-            # host read of the stop flag: the one sync per iteration
-            stopped = strategy.can_stop and bool(stop)
+            stopped = False
+            if strategy.can_stop:
+                # host read of the stop flag: the one sync per iteration
+                with span("mpopis.sync.stop_flag"):
+                    stopped = bool(stop)
             carry = base if (stopped or n == n_its - 1) else new
             if stopped:
                 break
@@ -267,21 +283,28 @@ def _make_mppi_step(env, cfg, u0_flat, sigma_as, sample_mesh):
     def policy_step(env_state: EnvState, pol_state: PolicyState, z=None):
         """z: optional (K, T, as) standard normals in place of the policy's
         generator (the exact-match hook)."""
+        with span("mpopis.policy_step"):
+            return _policy_step(env_state, pol_state, z)
+
+    def _policy_step(env_state, pol_state, z):
         gen = pol_state.generator
-        if z is None:
-            z = torch.randn((k_samples, horizon, action_dim), generator=gen, dtype=dtype,
-                            device=device)
-        e = z @ chol_as.T  # E[k, t] ~ N(0, Σ_as)
+        with span("mpopis.sample"):
+            if z is None:
+                z = torch.randn((k_samples, horizon, action_dim), generator=gen, dtype=dtype,
+                                device=device)
+            e = z @ chol_as.T  # E[k, t] ~ N(0, Σ_as)
         u_mat = pol_state.U.reshape(horizon, action_dim)
-        controls = clamp_controls(u_mat[None, :, :] + e[start:stop], low, high)  # this rank's rows
-        if use_fused:
-            costs, trajs = env.fused_rollout_costs(env_state, controls), None
-        else:
-            costs, trajs = rollout_batch(env, env_state, controls, cfg.log)
-        costs, trajs = _gather(costs, trajs, k_samples, sample_mesh)
-        if gamma != 0.0:
-            # γ·Σ_t u_tᵀ Σ⁻¹ ε_kt
-            costs = costs + gamma * torch.einsum("ta,ab,ktb->k", u_mat, sigma_inv, e)
+        with span("mpopis.rollout"):
+            # this rank's rows
+            controls = clamp_controls(u_mat[None, :, :] + e[start:stop], low, high)
+            if use_fused:
+                costs, trajs = env.fused_rollout_costs(env_state, controls), None
+            else:
+                costs, trajs = rollout_batch(env, env_state, controls, cfg.log)
+            costs, trajs = _gather(costs, trajs, k_samples, sample_mesh)
+            if gamma != 0.0:
+                # γ·Σ_t u_tᵀ Σ⁻¹ ε_kt
+                costs = costs + gamma * torch.einsum("ta,ab,ktb->k", u_mat, sigma_inv, e)
         weights = information_theoretic_weights(costs, cfg.lam)
         weighted_controls = pol_state.U + torch.einsum("k,kta->ta", weights, e).reshape(cs)
         action = clamp_controls(weighted_controls[:action_dim], low, high)

@@ -30,6 +30,7 @@ from mpopis_tpu_torch.kernels.linalg import cholesky_lower
 from mpopis_tpu_torch.ops.covariance import shrinkage_cov_masked, weighted_mean_and_cov
 from mpopis_tpu_torch.ops.sampling import multinomial_resample_counts
 from mpopis_tpu_torch.ops.weights import information_theoretic_weights
+from mpopis_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,7 +282,9 @@ class CMAStrategy(Strategy):
         # eigh when it has not converged; the convergence test is a host read.
         if cfg.cma_fast_sqrt:
             c_ns, ns_err = inv_sqrt_newton_schulz(Sigma)
-            if bool(torch.isfinite(ns_err) & (ns_err < 1e-3)):
+            with span("mpopis.sync.ns_converged"):
+                converged = bool(torch.isfinite(ns_err) & (ns_err < 1e-3))
+            if converged:
                 c_mat = c_ns
             else:
                 c_mat = _eigh_inv_sqrt(Sigma, cfg.cma_stability_guards)

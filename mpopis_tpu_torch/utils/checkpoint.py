@@ -11,11 +11,14 @@ trajectory.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
-from mpopis_tpu_torch.models.base import EnvState
-from mpopis_tpu_torch.policies.config import PolicyState
+if TYPE_CHECKING:
+    from mpopis_tpu_torch.models.base import EnvState
+    from mpopis_tpu_torch.policies.config import PolicyState
 
 
 def _npz(path: str) -> str:
@@ -57,6 +60,11 @@ def load_checkpoint(path: str, dtype=None, device="cuda"):
     state land on `device` (in `dtype` if given, else as saved); the policy's
     generator is a new one on `device`, set to the saved state, which must
     come from a generator of the same device type."""
+    # imported here: the models import `utils.profiling`, and so this
+    # package, while they load
+    from mpopis_tpu_torch.models.base import EnvState
+    from mpopis_tpu_torch.policies.config import PolicyState
+
     data = np.load(_npz(path))
     device = torch.device(device)
     saved_on = str(data["generator_device"])
