@@ -37,11 +37,14 @@
 // - lane l tests candidate rows l, l + W, ... of each kind and forms the
 //   valid ones, compacted in the model's order by a ballot and popcount;
 // - the QP's rows and iterates lie on the lanes, and every lane sums its
-//   scalars over the lanes in lane order (the same bits on every lane): up
-//   to kDense = 32 valid rows, one row a lane, that is the plain version's
-//   serial row order; beyond, each lane first adds its own rows (l, l + 32,
-//   ...), then the lanes are added in order, and the operator W^T W v sums
-//   its per-dof vector over the lanes as a tree (lane_sums).
+//   scalars over the lanes in lane order (each lane stores its term in the
+//   warp's shared memory, every lane adds the stored terms in order from
+//   16-byte loads: the same bits on every lane): up to kDense = 32 valid
+//   rows, one row a lane, that is the plain version's serial row order, and
+//   the operator is the dense A, read 16 bytes at a time; beyond, each lane
+//   first adds its own rows (l, l + 32, ...), then the lanes are added in
+//   order, and the operator W^T W v sums its per-dof vector over the lanes
+//   as a tree (lane_sums).
 // There are no atomics: a sample's result does not depend on scheduling.
 //
 // The model is a POD struct read by every thread of a launch at the same
@@ -90,8 +93,9 @@ constexpr int kCarryBodies = 3;  // the `pusher` family's xpos bodies
 
 // The phases of a forward pass that scripts/spatial_phase_times.py times: a
 // stamp charges the time since the previous one (or since the sample's
-// start) to its phase. The script builds a copy with SPATIAL_STAMP and
-// SPATIAL_STAMP_START defined; otherwise a stamp is nothing.
+// start) to its phase, and SPATIAL_ROWS counts the pass by its valid rows.
+// The script builds a copy with SPATIAL_STAMP, SPATIAL_STAMP_START and
+// SPATIAL_ROWS defined; otherwise each is nothing.
 enum Phase {
   kPhFrames, kPhMass, kPhFactor, kPhLimits, kPhFloor, kPhCylinder, kPhSelf, kPhApply, kPhQp,
   kPhIntegrate, kPhReward, kPhases
@@ -99,6 +103,9 @@ enum Phase {
 #ifndef SPATIAL_STAMP
 #define SPATIAL_STAMP(phase) ((void)0)
 #define SPATIAL_STAMP_START() ((void)0)
+#endif
+#ifndef SPATIAL_ROWS
+#define SPATIAL_ROWS(nv) ((void)0)
 #endif
 
 // the row capacity of a build: a sample's workspace holds this many rows
@@ -408,6 +415,20 @@ struct BodyWork {
   T jac[kMaxDof][9];  // one body's com Jacobian columns per dof: jv, jw, Iw jw
 };
 
+// At most kDense valid rows (the common case) the QP applies the dense
+// A = W^T W + diag R, formed once per forward pass, one dot per row. A's rows
+// lie kDenseStride<T> entries apart: a multiple of 16 bytes and 4 words more
+// than a multiple of 32 words (36 f32, 34 f64), so that the 8 lanes of a
+// quarter warp read their rows' 16-byte pieces from distinct banks. After A lie kLadder vectors of kDense
+// entries: the lanes store the vectors that A is applied to there and read
+// them back as broadcasts.
+constexpr int kDense = 32;
+constexpr int kLadder = 6;  // the arc search's points
+template <typename T>
+constexpr int kDenseStride = kDense + 16 / static_cast<int>(sizeof(T));
+template <typename T>
+constexpr int kDenseArea = kDense * kDenseStride<T> + kLadder * kDense;
+
 // One sample's workspace: its warp's slice of shared memory on the card, one
 // static instance in the host build. The rows valid at this state are
 // compacted in the model's row order: row i keeps its column w[i] of W =
@@ -415,16 +436,21 @@ struct BodyWork {
 // banks), rhs = aref - J a_smooth, its regularizer and idx, its row of the
 // model (where its lambda warm start lies in lam_full). The body scratch of
 // the mass matrix shares w's space: it is dead before the rows are built.
-// With at most kDense valid rows, the QP's dense A lies in w's rows past
-// kDense (dense_rows).
+// With at most kDense valid rows, the QP's dense A and its vectors follow
+// w's first kDense rows (dense_rows), in w's space where it has the room.
+// Once the QP has read rhs into its lanes, rhs holds the lanes' terms of its
+// row-order sums, and reg too on the dense path (scratch_row).
 template <typename T, int N, int R, int F>
 struct alignas(16) Work {
   static constexpr int S = N | 1;
   union {
     T w[R][S];
     BodyWork<T> body;
+    T dense[kDense * S + kDenseArea<T>];
   };
-  T rhs[R], reg[R], lam_full[R];
+  alignas(16) T rhs[R];
+  alignas(16) T reg[R];
+  T lam_full[R];
   int idx[R];
   T L[N][N];                     // M's lower triangle, then its factor in place
   T M[(F & kEuler) ? N : 1][N];  // M, for the Euler factor of M + h diag(damping)
@@ -1131,29 +1157,42 @@ __device__ __forceinline__ void apply(const Work<T, N, R, F>& wk, T* u_out, int 
   SPATIAL_STAMP(kPhApply);
 }
 
-// At most kDense valid rows (the common case) the QP applies the dense
-// A = W^T W + diag R, formed once per forward pass: row i of A lies at
-// dense + i kDenseStride in w's rows kDense and beyond, which hold no row
-// then. An application is then one dot of A's row with v per row, v's
-// entries gathered from their lanes, instead of W^T (W v) with its lane sums.
-constexpr int kDense = 32;
-constexpr int kDenseStride = kDense + 1;  // odd: the lanes' rows meet distinct banks
-
 template <typename T, int N, int R, int F>
 __device__ __forceinline__ T* dense_rows(Work<T, N, R, F>& wk) {
-  static_assert((R - kDense) * Work<T, N, R, F>::S >= kDense * kDenseStride,
-                "A fits in w's rows past kDense");
-  return &wk.w[kDense][0];
+  constexpr int kWords = kDenseStride<T> * static_cast<int>(sizeof(T)) / 4;
+  static_assert(kDenseStride<T> * sizeof(T) % 16 == 0 && kWords % 32 == 4,
+                "A's rows 16-byte aligned, a quarter warp's rows on distinct banks");
+  static_assert(kDense * Work<T, N, R, F>::S * sizeof(T) % 16 == 0, "A 16-byte aligned");
+  return wk.dense + kDense * Work<T, N, R, F>::S;
 }
+
+// vector j (< kLadder) of the dense path
+template <typename T, int N, int R, int F>
+__device__ __forceinline__ T* dense_vec(Work<T, N, R, F>& wk, int j) {
+  return dense_rows(wk) + kDense * kDenseStride<T> + j * kDense;
+}
+
+// scratch row i of kDense entries for the lanes' terms of a row-order sum:
+// rows 0-3 in rhs (dead once the QP has read it), 4-7 in reg (dead on the
+// dense path once A holds it)
+template <typename T, int N, int R, int F>
+__device__ __forceinline__ T* scratch_row(Work<T, N, R, F>& wk, int i) {
+  static_assert(R >= 4 * kDense, "four scratch rows in rhs and four in reg");
+  return i < 4 ? wk.rhs + i * kDense : wk.reg + (i - 4) * kDense;
+}
+
+// The slots of a lane that can hold one of nv <= kDense rows
+template <int W, int RW>
+constexpr int kDenseSlots = (kDense + W - 1) / W < RW ? (kDense + W - 1) / W : RW;
 
 // Row i of A = W^T W + diag R by the lane of row i, for the nv <= kDense rows
 template <int W, typename T, int N, int R, int F>
 __device__ void form_dense(Work<T, N, R, F>& wk, int nv) {
-  constexpr int RW = (R + W - 1) / W;
+  constexpr int DS = kDenseSlots<W, (R + W - 1) / W>;
   T* a = dense_rows(wk);
   const int lane = Lanes<W>::lane();
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
+  for (int s = 0; s < DS; ++s) {
     const int r = lane + s * W;
     if (s * W < nv && r < nv) {
       T wr[N];
@@ -1163,90 +1202,273 @@ __device__ void form_dense(Work<T, N, R, F>& wk, int nv) {
         T acc = T(0);
 #pragma unroll
         for (int d = 0; d < N; ++d) acc = acc + wr[d] * wk.w[c][d];
-        a[r * kDenseStride + c] = c == r ? acc + wk.reg[r] : acc;
+        a[r * kDenseStride<T> + c] = c == r ? acc + wk.reg[r] : acc;
       }
     }
   }
   Lanes<W>::sync();
 }
 
-// Entry c (< nv <= kDense) of a vector whose row i lies in slot i / W of
-// lane i mod W: a shuffle from lane c on a warp (every lane calls it), the
-// slot itself on one lane.
-template <int W, typename T, int RW>
-__device__ __forceinline__ T row_value(const T (&v)[RW], int c) {
-  if constexpr (W == 1) {
-    return v[c];
-  } else {
+// Entries c .. c + 3 of a row in shared memory, 16-byte aligned: one 16-byte
+// load in f32, two in f64 (element by element in the host build)
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T (&x)[4]) {
 #ifdef __CUDACC__
-    return __shfl_sync(0xffffffffu, v[0], c);
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    const double2 u = reinterpret_cast<const double2*>(p)[0];
+    const double2 v = reinterpret_cast<const double2*>(p)[1];
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = v.x;
+    x[3] = v.y;
+  }
 #else
-    return v[0];
+  for (int i = 0; i < 4; ++i) x[i] = p[i];
 #endif
+}
+
+// acc[j] = row ar of A dotted with vector j of vecs (kDense apart) over
+// entries 0 .. nv - 1, each in column order; four entries of A a load, read
+// once for all NV vectors
+template <int NV, typename T>
+__device__ __forceinline__ void dense_dots(const T* ar, const T* vecs, int nv, T (&acc)[NV]) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) acc[j] = T(0);
+  int c = 0;
+#pragma unroll
+  for (int q = 0; q < kDense / 4; ++q, c += 4) {
+    if (c + 4 > nv) break;
+    T av[4];
+    load4(ar + c, av);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      T xv[4];
+      load4(vecs + j * kDense + c, xv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j] = acc[j] + av[i] * xv[i];
+    }
+  }
+  if (c < nv) {  // the last nv mod 4 entries
+    T av[4];
+    load4(ar + c, av);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      T xv[4];
+      load4(vecs + j * kDense + c, xv);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (c + i < nv) acc[j] = acc[j] + av[i] * xv[i];
+    }
   }
 }
 
-// out = mask ? A (mask ? v : 0) : 0 over the nv <= kDense rows
+// sums[k] = the sum of rows[k][0 .. n) in index order, from 16-byte loads
+// that every lane makes alike (broadcasts): K chains side by side
+template <int K, typename T>
+__device__ __forceinline__ void row_sums(const T* const (&rows)[K], int n, T (&sums)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) sums[k] = T(0);
+  int c = 0;
+#pragma unroll
+  for (int q = 0; q < kDense / 4; ++q, c += 4) {  // n <= kDense
+    if (c + 4 > n) break;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T x[4];
+      load4(rows[k] + c, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sums[k] = sums[k] + x[i];
+    }
+  }
+  if (c < n) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T x[4];
+      load4(rows[k] + c, x);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (c + i < n) sums[k] = sums[k] + x[i];
+    }
+  }
+}
+
+// v[k] = the sum over lanes 0 .. n - 1 of their v[k] in lane order, on
+// every lane, as Lanes::sum adds them (n the same on every lane): each lane
+// stores its terms into scratch rows, then every lane sums the rows
+template <int K, int W, typename T, int N, int R, int F>
+__device__ __forceinline__ void lane_order_sums(Work<T, N, R, F>& wk, T (&v)[K], int n) {
+  if constexpr (W > 1) {
+    static_assert(K <= 4, "the scratch rows in rhs");
+    const int lane = Lanes<W>::lane();
+    const T* rows[K];
+    Lanes<W>::sync();  // every lane has read the previous sums
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T* row = scratch_row(wk, k);
+      row[lane] = v[k];
+      rows[k] = row;
+    }
+    Lanes<W>::sync();
+    row_sums(rows, n, v);
+  }
+}
+
+template <int W, typename T, int N, int R, int F>
+__device__ __forceinline__ T lane_order_sum(Work<T, N, R, F>& wk, T v, int n) {
+  T one[1] = {v};
+  lane_order_sums<1, W>(wk, one, n);
+  return one[0];
+}
+
+// out = mask ? A (mask ? v : 0) : 0 over the nv <= kDense rows: each lane
+// stores its rows' entries of v into the warp's vector once, then dots its
+// row of A with it
 template <bool MASK, int W, typename T, int N, int R, int F, int RW>
 __device__ __forceinline__ void apply_dense(Work<T, N, R, F>& wk, int nv, const T (&v)[RW],
                                             const bool (&act)[RW], T (&out)[RW]) {
   SPATIAL_STAMP(kPhQp);
+  constexpr int DS = kDenseSlots<W, RW>;
   const T* a = dense_rows(wk);
+  T* vec = dense_vec(wk, 0);
   const int lane = Lanes<W>::lane();
-  T vm[RW];
+  Lanes<W>::sync();  // every lane is done with the previous vector
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
-    vm[s] = (s * W < nv && lane + s * W < nv && (!MASK || act[s])) ? v[s] : T(0);
+  for (int s = 0; s < DS; ++s) {
+    const int r = lane + s * W;
+    if (r < nv) vec[r] = (!MASK || act[s]) ? v[s] : T(0);
   }
+  Lanes<W>::sync();
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
+  for (int s = 0; s < DS; ++s) {
     if (s * W < nv) {
-      const int r = lane + s * W;
-      const T* ar = a + (r < nv ? r : 0) * kDenseStride;
-      T acc = T(0);
-      for (int c = 0; c < nv; ++c) acc = acc + ar[c] * row_value<W>(vm, c);
-      out[s] = (r < nv && (!MASK || act[s])) ? acc : T(0);
+      const int r = lane + s * W;  // < kDense: a lane past nv dots a row it then drops
+      T acc[1];
+      dense_dots(a + r * kDenseStride<T>, vec, nv, acc);
+      out[s] = (r < nv && (!MASK || act[s])) ? acc[0] : T(0);
     }
   }
   SPATIAL_STAMP(kPhApply);
 }
 
-// The operator on the rows: dense A where nv <= kDense, else W^T W v + R v
-template <bool MASK, int W, typename T, int N, int R, int F, int RW>
+// The operator on the rows: dense A on the dense path, else W^T W v + R v
+template <bool MASK, bool DENSE, int W, typename T, int N, int R, int F, int RW>
 __device__ __forceinline__ void apply_rows(Work<T, N, R, F>& wk, int nv, const T (&v)[RW],
                                            const bool (&act)[RW], T (&out)[RW]) {
-  if (nv <= kDense) {
+  if constexpr (DENSE) {
     apply_dense<MASK, W>(wk, nv, v, act, out);
   } else {
     apply<MASK, W>(wk, wk.u, nv, v, act, out);
   }
 }
 
-__constant__ double kArc[6] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search ladder
+__constant__ double kArc[kLadder] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search ladder
+
+// lam(t) = max(lam + t x, 0), the arc search's point t on a row
+template <typename T>
+__device__ __forceinline__ T arc_point(T lam, T x, T t) {
+  const T v = lam + t * x;
+  return v < T(0) ? T(0) : v;
+}
+
+// The arc search's kLadder points at once on the dense path: p(t) at each t
+// of the ladder, A p(t) from one pass over A's rows, and f_b = rhs . p(t),
+// f_a = p(t) . A p(t), each summed in row order: per point the operations
+// and order of one masked application and its sums. f_b's terms are summed
+// beside the pass, f_a's after it; p(t) is formed again where it is needed.
+template <int W, typename T, int N, int R, int F, int RW>
+__device__ __forceinline__ void arc_dense(Work<T, N, R, F>& wk, int nv, int nl,
+                                          const T (&lam)[RW], const T (&x)[RW],
+                                          const bool (&act)[RW], const T (&rhs)[RW],
+                                          T (&f_a)[kLadder], T (&f_b)[kLadder]) {
+  SPATIAL_STAMP(kPhQp);
+  constexpr int DS = kDenseSlots<W, RW>;
+  const T* a = dense_rows(wk);
+  T* vec = dense_vec(wk, 0);
+  const int lane = Lanes<W>::lane();
+  Lanes<W>::sync();  // every lane is done with the previous vectors and sums
+#pragma unroll
+  for (int j = 0; j < kLadder; ++j) {
+    const T t = static_cast<T>(kArc[j]);
+    f_b[j] = T(0);
+#pragma unroll
+    for (int s = 0; s < DS; ++s) {
+      if (s * W < nv) {
+        const T p = arc_point(lam[s], x[s], t);
+        const int r = lane + s * W;
+        if (r < nv) vec[j * kDense + r] = act[s] ? p : T(0);
+        f_b[j] = f_b[j] + rhs[s] * p;
+      }
+    }
+    if constexpr (W > 1) scratch_row(wk, j)[lane] = f_b[j];
+  }
+  Lanes<W>::sync();
+  if constexpr (W > 1) {
+    const T* rows[kLadder];
+#pragma unroll
+    for (int j = 0; j < kLadder; ++j) rows[j] = scratch_row(wk, j);
+    row_sums(rows, nl, f_b);
+  }
+#pragma unroll
+  for (int j = 0; j < kLadder; ++j) f_a[j] = T(0);
+#pragma unroll
+  for (int s = 0; s < DS; ++s) {
+    if (s * W < nv) {
+      const int r = lane + s * W;
+      T acc[kLadder];
+      dense_dots(a + r * kDenseStride<T>, vec, nv, acc);
+#pragma unroll
+      for (int j = 0; j < kLadder; ++j) {
+        const T ap = r < nv && act[s] ? acc[j] : T(0);
+        f_a[j] = f_a[j] + arc_point(lam[s], x[s], static_cast<T>(kArc[j])) * ap;
+      }
+    }
+  }
+  SPATIAL_STAMP(kPhApply);
+  if constexpr (W > 1) {
+    Lanes<W>::sync();  // every lane has read the vectors and f_b's terms
+#pragma unroll
+    for (int j = 0; j < kLadder; ++j) scratch_row(wk, j)[lane] = f_a[j];
+    Lanes<W>::sync();
+    const T* rows[kLadder];
+#pragma unroll
+    for (int j = 0; j < kLadder; ++j) rows[j] = scratch_row(wk, j);
+    row_sums(rows, nl, f_a);
+  }
+}
 
 // Box QP min 1/2 lam^T (J M^-1 J^T + diag R) lam - rhs^T lam, lam >= 0, over
 // the valid rows: the fixed-iteration active set / CG / projected arc search
 // of the plain version's _qp_iterate, each lane holding its rows' iterates in
-// registers and every scalar (f_lg, f_rl, rs, denom, f_a, f_b) summed over
-// the lanes in lane order (Lanes::sum) with the same bits on every lane, so
+// SL slots of registers (one on the dense path's warp, where the lane's row
+// is its only one) and every scalar (f_lg, f_rl, rs, denom, f_a, f_b) summed over
+// the lanes in lane order (lane_order_sums: each lane stores its term, every
+// lane adds the stored terms in order) with the same bits on every lane, so
 // that all lanes take every branch alike. Up to kDense valid rows that is
-// the row order; beyond, each lane's slots (rows l, l + W, ...) are added
+// the row order, and the arc search's points share one pass over A
+// (arc_dense); beyond, each lane's slots (rows l, l + W, ...) are added
 // first, then the lanes in order. Near a contact switch the QP turns
 // rounding into other iterates, so the order of these sums shows: with tree
 // sums the Standup's f64 CEMPPI step lay 11x further from the plain path
 // than the plain path moves under a nudge of its inputs, with the row order
-// 4.5x (chip_smoke.py phase 34; H100 80GB HBM3, 700 W). wk.lam_full holds the warm start of every model row on entry and
-// the solution (0 on rows not valid) on exit. Returns J^T lam = L (W lam).
-template <typename T, int N, int R, int F, int W>
-__device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qfrc)[N]) {
-  constexpr int RW = (R + W - 1) / W;
+// 4.5x (chip_smoke.py phase 34; H100 80GB HBM3, 700 W). wk.lam_full holds
+// the warm start of every model row on entry and the solution (0 on rows not
+// valid) on exit. qfrc = J^T lam = L (W lam).
+template <int SL, bool DENSE, typename T, int N, int R, int F, int W>
+__device__ __forceinline__ void qp_rows(const Model<T>& m, Work<T, N, R, F>& wk, int nv,
+                                        T (&qfrc)[N]) {
   const int lane = Lanes<W>::lane();
   // slot s of a lane holds row lane + s W; slots with s W >= nv hold no row
   // on any lane and are skipped (their values stay 0)
-  T lam[RW], rhs[RW], x[RW], res[RW], p[RW], ap[RW];
-  bool act[RW];
+  T lam[SL], rhs[SL], x[SL], res[SL], p[SL], ap[SL];
+  bool act[SL];
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
+  for (int s = 0; s < SL; ++s) {
     const int r = lane + s * W;
     const bool live = r < nv;
     lam[s] = live ? wk.lam_full[wk.idx[r]] : T(0);
@@ -1257,17 +1479,15 @@ __device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qf
   Lanes<W>::sync();  // every warm start is read
   for (int r = lane; r < m.n_rows; r += W) wk.lam_full[r] = T(0);
   Lanes<W>::sync();
-#pragma unroll
-  for (int d = 0; d < N; ++d) qfrc[d] = T(0);
-  if (nv == 0) return;  // every iterate would stay 0
-  if (nv <= kDense) form_dense<W>(wk, nv);
-  const int nl = nv < W ? nv : W;  // the lanes that hold rows
+  if constexpr (DENSE) form_dense<W>(wk, nv);
+  // the lanes that hold rows: on the wide path every lane, a constant
+  const int nl = DENSE && nv < W ? nv : W;
 
   for (int it = 0; it < m.outer; ++it) {
-    apply_rows<false, W>(wk, nv, lam, act, ap);
+    apply_rows<false, DENSE, W>(wk, nv, lam, act, ap);
     T f_lg = T(0), f_rl = T(0);
 #pragma unroll
-    for (int s = 0; s < RW; ++s) {
+    for (int s = 0; s < SL; ++s) {
       if (s * W < nv) {
         const T g = ap[s] - rhs[s];
         act[s] = lane + s * W < nv && (lam[s] > T(0) || g < T(0));
@@ -1276,41 +1496,42 @@ __device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qf
         f_rl = f_rl + rhs[s] * lam[s];
       }
     }
-    Lanes<W>::sum2(f_lg, f_rl, nl);
-    T best_f = T(0.5) * f_lg - T(0.5) * f_rl;
-    apply_rows<true, W>(wk, nv, x, act, ap);
+    T lg_rl[2] = {f_lg, f_rl};
+    lane_order_sums<2, W>(wk, lg_rl, nl);
+    T best_f = T(0.5) * lg_rl[0] - T(0.5) * lg_rl[1];
+    apply_rows<true, DENSE, W>(wk, nv, x, act, ap);
     T rs = T(0);
 #pragma unroll
-    for (int s = 0; s < RW; ++s) {
+    for (int s = 0; s < SL; ++s) {
       if (s * W < nv) {
         res[s] = act[s] ? rhs[s] - ap[s] : T(0);
         p[s] = res[s];
         rs = rs + res[s] * res[s];
       }
     }
-    rs = Lanes<W>::sum(rs, nl);
+    rs = lane_order_sum<W>(wk, rs, nl);
     for (int k = 0; k < m.cg; ++k) {
-      apply_rows<true, W>(wk, nv, p, act, ap);
+      apply_rows<true, DENSE, W>(wk, nv, p, act, ap);
       T denom = T(0);
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
+      for (int s = 0; s < SL; ++s) {
         if (s * W < nv) denom = denom + p[s] * ap[s];
       }
-      denom = Lanes<W>::sum(denom, nl);
+      denom = lane_order_sum<W>(wk, denom, nl);
       const T alpha = denom > T(1e-30) ? rs / (denom < T(1e-30) ? T(1e-30) : denom) : T(0);
       T rs_new = T(0);
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
+      for (int s = 0; s < SL; ++s) {
         if (s * W < nv) {
           x[s] = x[s] + alpha * p[s];
           res[s] = res[s] - alpha * ap[s];
           rs_new = rs_new + res[s] * res[s];
         }
       }
-      rs_new = Lanes<W>::sum(rs_new, nl);
+      rs_new = lane_order_sum<W>(wk, rs_new, nl);
       const T beta = rs > T(1e-30) ? rs_new / (rs < T(1e-30) ? T(1e-30) : rs) : T(0);
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
+      for (int s = 0; s < SL; ++s) {
         if (s * W < nv) p[s] = res[s] + beta * p[s];
       }
       rs = rs_new;
@@ -1318,44 +1539,51 @@ __device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qf
     // projected arc search over the fixed ladder; x becomes delta, p lam(t);
     // the best t is kept by its index and lam(t) formed again from it
 #pragma unroll
-    for (int s = 0; s < RW; ++s) {
+    for (int s = 0; s < SL; ++s) {
       if (s * W < nv) x[s] = act[s] ? x[s] - lam[s] : T(0);
     }
     int best_a = -1;
+    if constexpr (DENSE) {  // the points side by side
+      T f_a[kLadder], f_b[kLadder];
+      arc_dense<W>(wk, nv, nl, lam, x, act, rhs, f_a, f_b);
+#pragma unroll
+      for (int a = 0; a < kLadder; ++a) {
+        const T f_t = T(0.5) * f_a[a] - f_b[a];
+        if (f_t < best_f) {
+          best_f = f_t;
+          best_a = a;
+        }
+      }
+    } else {
 #pragma unroll 1
-    for (int a = 0; a < 6; ++a) {
-      const T t = static_cast<T>(kArc[a]);
+      for (int a = 0; a < kLadder; ++a) {
+        const T t = static_cast<T>(kArc[a]);
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
-        if (s * W < nv) {
-          const T v = lam[s] + t * x[s];
-          p[s] = v < T(0) ? T(0) : v;
+        for (int s = 0; s < SL; ++s) {
+          if (s * W < nv) p[s] = arc_point(lam[s], x[s], t);
         }
-      }
-      apply_rows<true, W>(wk, nv, p, act, ap);
-      T f_a = T(0), f_b = T(0);
+        apply<true, W>(wk, wk.u, nv, p, act, ap);
+        T f_ab[2] = {T(0), T(0)};
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
-        if (s * W < nv) {
-          f_a = f_a + p[s] * ap[s];
-          f_b = f_b + rhs[s] * p[s];
+        for (int s = 0; s < SL; ++s) {
+          if (s * W < nv) {
+            f_ab[0] = f_ab[0] + p[s] * ap[s];
+            f_ab[1] = f_ab[1] + rhs[s] * p[s];
+          }
         }
-      }
-      Lanes<W>::sum2(f_a, f_b, nl);
-      const T f_t = T(0.5) * f_a - f_b;
-      if (f_t < best_f) {
-        best_f = f_t;
-        best_a = a;
+        lane_order_sums<2, W>(wk, f_ab, nl);
+        const T f_t = T(0.5) * f_ab[0] - f_ab[1];
+        if (f_t < best_f) {
+          best_f = f_t;
+          best_a = a;
+        }
       }
     }
     if (best_a >= 0) {
       const T t = static_cast<T>(kArc[best_a]);
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
-        if (s * W < nv) {
-          const T v = lam[s] + t * x[s];
-          lam[s] = v < T(0) ? T(0) : v;
-        }
+      for (int s = 0; s < SL; ++s) {
+        if (s * W < nv) lam[s] = arc_point(lam[s], x[s], t);
       }
     }
   }
@@ -1363,7 +1591,7 @@ __device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qf
 #pragma unroll
   for (int d = 0; d < N; ++d) part[d] = T(0);
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
+  for (int s = 0; s < SL; ++s) {
     const int r = lane + s * W;
     if (s * W < nv && r < nv) {
       wk.lam_full[wk.idx[r]] = lam[s];
@@ -1389,6 +1617,24 @@ __device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qf
 #endif
   }
   SPATIAL_STAMP(kPhQp);
+}
+
+// The QP of the nv valid rows: skipped without a row, else on the dense path
+// (nv <= kDense) or the wide one, each its own instance of qp_rows.
+template <typename T, int N, int R, int F, int W>
+__device__ void solve_qp(const Model<T>& m, Work<T, N, R, F>& wk, int nv, T (&qfrc)[N]) {
+  constexpr int RW = (R + W - 1) / W;
+  if (nv == 0) {  // every iterate would stay 0
+    Lanes<W>::sync();
+    for (int r = Lanes<W>::lane(); r < m.n_rows; r += W) wk.lam_full[r] = T(0);
+    Lanes<W>::sync();
+#pragma unroll
+    for (int d = 0; d < N; ++d) qfrc[d] = T(0);
+  } else if (nv <= kDense) {
+    qp_rows<kDenseSlots<W, RW>, true, T, N, R, F, W>(m, wk, nv, qfrc);
+  } else {
+    qp_rows<RW, false, T, N, R, F, W>(m, wk, nv, qfrc);
+  }
 }
 
 // One constrained forward pass (mj_forward) at (q, qv), run by the sample's
@@ -1419,6 +1665,7 @@ __device__ __noinline__ void forward_acc(const Model<T>& m, const T (&q)[NQ], co
   chol_solve<T, N, W>(wk.L, wk.inv, smooth, a_smooth);
   SPATIAL_STAMP(kPhFactor);
   const int nv = contact_rows<T, N, NQ, F, R, W>(m, q, qv, a_smooth, wk);
+  SPATIAL_ROWS(nv);
   solve_qp<T, N, R, F, W>(m, wk, nv, qfrc);
 #pragma unroll
   for (int d = 0; d < N; ++d) smooth[d] = smooth[d] + qfrc[d];

@@ -38,12 +38,24 @@
 //   per forward pass by one lane per row against the factor, so that no
 //   triangular solve is left in the QP's loop; their rhs, regularizer and
 //   model row; lambda's warm starts; M and its factor; the frames and the
-//   bodies' motion. At most 32 valid rows (the common case) the QP applies
-//   the dense A = W^T W + diag R, formed once per pass, one dot per row;
-//   beyond, W^T (W v) with a reduce-scatter over the lanes. The row
-//   capacity is a template parameter (RowCap), so Ant (128 x 14) and the
-//   Pusher (128 x 11) hold only their own rows. Per-lane state (q, qv, the
-//   RK4 stages, the QP iterates of the lane's rows) stays in registers.
+//   bodies' motion. Per-lane state (q, qv, the RK4 stages, the QP iterates
+//   of the lane's rows) stays in registers. The row capacity is a template
+//   parameter (RowCap), so Ant (128 x 14) and the Pusher (128 x 11) hold
+//   only their own rows.
+// - The QP's operands move through the warp's shared memory in 16-byte
+//   reads. At most 32 valid rows (the common case: 92-97% of the Ant's
+//   forward passes in the main path, median 2-3 rows) the QP applies the
+//   dense A = W^T W + diag R, formed once per pass at a row stride of 32
+//   words and 16 bytes (a quarter warp's rows on distinct banks): each lane
+//   stores its entry of the vector once, and dots its row of A with it four
+//   entries a step, A's row and the vector (a broadcast) each one 16-byte
+//   load in f32. The arc search's six points share one pass over A. Every
+//   row-order scalar is one store a lane and one broadcast load per four
+//   lanes in place of a shuffle per lane. The QP's iterations are compiled
+//   twice: one register a lane for each iterate on this dense path, a slot
+//   per 32 rows beyond, where the QP applies W^T (W v) with a reduce-scatter
+//   over the lanes. How the operands move changes no FMA or add, nor their
+//   order: the results do not depend on it, bit for bit.
 // - Blocks are the number of warps (1 to 8) that keeps the most warps
 //   resident on an SM under the build's shared memory (30.6 KB a warp for
 //   the humanoids in f32) and registers, the fewer on a tie; a warp past
@@ -55,16 +67,15 @@
 //   wrapper owns; every thread reads it at the same addresses.
 //
 // What bounds it on an H100: the warp's chain of dependent steps, and the
-// schedulers' issue once two warps share one. A sample alone takes about a
-// third or more of the whole launch at K = 1024; up to four warps an SM (one a
-// scheduler) the time barely grows, beyond that it grows with the warps
-// that share a scheduler, and the humanoids' 7 resident warps an SM (their
-// shared memory) leave K = 1024 a second, partial wave
-// (scripts/spatial_k_scan.py). Per forward pass the QP is 52-62% on Ant and
-// the humanoids (30% on the Pusher, whose cylinder pairs take 16%), the mass
-// matrix and bias 13-18%, the factor and solves 6-11% and the frames (one
-// lane) 6-11% (scripts/spatial_phase_times.py, the stamped kernel at K =
-// 1024 from chip_smoke's timed starts).
+// schedulers' issue once two warps share one. Every build keeps a block of
+// one warp and the resident warps an SM its registers or shared memory
+// allow (Ant 8, the Pusher 16 in f32, the humanoids 7), so K = 1024 is a
+// single wave on Ant and a second, partial one on the humanoids
+// (scripts/spatial_k_scan.py). Per forward pass on Ant the QP is 47-48%,
+// the mass matrix and bias 21-23%, the frames (one lane) 11% and the factor
+// and solves 8-9% (scripts/spatial_phase_times.py, the stamped kernel at K =
+// 1024 from the grounded start and the main path's states; the stamps weigh
+// most in the QP, which has the most of them).
 //
 #include <cuda_runtime.h>
 

@@ -9,18 +9,26 @@ the factorizations and solves with M, the rows (limits, floor, cylinder
 pairs, self pairs), the QP's operator applications and the rest of the QP,
 integration (the RK4 or Euler bookkeeping between forward passes) and the
 per-step reward. One sample in every K / 132 (about one per SM) records, by
-its first lane, summed over its whole rollout. Then for each build it runs a
+its first lane, summed over its whole rollout; it also counts its forward
+passes by their valid rows (SPATIAL_ROWS), which says how often the QP takes
+its dense path (at most 32 rows, one a lane). Then for each build it runs a
 rollout at the main path's K and T from the start that chip_smoke.py times
 (Ant grounded, the Pusher's reset, the Humanoid's crouch, the Standup's
-supine reset) and from the state that `--steps` control steps of the main
-path's CEMPPI reach, and prints each phase's mean share and its time per
-forward pass.
+supine reset) and from the states that `--steps` control steps of the main
+path's CEMPPI reach (one start per count), and prints each phase's mean share and its time per
+forward pass, the share of forward passes on each QP path with the median
+and largest valid-row count, and the recording samples' slowest total time
+against their median (whether a few slow samples set the launch).
 
     python scripts/spatial_phase_times.py                          # all four builds
     python scripts/spatial_phase_times.py --only humanoid --steps 5
+    python scripts/spatial_phase_times.py --only ant --steps 10 60
 
-The copy is built under mpopis_tpu_torch/_build/phase_times/ with the flags
-of kernels/build.py; the kernel itself is not changed.
+`--source` stamps another copy of spatial_rollout.cu (a parent's unpacked
+under a directory that .gitignore lists, its headers beside it; the row
+counts need its SPATIAL_ROWS hook). The copy is built under
+mpopis_tpu_torch/_build/phase_times/ with the flags of kernels/build.py; the
+kernel itself is not changed.
 """
 
 from __future__ import annotations
@@ -77,10 +85,16 @@ __device__ __forceinline__ void spatial_stamp(int phase, bool start) {
 }
 #define SPATIAL_STAMP(phase) spatial_stamp(phase, false)
 #define SPATIAL_STAMP_START() spatial_stamp(0, true)
+__device__ unsigned long long* g_rows_hist;  // [rows + 1]: forward passes by valid rows
+__device__ __forceinline__ void spatial_rows(int nv) {
+  if (spatial_stamp_slot() >= 0) atomicAdd(g_rows_hist + nv, 1ull);
+}
+#define SPATIAL_ROWS(nv) spatial_rows(nv)
 """
 SETUP = """
-extern "C" int phase_setup(void* ns, int stride, int slots, int count) {
+extern "C" int phase_setup(void* ns, int stride, int slots, int count, void* rows) {
   cudaError_t e = cudaMemcpyToSymbol(g_phase_ns, &ns, sizeof(ns));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_rows_hist, &rows, sizeof(rows));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_stride, &stride, sizeof(int));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_slots, &slots, sizeof(int));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_count, &count, sizeof(int));
@@ -97,9 +111,10 @@ BUILDS = {
 }
 
 
-def phase_names() -> list[str]:
-    """The `Phase` enum of spatial_dynamics.cuh, kPhases excluded."""
-    src = (build.CSRC_DIR / "spatial_dynamics.cuh").read_text()
+def phase_names(source: Path) -> list[str]:
+    """The `Phase` enum of the spatial_dynamics.cuh beside `source`, kPhases
+    excluded."""
+    src = (source.parent / "spatial_dynamics.cuh").read_text()
     body = re.search(r"enum Phase \{(.*?)\};", src, re.S)
     if body is None:
         raise RuntimeError("spatial_dynamics.cuh no longer has `enum Phase`")
@@ -109,18 +124,18 @@ def phase_names() -> list[str]:
     return [n[3:].lower() for n in names[:-1]]
 
 
-def stamped_library() -> tuple[ctypes.CDLL, str]:
-    """Build the stamped copy; returns it and its ptxas log."""
+def stamped_library(source: Path) -> tuple[ctypes.CDLL, str]:
+    """Build the stamped copy of `source`; returns it and its ptxas log."""
     OUT.mkdir(parents=True, exist_ok=True)
     src = OUT / "spatial_phases.cu"
-    src.write_text(PRELUDE + f'#include "{build.CSRC_DIR / "spatial_rollout.cu"}"\n' + SETUP)
+    src.write_text(PRELUDE + f'#include "{source.resolve()}"\n' + SETUP)
     so = OUT / "libspatial_phases.so"
     cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.phase_setup.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    lib.phase_setup.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.phase_setup.restype = ctypes.c_int
     lib.spatial_model_bytes.argtypes = [ctypes.c_int]
     lib.spatial_model_bytes.restype = ctypes.c_int
@@ -131,6 +146,22 @@ def stamped_library() -> tuple[ctypes.CDLL, str]:
     lib.spatial_rollout_costs_f32.argtypes = spatial_step._ROLLOUT_ARGS
     lib.spatial_rollout_costs_f32.restype = ctypes.c_int
     return lib, proc.stdout + proc.stderr
+
+
+def row_counts(hist: np.ndarray) -> str:
+    """The recording samples' forward passes by the QP's path (no row, the
+    dense path at 1-32 rows, the lanes' sums past 32), with the median and
+    largest valid-row count."""
+    n = hist.sum()
+    if n == 0:
+        return "no forward pass counted"
+    rows = np.arange(len(hist))
+    cum = np.cumsum(hist)
+    median = int(rows[np.searchsorted(cum, (n + 1) // 2)])
+    largest = int(rows[hist > 0].max())
+    return (f"forward passes {n}: no row {100 * hist[0] / n:.1f}%, dense (1-32 rows) "
+            f"{100 * hist[1:33].sum() / n:.1f}%, past 32 rows {100 * hist[33:].sum() / n:.1f}%; "
+            f"valid rows median {median}, largest {largest}")
 
 
 def start_state(which: str, env, start: str) -> torch.Tensor:
@@ -160,16 +191,20 @@ def main_path_state(env, na, k, horizon, its, lam, steps) -> torch.Tensor:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(BUILDS), help="builds, comma-separated")
-    ap.add_argument("--steps", type=int, default=10,
-                    help="main-path control steps before the second start")
+    ap.add_argument("--steps", type=int, nargs="+", default=[10],
+                    help="main-path control steps before the further starts")
+    ap.add_argument("--source", type=Path, default=build.CSRC_DIR / "spatial_rollout.cu",
+                    help="the spatial_rollout.cu to stamp (its headers beside it)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("spatial_phase_times: needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    names = phase_names()
-    lib, log = stamped_library()
+    print("source", args.source)
+    names = phase_names(args.source)
+    qp = [names.index("apply"), names.index("qp")]
+    lib, log = stamped_library(args.source)
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
@@ -189,13 +224,16 @@ def main() -> None:
         stride = max(k // n_sm, 1)
         slots = (k + stride - 1) // stride
         ns = torch.zeros((slots, len(names)), dtype=torch.int64, device="cuda")
-        if lib.phase_setup(ns.data_ptr(), stride, slots, len(names)) != 0:
+        rows = torch.zeros(spatial_step.LAYOUT["wide_rows"] + 1, dtype=torch.int64,
+                           device="cuda")
+        if lib.phase_setup(ns.data_ptr(), stride, slots, len(names), rows.data_ptr()) != 0:
             raise RuntimeError("could not point the kernel at the stamp buffers")
         passes = horizon * env.FRAME_SKIP * (1 if env.MODEL.integrator == "euler_implicit"
                                              else 4)
-        starts = {start: start_state(which, env, start).contiguous(),
-                  f"main path after {args.steps} steps": main_path_state(
-                      env, na, k, horizon, its, lam, args.steps)}
+        starts = {start: start_state(which, env, start).contiguous()}
+        for n in args.steps:
+            starts[f"main path after {n} steps"] = main_path_state(env, na, k, horizon, its, lam,
+                                                                   n)
         for label, x in starts.items():
             costs = torch.empty(k, dtype=torch.float32, device="cuda")
             want = spatial_step.spatial_rollout_costs_tak(env, x, ctrl)
@@ -210,6 +248,7 @@ def main() -> None:
 
             launch()  # warm-up
             ns.zero_()
+            rows.zero_()
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
             launch()
@@ -227,6 +266,11 @@ def main() -> None:
             print("  " + ", ".join(f"{n} {100 * v / mean.sum():.1f}% "
                                    f"({v / passes / 1e3:.3f} us/pass)"
                                    for n, v in zip(names, mean)))
+            print(f"  the QP's share of a pass {100 * mean[qp].sum() / mean.sum():.1f}% "
+                  f"(apply and qp); a recording sample's total: median "
+                  f"{np.median(total) / 1e6:.3f} ms, slowest {total.max() / 1e6:.3f} ms "
+                  f"({total.max() / np.median(total):.3f}x the median)")
+            print("  " + row_counts(rows.cpu().numpy()))
 
 
 if __name__ == "__main__":

@@ -721,6 +721,99 @@ def test_humanoid_step_kernel_batch_of_three(cuda_device, which):
     assert bool(torch.all(torch.isfinite(got))) and bool(torch.all(err <= bound))
 
 
+# -- kernel 4's dense QP at the edges of its 16-byte reads -------------------------
+# Starts whose first forward pass holds n valid rows: n mod 4 = 0-3 (the last,
+# partial 16-byte load of A's rows, of the vectors and of the row-order sums)
+# and 31, 32, 33 (the dense path's last row counts and the first past it).
+# Ant pressed and tilted into the floor: z, the quaternion and the 8 hinges.
+ANT_EDGE = {
+    28: (0.2381, 0.9868, 0.1358, 0.0876, 0.0126, -0.8422, -1.4145, 1.5114, -0.8439, -0.3612,
+         -0.8108, 0.484, 0.2001),
+    29: (0.2057, 0.9871, -0.1333, -0.0876, 0.0163, 1.5492, 0.0635, 1.3505, 0.9006, -1.2193,
+         -0.9089, -0.361, 1.2191),
+    30: (0.2525, 0.9681, -0.2077, -0.1232, 0.0665, -0.6791, -1.4663, -1.2539, 0.0601, -0.792,
+         -0.6863, 0.7727, 1.135),
+    31: (0.1807, 0.9602, -0.2297, 0.1575, -0.02, 0.3104, 1.3366, 0.6068, 0.0011, -1.3533,
+         -0.037, -0.9189, -1.1754),
+    32: (0.1938, 0.9831, -0.1065, -0.1482, 0.0116, -0.8319, 0.7342, -1.5576, -0.1967, -0.0848,
+         -0.3003, 0.0605, 1.1047),
+    33: (0.1592, 0.9819, 0.1226, -0.1439, 0.005, -1.0953, 0.8922, -1.2918, 1.1406, 0.1758,
+         -0.2213, 0.2012, 0.1208),
+}
+# The Humanoid's crouch lowered and bent at random, and the Pusher's fingertips
+# at the object with its arm pushed past its limits (the Pusher's build holds A
+# in room of its own): the numpy seed that gives each row count.
+HUMANOID_EDGE = {30: 323, 31: 1121, 32: 285, 33: 407}
+PUSHER_EDGE = {4: 94, 5: 42, 6: 10, 7: 0}
+EDGE_CASES = ([("ant", n) for n in ANT_EDGE] + [("humanoid", n) for n in HUMANOID_EDGE]
+              + [("pusher", n) for n in PUSHER_EDGE])
+EDGE_HI = {"ant": 1.0, "humanoid": 0.4, "pusher": 2.0}  # the controls' bound
+
+
+def _edge_start(which, rows, dtype, device):
+    """The build's env and the start with `rows` valid rows in its first
+    forward pass (counted by the plain version in f64 on the CPU)."""
+    if which == "ant":
+        env = AntDeviceEnv(dtype=torch.float64, device="cpu")
+        x = env.reset().x.clone()
+        x[2:15] = torch.tensor(ANT_EDGE[rows], dtype=torch.float64)
+        x[3:7] = x[3:7] / x[3:7].norm()
+    elif which == "humanoid":
+        env = HumanoidDeviceEnv(dtype=torch.float64, device="cpu")
+        rng = np.random.default_rng(HUMANOID_EDGE[rows])
+        q = humanoid_device.crouched_qpos(env.MODEL).to(torch.float64).clone()
+        q[2] += rng.uniform(-0.15, 0.1)
+        q[7:] += torch.as_tensor(rng.uniform(-0.4, 0.4, q.numel() - 7))
+        x = torch.cat([q, torch.zeros(23, dtype=torch.float64), humanoid_device.com_x(q)[None]])
+    else:
+        env = PusherDeviceEnv(dtype=torch.float64, device="cpu")
+        rng = np.random.default_rng(PUSHER_EDGE[rows])
+        x = pusher_device.touching_state(rng.uniform(-0.32, -0.26), rng.uniform(0.05, 0.08),
+                                         rng.uniform(-0.3, 0.3, 11)).to(torch.float64).clone()
+        x[:7] += torch.as_tensor(rng.uniform(-1.2, 1.2, 7))
+    assert sum(spatial_step.first_substep_active_rows(env, x)) == rows
+    return type(env)(dtype=dtype, device=device), x.to(device, dtype)
+
+
+# f64 only: from these pressed starts single f32 samples switch contacts apart
+# from the plain version's within a control step (0.05-0.33% in 1 of 32
+# costs, up to 0.17% of a state), however the kernel's operands move; the
+# f32 path is held bit for bit against another copy of the kernel by
+# scripts/spatial_k_scan.py --source.
+@pytest.mark.parametrize("which,rows", EDGE_CASES)
+def test_spatial_kernel_dense_qp_edges_match_plain_version(cuda_device, which, rows):
+    """Two control steps of 32 candidates from the pressed start, held by
+    _hold_f64 against the batch's largest own spread (pool), as the deep
+    drops of the planar kernels' Walker2d."""
+    env, x0 = _edge_start(which, rows, torch.float64, cuda_device)
+    hi = EDGE_HI[which]
+    ctrl = torch.as_tensor(np.random.default_rng(rows).uniform(-hi, hi, (2, env.action_dim, 32)),
+                           dtype=torch.float64, device=cuda_device)
+    before = spatial_step.LAUNCHES
+    got = spatial_step.spatial_rollout_costs_tak(env, x0, ctrl)
+    assert spatial_step.LAUNCHES == before + 1 and got.shape == (32,)
+    _hold_f64(env, x0, ctrl, got, pool=True)
+
+
+@pytest.mark.parametrize("which,rows", EDGE_CASES)
+def test_spatial_step_kernel_dense_qp_edges_match_plain_step(cuda_device, which, rows):
+    """The step entry from 8 copies of the start under 8 actions: per state
+    within 1e-9 of the plain step, or the nudge rule."""
+    env, x0 = _edge_start(which, rows, torch.float64, cuda_device)
+    hi = EDGE_HI[which]
+    xs = x0.expand(8, -1).contiguous()
+    acts = torch.as_tensor(np.random.default_rng(rows).uniform(-hi, hi, (8, env.action_dim)),
+                           dtype=torch.float64, device=cuda_device)
+    before = spatial_step.STEP_LAUNCHES
+    got = spatial_step.spatial_step_states(env, xs, acts)
+    assert spatial_step.STEP_LAUNCHES == before + 1
+    want = env.plain_step(make_state(xs), acts).x
+    err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    own = (env.plain_step(make_state(xs), acts * (1 + 1e-15)).x - want).abs().amax(-1)
+    bound = torch.clamp(10 * own / want.abs().amax(-1), min=1e-9)
+    assert bool(torch.all(torch.isfinite(got))) and bool(torch.all(err <= bound))
+
+
 # -- kernels 2 and 3's groups of lanes: partial blocks, empty and wide QPs ------
 PLANAR_BUILDS = {"cheetah": CheetahDeviceEnv, "hopper": HopperDeviceEnv,
                  "walker2d": Walker2dDeviceEnv, "swimmer": SwimmerDeviceEnv}
