@@ -11,13 +11,15 @@ integration (the RK4 or Euler bookkeeping between forward passes) and the
 per-step reward. One sample in every K / 132 (about one per SM) records, by
 its first lane, summed over its whole rollout; it also counts its forward
 passes by their valid rows (SPATIAL_ROWS), which says how often the QP takes
-its dense path (at most 32 rows, one a lane). Then for each build it runs a
-rollout at the main path's K and T from the start that chip_smoke.py times
-(Ant grounded, the Pusher's reset, the Humanoid's crouch, the Standup's
-supine reset) and from the states that `--steps` control steps of the main
-path's CEMPPI reach (one start per count), and prints each phase's mean share and its time per
-forward pass, the share of forward passes on each QP path with the median
-and largest valid-row count, and the recording samples' slowest total time
+its dense path (at most 32 rows, one a lane), and those rows by kind. Then
+for each build it runs a rollout at the main path's K and T from the start
+that chip_smoke.py times (Ant grounded, the Pusher's reset, the Humanoid's
+crouch, the Standup's supine reset) and from the states that `--steps`
+control steps of the main path's CEMPPI reach (one start per count), and
+prints each phase's mean share and its time per forward pass, the share of
+forward passes on each QP path with the median and largest valid-row count,
+the valid rows' kinds with the share of passes that have a row of each
+kind, and the recording samples' slowest total time
 against their median (whether a few slow samples set the launch).
 
     python scripts/spatial_phase_times.py                          # all four builds
@@ -86,15 +88,36 @@ __device__ __forceinline__ void spatial_stamp(int phase, bool start) {
 #define SPATIAL_STAMP(phase) spatial_stamp(phase, false)
 #define SPATIAL_STAMP_START() spatial_stamp(0, true)
 __device__ unsigned long long* g_rows_hist;  // [rows + 1]: forward passes by valid rows
-__device__ __forceinline__ void spatial_rows(int nv) {
-  if (spatial_stamp_slot() >= 0) atomicAdd(g_rows_hist + nv, 1ull);
+// [8]: valid rows by kind (limits, floor, cylinder pairs, self pairs), then
+// forward passes with at least one row of each kind
+__device__ unsigned long long* g_kind_rows;
+// Counts the pass by its valid rows, and those by kind from their model rows
+// (wk.idx, compacted in the model's row order). SPATIAL_ROWS expands inside
+// forward_acc, whose model and workspace are `m` and `wk`.
+template <class M, class Wk>
+__device__ __forceinline__ void spatial_rows(int nv, const M& m, const Wk& wk) {
+  if (spatial_stamp_slot() < 0) return;
+  atomicAdd(g_rows_hist + nv, 1ull);
+  const int cyl0 = m.n_rows - m.n_cap - m.n_cyl, self0 = m.n_rows - m.n_cap;
+  unsigned long long kinds[4] = {0, 0, 0, 0};
+  for (int i = 0; i < nv; ++i) {
+    const int r = wk.idx[i];
+    ++kinds[r < m.n_limits ? 0 : r < cyl0 ? 1 : r < self0 ? 2 : 3];
+  }
+  for (int k = 0; k < 4; ++k) {
+    if (kinds[k] == 0) continue;
+    atomicAdd(g_kind_rows + k, kinds[k]);
+    atomicAdd(g_kind_rows + 4 + k, 1ull);
+  }
 }
-#define SPATIAL_ROWS(nv) spatial_rows(nv)
+#define SPATIAL_ROWS(nv) spatial_rows(nv, m, wk)
 """
 SETUP = """
-extern "C" int phase_setup(void* ns, int stride, int slots, int count, void* rows) {
+extern "C" int phase_setup(void* ns, int stride, int slots, int count, void* rows,
+                           void* kinds) {
   cudaError_t e = cudaMemcpyToSymbol(g_phase_ns, &ns, sizeof(ns));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_rows_hist, &rows, sizeof(rows));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_kind_rows, &kinds, sizeof(kinds));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_stride, &stride, sizeof(int));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_slots, &slots, sizeof(int));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_count, &count, sizeof(int));
@@ -135,7 +158,7 @@ def stamped_library(source: Path) -> tuple[ctypes.CDLL, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.phase_setup.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.phase_setup.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     lib.phase_setup.restype = ctypes.c_int
     lib.spatial_model_bytes.argtypes = [ctypes.c_int]
     lib.spatial_model_bytes.restype = ctypes.c_int
@@ -162,6 +185,22 @@ def row_counts(hist: np.ndarray) -> str:
     return (f"forward passes {n}: no row {100 * hist[0] / n:.1f}%, dense (1-32 rows) "
             f"{100 * hist[1:33].sum() / n:.1f}%, past 32 rows {100 * hist[33:].sum() / n:.1f}%; "
             f"valid rows median {median}, largest {largest}")
+
+
+KINDS = ("limits", "floor", "cylinder pairs", "self pairs")
+
+
+def kind_counts(kinds: np.ndarray, passes: int) -> str:
+    """The recording samples' valid rows by kind, and the share of forward
+    passes with at least one row of each kind."""
+    n = kinds[:4].sum()
+    if n == 0:
+        return "no valid row counted"
+    return ("valid rows by kind: " + ", ".join(f"{k} {100 * kinds[i] / n:.1f}%"
+                                               for i, k in enumerate(KINDS))
+            + "; passes with a row of the kind: "
+            + ", ".join(f"{k} {100 * kinds[4 + i] / max(passes, 1):.1f}%"
+                        for i, k in enumerate(KINDS)))
 
 
 def start_state(which: str, env, start: str) -> torch.Tensor:
@@ -226,7 +265,9 @@ def main() -> None:
         ns = torch.zeros((slots, len(names)), dtype=torch.int64, device="cuda")
         rows = torch.zeros(spatial_step.LAYOUT["wide_rows"] + 1, dtype=torch.int64,
                            device="cuda")
-        if lib.phase_setup(ns.data_ptr(), stride, slots, len(names), rows.data_ptr()) != 0:
+        kinds = torch.zeros(8, dtype=torch.int64, device="cuda")
+        if lib.phase_setup(ns.data_ptr(), stride, slots, len(names), rows.data_ptr(),
+                           kinds.data_ptr()) != 0:
             raise RuntimeError("could not point the kernel at the stamp buffers")
         passes = horizon * env.FRAME_SKIP * (1 if env.MODEL.integrator == "euler_implicit"
                                              else 4)
@@ -249,6 +290,7 @@ def main() -> None:
             launch()  # warm-up
             ns.zero_()
             rows.zero_()
+            kinds.zero_()
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
             launch()
@@ -270,7 +312,9 @@ def main() -> None:
                   f"(apply and qp); a recording sample's total: median "
                   f"{np.median(total) / 1e6:.3f} ms, slowest {total.max() / 1e6:.3f} ms "
                   f"({total.max() / np.median(total):.3f}x the median)")
-            print("  " + row_counts(rows.cpu().numpy()))
+            hist = rows.cpu().numpy()
+            print("  " + row_counts(hist))
+            print("  " + kind_counts(kinds.cpu().numpy(), int(hist.sum())))
 
 
 if __name__ == "__main__":
