@@ -33,11 +33,16 @@
 // - lane l tests candidate rows l, l + W, ... of each kind and forms the
 //   valid ones (J and W = L^-1 J^T, so that no triangular solve is left in
 //   the QP), compacted in the model's order by a ballot and popcount;
-// - the QP's rows and iterates lie on the lanes; up to kDense = 32 valid
-//   rows it applies the dense A = W^T W + diag R, formed once a forward pass
-//   (one dot per row an application), beyond that W^T (W v); its scalars
-//   are summed in the plain version's row order with the same bits on every
-//   lane, and J^T lambda dof by dof in row order.
+// - the QP's rows and iterates lie on the lanes, its scalars summed in the
+//   plain version's row order with the same bits on every lane, and J^T
+//   lambda dof by dof in row order. Up to kDense = 32 valid rows (the dense
+//   path, each iterate one register a lane at W = 32) it applies the dense
+//   A = W^T W + diag R, formed once a forward pass: each lane stores its
+//   entry of the vector once and dots its row of A with the stored vector
+//   four entries a load; each lane stores its terms of a sum and every lane
+//   adds them up from broadcast loads (one barrier a step, no shuffle); the
+//   arc search's six points share one pass over A. Beyond that an
+//   application is W^T (W v) and a sum takes a shuffle a row.
 // There are no atomics: a sample's result does not depend on scheduling.
 // The double instantiation agrees with the plain version to rounding, not
 // bit for bit (nvcc contracts multiply-adds into FMAs; the operator is
@@ -75,19 +80,32 @@ constexpr int kMaxRows = kMaxLimits + 3 * kMaxContacts + kMaxPairs;
 // Swimmer 2 limits)
 constexpr int kCheetahRows = 54, kWalkerRows = 48, kHopperRows = 30, kSwimmerRows = 2;
 constexpr int kDense = 32;  // valid rows up to which the QP applies a dense A
+constexpr int kLadder = 6;  // the arc search's points
+// The dense path's vectors (Work::vec): the arc search's points masked to
+// the active rows (the first also every other vector A is applied to), the
+// rows' terms of f_b = rhs . p(t) and those of f_a = p(t) . A p(t), the
+// last also those of the other row-order sums (kSumLg .. kSumDenom). Two
+// consecutive steps of the QP use distinct vectors, so a lane may store the
+// next one's while another still reads the last one's; one barrier a step.
+constexpr int kVecPoint = 0, kVecFb = kLadder, kVecFa = 2 * kLadder, kVecs = 3 * kLadder;
+constexpr int kSumLg = kVecFa, kSumRl = kVecFa + 1, kSumRs = kVecFa + 2, kSumDenom = kVecFa + 3;
 constexpr int kIntHeader = 10;
 constexpr int kDoubleHeader = 9;
 
 // The phases of a forward pass that scripts/planar_phase_times.py times: a
 // stamp charges the time since the previous one (or since the sample's
 // start) to its phase. The script builds a copy with PLANAR_STAMP and
-// PLANAR_STAMP_START defined; otherwise a stamp is nothing.
+// PLANAR_STAMP_START defined, and PLANAR_ROWS, which counts each forward
+// pass by its valid rows; otherwise each is nothing.
 enum Phase {
   kPhFrames, kPhMass, kPhFluid, kPhFactor, kPhRows, kPhApply, kPhQp, kPhIntegrate, kPhases
 };
 #ifndef PLANAR_STAMP
 #define PLANAR_STAMP(phase) ((void)0)
 #define PLANAR_STAMP_START() ((void)0)
+#endif
+#ifndef PLANAR_ROWS
+#define PLANAR_ROWS(nv) ((void)0)
 #endif
 
 template <typename T>
@@ -248,16 +266,30 @@ __device__ __forceinline__ void compute_frames(const Model<T>& m, const T (&q)[N
 // order: row i keeps its Jacobian J[i], its column w[i] of W = L^-1 J^T,
 // rhs = aref - J a_smooth, its regularizer and idx, its row of the model
 // (where its lambda warm start lies in lam_full); the row stride S is odd,
-// so that the lanes' rows meet distinct banks. With at most D valid rows the
-// QP applies the dense A = W^T W + diag R; vbuf holds the vector an
-// application multiplies, u the W^T-side sums of a wider one.
+// so that the lanes' rows meet distinct banks.
+// With at most D valid rows the QP applies the dense A = W^T W + diag R,
+// formed once a forward pass. A's rows lie DS entries apart, whole 16-byte
+// pieces: at D = 32 that is 4 words more than a multiple of 32 (36 f32, 34
+// f64), so that the 8 lanes of a quarter warp read their rows' 16-byte
+// pieces from distinct banks. Once A is formed, w is dead on that path, and
+// its room holds the dense path's vectors of DV entries (vec): the vectors A
+// is applied to and the lanes' terms of the row-order sums, which every lane
+// reads back as broadcasts. Beyond D rows vbuf holds the vector an
+// application multiplies, u the W^T-side sums.
 template <typename T, int N, int R>
 struct alignas(16) Work {
   static constexpr int S = N | 1;
   static constexpr int D = R < kDense ? R : kDense;
+  static constexpr int DV = (D + 3) / 4 * 4;
+  static constexpr int DS = DV + 16 / static_cast<int>(sizeof(T));
+  static_assert(D < kDense || DS * sizeof(T) / 4 % 32 == 4,
+                "a quarter warp's rows of A on distinct banks");
+  T A[D][DS];
+  union {
+    T w[R][S];
+    T vec[kVecs][DV];
+  };
   T J[R][S];
-  T w[R][S];
-  T A[D][D + 1];
   T rhs[R], reg[R], lam_full[R], vbuf[R];
   int idx[R];
   T M[N][N];  // the mass matrix's lower triangle
@@ -690,45 +722,165 @@ __device__ int contact_rows(const Model<T>& m, const T (&q)[N], const T (&qv)[N]
   return nv;
 }
 
-// The sum over the nv rows of v (row r in slot r / W of lane r mod W) in
-// row order, the plain version's serial order, with the same bits on every
-// lane of the group; two sums at once, their shuffles interleaved.
-template <int W, typename T, int RW>
-__device__ __forceinline__ void row_sums(T (&a)[RW], T (&b)[RW], int nv, T& sa, T& sb) {
-  sa = T(0);
-  sb = T(0);
+// The sums over the nv rows of terms[k] (row r in slot r / W of lane r mod
+// W) in row order, the plain version's serial order, with the same bits on
+// every lane of the group, by shuffles (the wide path's): K sums at once,
+// their shuffles interleaved.
+template <int K, int W, typename T, int SL>
+__device__ __forceinline__ void shuffle_sums(const T (&terms)[K][SL], int nv, T (&sums)[K]) {
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
+  for (int k = 0; k < K; ++k) sums[k] = T(0);
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
     const int n = nv - s * W < W ? nv - s * W : W;
     for (int l = 0; l < n; ++l) {
-      const T xa = lane_value<W>(a[s], l);
-      const T xb = lane_value<W>(b[s], l);
-      sa = sa + xa;
-      sb = sb + xb;
+      T x[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) x[k] = lane_value<W>(terms[k][s], l);
+#pragma unroll
+      for (int k = 0; k < K; ++k) sums[k] = sums[k] + x[k];
     }
   }
 }
 
-template <int W, typename T, int RW>
-__device__ __forceinline__ T row_sum(const T (&v)[RW], int nv) {
-  T sum = T(0);
-#pragma unroll
-  for (int s = 0; s < RW; ++s) {
-    const int n = nv - s * W < W ? nv - s * W : W;
-    for (int l = 0; l < n; ++l) sum = sum + lane_value<W>(v[s], l);
+// Entries c .. c + 3 of a row in shared memory, 16-byte aligned: one 16-byte
+// load in f32, two in f64 (element by element in the host build)
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T (&x)[4]) {
+#ifdef __CUDACC__
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    const double2 u = reinterpret_cast<const double2*>(p)[0];
+    const double2 v = reinterpret_cast<const double2*>(p)[1];
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = v.x;
+    x[3] = v.y;
   }
-  return sum;
+#else
+  for (int i = 0; i < 4; ++i) x[i] = p[i];
+#endif
 }
 
-// Row r of A = W^T W + diag R by the lane of row r, for nv <= D rows
-template <int W, typename T, int N, int R>
-__device__ void form_dense(Work<T, N, R>& wk, int nv) {
-  constexpr int RW = (R + W - 1) / W;
+// sums[k] = rows[k][0] + ... + rows[k][n - 1] in index order, n <= kDense,
+// from 16-byte loads that every lane makes alike (broadcasts): K chains side
+// by side. The loop over the pieces stays rolled: unrolled, it cost the
+// Hopper's float build 12 bytes of spills.
+template <int K, typename T>
+__device__ __forceinline__ void row_sums(const T* const (&rows)[K], int n, T (&sums)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) sums[k] = T(0);
+  int c = 0;
+#pragma unroll 1
+  for (int q = 0; q < kDense / 4; ++q, c += 4) {
+    if (c + 4 > n) break;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T x[4];
+      load4(rows[k] + c, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sums[k] = sums[k] + x[i];
+    }
+  }
+  if (c < n) {  // the last n mod 4 entries
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T x[4];
+      load4(rows[k] + c, x);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (c + i < n) sums[k] = sums[k] + x[i];
+    }
+  }
+}
+
+// The sums over the nv <= D rows of terms[k] in row order, as shuffle_sums
+// adds them: each lane stores its rows' terms into the dense path's vectors
+// first, first + 1, ...; one barrier; every lane adds each vector up.
+template <int K, int W, typename T, int N, int R, int SL>
+__device__ __forceinline__ void dense_sums(Work<T, N, R>& wk, int first, const T (&terms)[K][SL],
+                                           int nv, T (&sums)[K]) {
   const int lane = Lanes<W>::lane();
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
+  for (int s = 0; s < SL; ++s) {
     const int r = lane + s * W;
-    if (s * W < nv && r < nv) {
+    if (r < nv) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) wk.vec[first + k][r] = terms[k][s];
+    }
+  }
+  Lanes<W>::sync();
+  const T* rows[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) rows[k] = wk.vec[first + k];
+  row_sums(rows, nv, sums);
+}
+
+// The QP's row-order sums: from the vectors on the dense path, by shuffles
+// beyond it
+template <bool DENSE, int K, int W, typename T, int N, int R, int SL>
+__device__ __forceinline__ void qp_sums(Work<T, N, R>& wk, int first, const T (&terms)[K][SL],
+                                        int nv, T (&sums)[K]) {
+  if constexpr (DENSE) {
+    dense_sums<K, W>(wk, first, terms, nv, sums);
+  } else {
+    shuffle_sums<K, W>(terms, nv, sums);
+  }
+}
+
+// acc[j] = the row ar of A dotted with vector j of vecs (DV entries apart)
+// over entries 0 .. nv - 1, each in column order; four entries of A a load,
+// read once for all NV vectors
+template <int NV, int DV, typename T>
+__device__ __forceinline__ void dense_dots(const T* ar, const T* vecs, int nv, T (&acc)[NV]) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) acc[j] = T(0);
+  int c = 0;
+#pragma unroll
+  for (int q = 0; q < DV / 4; ++q, c += 4) {
+    if (c + 4 > nv) break;
+    T av[4];
+    load4(ar + c, av);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      T xv[4];
+      load4(vecs + j * DV + c, xv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j] = acc[j] + av[i] * xv[i];
+    }
+  }
+  if (c < nv) {  // the last nv mod 4 entries
+    T av[4];
+    load4(ar + c, av);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      T xv[4];
+      load4(vecs + j * DV + c, xv);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (c + i < nv) acc[j] = acc[j] + av[i] * xv[i];
+    }
+  }
+}
+
+// The slots of a lane that can hold one of nv <= kDense rows: one at W = 32
+template <int W, int RW>
+constexpr int kDenseSlots = (kDense + W - 1) / W < RW ? (kDense + W - 1) / W : RW;
+
+// Row r of A = W^T W + diag R by the lane of row r, for nv <= D rows; once
+// its barrier is passed, w is dead and its room holds the vectors
+template <int W, int SL, typename T, int N, int R>
+__device__ void form_dense(Work<T, N, R>& wk, int nv) {
+  const int lane = Lanes<W>::lane();
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
+    const int r = lane + s * W;
+    if (r < nv) {
       T wr[N];
 #pragma unroll
       for (int d = 0; d < N; ++d) wr[d] = wk.w[r][d];
@@ -743,15 +895,52 @@ __device__ void form_dense(Work<T, N, R>& wk, int nv) {
   Lanes<W>::sync();
 }
 
-// out = mask ? (J M^-1 J^T + diag R) (mask ? v : 0) : 0 over the nv valid
-// rows (MASK false: every row), the rows on the lanes (slot s of lane l is
-// row l + s W). The masked vector goes to wk.vbuf; with at most D rows each
-// row's lane dots its row of the dense A with it in row order, beyond that
-// lane d sums W^T's row d (wk.u, in row order) and each row's lane dots its
-// column of W with u.
+// The row of A that the lane of row r reads: its own, or, for a lane past
+// A's D rows (it holds no row; the Hopper's and the Swimmer's groups), row
+// 0, whose products it drops
+template <int W, int SL, typename T, int N, int R>
+__device__ __forceinline__ const T* dense_row(const Work<T, N, R>& wk, int r) {
+  constexpr int D = Work<T, N, R>::D;
+  if constexpr (W * SL > D) r = r < D ? r : 0;
+  return wk.A[r];
+}
+
+// out = mask ? A (mask ? v : 0) : 0 over the nv <= D rows: each lane stores
+// its rows' entries of v into vector kVecPoint once, then dots its row of A
+// with it. No barrier before the stores: the step before each application
+// is a row-order sum, whose barrier follows every lane's last read of the
+// vector (form_dense's before the first).
+template <bool MASK, int W, typename T, int N, int R, int SL>
+__device__ __forceinline__ void apply_dense(Work<T, N, R>& wk, int nv, const T (&v)[SL],
+                                            const bool (&act)[SL], T (&out)[SL]) {
+  PLANAR_STAMP(kPhQp);
+  const int lane = Lanes<W>::lane();
+  T* vec = wk.vec[kVecPoint];
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
+    const int r = lane + s * W;
+    if (r < nv) vec[r] = (!MASK || act[s]) ? v[s] : T(0);
+  }
+  Lanes<W>::sync();
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
+    if (s * W < nv) {
+      const int r = lane + s * W;  // a lane past nv dots a row it then drops
+      T acc[1];
+      dense_dots<1, Work<T, N, R>::DV>(dense_row<W, SL>(wk, r), vec, nv, acc);
+      out[s] = (r < nv && (!MASK || act[s])) ? acc[0] : T(0);
+    }
+  }
+  PLANAR_STAMP(kPhApply);
+}
+
+// out = mask ? (W^T W + diag R) (mask ? v : 0) : 0 over nv > D rows (slot s
+// of lane l is row l + s W): the masked vector goes to wk.vbuf, lane d sums
+// W^T's row d (wk.u, in row order) and each row's lane dots its column of W
+// with u.
 template <bool MASK, int W, typename T, int N, int R, int RW>
-__device__ __forceinline__ void apply(Work<T, N, R>& wk, int nv, const T (&v)[RW],
-                                      const bool (&act)[RW], T (&out)[RW]) {
+__device__ __forceinline__ void apply_wide(Work<T, N, R>& wk, int nv, const T (&v)[RW],
+                                           const bool (&act)[RW], T (&out)[RW]) {
   PLANAR_STAMP(kPhQp);
   const int lane = Lanes<W>::lane();
   Lanes<W>::sync();  // every lane has read the previous vector and sums
@@ -761,69 +950,131 @@ __device__ __forceinline__ void apply(Work<T, N, R>& wk, int nv, const T (&v)[RW
     if (s * W < nv && r < nv) wk.vbuf[r] = (!MASK || act[s]) ? v[s] : T(0);
   }
   Lanes<W>::sync();
-  if (nv <= Work<T, N, R>::D) {
+  for (int d = lane; d < N; d += W) {
+    T acc = T(0);
+    for (int c = 0; c < nv; ++c) acc = acc + wk.w[c][d] * wk.vbuf[c];
+    wk.u[d] = acc;
+  }
+  Lanes<W>::sync();
+  T u[N];
 #pragma unroll
-    for (int s = 0; s < RW; ++s) {
-      const int r = lane + s * W;
-      if (s * W < nv) {
-        T acc = T(0);
-        if (r < nv) {
-          const T* a = wk.A[r];
-          for (int c = 0; c < nv; ++c) acc = acc + a[c] * wk.vbuf[c];
-        }
-        out[s] = (r < nv && (!MASK || act[s])) ? acc : T(0);
+  for (int d = 0; d < N; ++d) u[d] = wk.u[d];
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    const int r = lane + s * W;
+    if (s * W < nv) {
+      T o = T(0);
+      if (r < nv && (!MASK || act[s])) {
+#pragma unroll
+        for (int d = 0; d < N; ++d) o = o + wk.w[r][d] * u[d];
+        o = o + wk.reg[r] * wk.vbuf[r];
       }
-    }
-  } else {
-    for (int d = lane; d < N; d += W) {
-      T acc = T(0);
-      for (int c = 0; c < nv; ++c) acc = acc + wk.w[c][d] * wk.vbuf[c];
-      wk.u[d] = acc;
-    }
-    Lanes<W>::sync();
-    T u[N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) u[d] = wk.u[d];
-#pragma unroll
-    for (int s = 0; s < RW; ++s) {
-      const int r = lane + s * W;
-      if (s * W < nv) {
-        T o = T(0);
-        if (r < nv && (!MASK || act[s])) {
-#pragma unroll
-          for (int d = 0; d < N; ++d) o = o + wk.w[r][d] * u[d];
-          o = o + wk.reg[r] * wk.vbuf[r];
-        }
-        out[s] = o;
-      }
+      out[s] = o;
     }
   }
   PLANAR_STAMP(kPhApply);
 }
 
-__constant__ double kArc[6] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search ladder
+template <bool MASK, bool DENSE, int W, typename T, int N, int R, int SL>
+__device__ __forceinline__ void apply_rows(Work<T, N, R>& wk, int nv, const T (&v)[SL],
+                                           const bool (&act)[SL], T (&out)[SL]) {
+  if constexpr (DENSE) {
+    apply_dense<MASK, W>(wk, nv, v, act, out);
+  } else {
+    apply_wide<MASK, W>(wk, nv, v, act, out);
+  }
+}
+
+__constant__ double kArc[kLadder] = {1.0, 0.5, 0.25, 0.1, 0.03, 0.01};  // arc search ladder
+
+// lam(t) = max(lam + t x, 0), the arc search's point t on a row
+template <typename T>
+__device__ __forceinline__ T arc_point(T lam, T x, T t) {
+  const T v = lam + t * x;
+  return v < T(0) ? T(0) : v;
+}
+
+// The arc search's kLadder points at once on the dense path: p(t) at each t
+// of the ladder, A p(t) from one pass over A's rows, and f_b = rhs . p(t),
+// f_a = p(t) . A p(t), each summed in row order: per point the operations
+// and order of one masked application and its sums. The points and f_b's
+// terms are stored together, f_b summed after the first barrier, f_a's terms
+// stored after the pass and summed after the second; p(t) is formed again
+// where it is needed. No barrier before the first stores: the step before
+// is a row-order sum into another vector.
+template <int W, typename T, int N, int R, int SL>
+__device__ __forceinline__ void arc_dense(Work<T, N, R>& wk, int nv, const T (&lam)[SL],
+                                          const T (&x)[SL], const bool (&act)[SL],
+                                          const T (&rhs)[SL], T (&f_a)[kLadder],
+                                          T (&f_b)[kLadder]) {
+  PLANAR_STAMP(kPhQp);
+  const int lane = Lanes<W>::lane();
+#pragma unroll
+  for (int j = 0; j < kLadder; ++j) {
+    const T t = static_cast<T>(kArc[j]);
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      const int r = lane + s * W;
+      if (r < nv) {
+        const T p = arc_point(lam[s], x[s], t);
+        wk.vec[kVecPoint + j][r] = act[s] ? p : T(0);
+        wk.vec[kVecFb + j][r] = rhs[s] * p;
+      }
+    }
+  }
+  Lanes<W>::sync();
+  const T* rows[kLadder];
+#pragma unroll
+  for (int j = 0; j < kLadder; ++j) rows[j] = wk.vec[kVecFb + j];
+  row_sums(rows, nv, f_b);
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
+    if (s * W < nv) {
+      const int r = lane + s * W;
+      T acc[kLadder];
+      dense_dots<kLadder, Work<T, N, R>::DV>(dense_row<W, SL>(wk, r), wk.vec[kVecPoint], nv,
+                                             acc);
+      if (r < nv) {
+#pragma unroll
+        for (int j = 0; j < kLadder; ++j) {
+          const T ap = act[s] ? acc[j] : T(0);
+          wk.vec[kVecFa + j][r] = arc_point(lam[s], x[s], static_cast<T>(kArc[j])) * ap;
+        }
+      }
+    }
+  }
+  PLANAR_STAMP(kPhApply);
+  Lanes<W>::sync();
+#pragma unroll
+  for (int j = 0; j < kLadder; ++j) rows[j] = wk.vec[kVecFa + j];
+  row_sums(rows, nv, f_a);
+}
 
 // Box QP min 1/2 lam^T (J M^-1 J^T + diag R) lam - rhs^T lam, lam >= 0, over
 // the nv valid rows: the fixed-iteration active set / CG / projected arc
 // search of the plain version's _qp_iterate, each lane holding its rows'
-// iterates in registers and every scalar (f_lg, f_rl, rs, denom, f_a, f_b)
-// summed in row order with the same bits on every lane, so that all lanes
-// take every branch alike. A row that is not valid has lambda = 0 and adds
-// exact zeros to every sum of the plain version, so leaving it out changes
-// nothing, and a sample with no valid row skips its QP (every iterate would
-// stay 0). wk.lam_full holds the warm start of each of the model's nr rows
-// on entry and the solution (0 on rows not valid) on exit; wk.qfrc gets
-// J^T lam, dof d summed in row order by lane d mod W.
-template <typename T, int N, int R, int W>
-__device__ void solve_qp(const Model<T>& m, Work<T, N, R>& wk, int nv, int nr) {
-  constexpr int RW = (R + W - 1) / W;
+// iterates in SL slots of registers (slot s of lane l is row l + s W; one
+// slot on the dense path's W = 32 lanes) and every scalar (f_lg, f_rl, rs,
+// denom, f_a, f_b) summed in row order with the same bits on every lane, so
+// that all lanes take every branch alike. On the dense path (DENSE: nv <= D)
+// each application dots A's rows, each sum adds the rows' terms stored in
+// the vectors, and the arc search's points share one pass over A
+// (arc_dense); beyond it an application is W^T (W v) + R v, a sum takes a
+// shuffle a row and the arc search applies the operator point by point. A
+// row that is not valid has lambda = 0 and adds exact zeros to every sum of
+// the plain version, so leaving it out changes nothing, and a sample with no
+// valid row skips its QP (every iterate would stay 0). wk.lam_full holds the
+// warm start of each of the model's nr rows on entry and the solution (0 on
+// rows not valid) on exit; wk.qfrc gets J^T lam, dof d summed in row order
+// by lane d mod W.
+template <int SL, bool DENSE, typename T, int N, int R, int W>
+__device__ __forceinline__ void qp_rows(const Model<T>& m, Work<T, N, R>& wk, int nv, int nr) {
   const int lane = Lanes<W>::lane();
-  // slot s of a lane holds row lane + s W; slots with s W >= nv hold no row
-  // on any lane and are skipped
-  T lam[RW], rhs[RW], x[RW], res[RW], p[RW], ap[RW];
-  bool act[RW];
+  // slots with s W >= nv hold no row on any lane and are skipped
+  T lam[SL], rhs[SL], x[SL], res[SL], p[SL], ap[SL];
+  bool act[SL];
 #pragma unroll
-  for (int s = 0; s < RW; ++s) {
+  for (int s = 0; s < SL; ++s) {
     const int r = lane + s * W;
     const bool live = r < nv;
     lam[s] = live ? wk.lam_full[wk.idx[r]] : T(0);
@@ -834,107 +1085,121 @@ __device__ void solve_qp(const Model<T>& m, Work<T, N, R>& wk, int nv, int nr) {
   Lanes<W>::sync();  // every warm start is read
   for (int r = lane; r < nr; r += W) wk.lam_full[r] = T(0);
   if (nv > 0) {
-    if (nv <= Work<T, N, R>::D) form_dense<W>(wk, nv);
+    // on the dense path form_dense's barrier orders the zeros before the
+    // solution's stores
+    if constexpr (DENSE) form_dense<W, SL>(wk, nv);
     for (int it = 0; it < m.outer; ++it) {
-      apply<false, W>(wk, nv, lam, act, ap);
-      T f_lg[RW], f_rl[RW];
+      apply_rows<false, DENSE, W>(wk, nv, lam, act, ap);
+      T terms[2][SL], sums[2];
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
-        f_lg[s] = f_rl[s] = T(0);
+      for (int s = 0; s < SL; ++s) {
+        terms[0][s] = terms[1][s] = T(0);
         if (s * W < nv) {
           const T g = ap[s] - rhs[s];
           act[s] = lane + s * W < nv && (lam[s] > T(0) || g < T(0));
           x[s] = act[s] ? lam[s] : T(0);
-          f_lg[s] = lam[s] * g;
-          f_rl[s] = rhs[s] * lam[s];
+          terms[0][s] = lam[s] * g;
+          terms[1][s] = rhs[s] * lam[s];
         }
       }
-      T s_lg, s_rl;
-      row_sums<W>(f_lg, f_rl, nv, s_lg, s_rl);
-      T best_f = T(0.5) * s_lg - T(0.5) * s_rl;
-      apply<true, W>(wk, nv, x, act, ap);
+      qp_sums<DENSE, 2, W>(wk, kSumLg, terms, nv, sums);
+      T best_f = T(0.5) * sums[0] - T(0.5) * sums[1];
+      apply_rows<true, DENSE, W>(wk, nv, x, act, ap);
+      T sq[1][SL];
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
+      for (int s = 0; s < SL; ++s) {
+        sq[0][s] = T(0);
         if (s * W < nv) {
           res[s] = act[s] ? rhs[s] - ap[s] : T(0);
           p[s] = res[s];
-          f_lg[s] = res[s] * res[s];
+          sq[0][s] = res[s] * res[s];
         }
       }
-      T rs = row_sum<W>(f_lg, nv);
+      T rs[1];
+      qp_sums<DENSE, 1, W>(wk, kSumRs, sq, nv, rs);
       for (int k = 0; k < m.cg; ++k) {
-        apply<true, W>(wk, nv, p, act, ap);
+        apply_rows<true, DENSE, W>(wk, nv, p, act, ap);
 #pragma unroll
-        for (int s = 0; s < RW; ++s) {
-          if (s * W < nv) f_lg[s] = p[s] * ap[s];
+        for (int s = 0; s < SL; ++s) {
+          if (s * W < nv) sq[0][s] = p[s] * ap[s];
         }
-        const T denom = row_sum<W>(f_lg, nv);
-        const T alpha = denom > T(1e-30) ? rs / (denom < T(1e-30) ? T(1e-30) : denom) : T(0);
+        T denom[1];
+        qp_sums<DENSE, 1, W>(wk, kSumDenom, sq, nv, denom);
+        const T alpha =
+            denom[0] > T(1e-30) ? rs[0] / (denom[0] < T(1e-30) ? T(1e-30) : denom[0]) : T(0);
 #pragma unroll
-        for (int s = 0; s < RW; ++s) {
+        for (int s = 0; s < SL; ++s) {
           if (s * W < nv) {
             x[s] = x[s] + alpha * p[s];
             res[s] = res[s] - alpha * ap[s];
-            f_lg[s] = res[s] * res[s];
+            sq[0][s] = res[s] * res[s];
           }
         }
-        const T rs_new = row_sum<W>(f_lg, nv);
-        const T beta = rs > T(1e-30) ? rs_new / (rs < T(1e-30) ? T(1e-30) : rs) : T(0);
+        T rs_new[1];
+        qp_sums<DENSE, 1, W>(wk, kSumRs, sq, nv, rs_new);
+        const T beta = rs[0] > T(1e-30) ? rs_new[0] / (rs[0] < T(1e-30) ? T(1e-30) : rs[0])
+                                        : T(0);
 #pragma unroll
-        for (int s = 0; s < RW; ++s) {
+        for (int s = 0; s < SL; ++s) {
           if (s * W < nv) p[s] = res[s] + beta * p[s];
         }
-        rs = rs_new;
+        rs[0] = rs_new[0];
       }
-      // projected arc search over the fixed ladder; x becomes delta, p
-      // lam(t); the best t is kept by its index and lam(t) formed again
+      // projected arc search over the fixed ladder; x becomes delta; the
+      // best t is kept by its index and lam(t) formed again from it
 #pragma unroll
-      for (int s = 0; s < RW; ++s) {
+      for (int s = 0; s < SL; ++s) {
         if (s * W < nv) x[s] = act[s] ? x[s] - lam[s] : T(0);
       }
       int best_a = -1;
+      if constexpr (DENSE) {  // the points side by side
+        T f_a[kLadder], f_b[kLadder];
+        arc_dense<W>(wk, nv, lam, x, act, rhs, f_a, f_b);
+#pragma unroll
+        for (int a = 0; a < kLadder; ++a) {
+          const T f_t = T(0.5) * f_a[a] - f_b[a];
+          if (f_t < best_f) {
+            best_f = f_t;
+            best_a = a;
+          }
+        }
+      } else {  // p holds lam(t)
 #pragma unroll 1
-      for (int a = 0; a < 6; ++a) {
-        const T t = static_cast<T>(kArc[a]);
+        for (int a = 0; a < kLadder; ++a) {
+          const T t = static_cast<T>(kArc[a]);
 #pragma unroll
-        for (int s = 0; s < RW; ++s) {
-          if (s * W < nv) {
-            const T v = lam[s] + t * x[s];
-            p[s] = v < T(0) ? T(0) : v;
+          for (int s = 0; s < SL; ++s) {
+            if (s * W < nv) p[s] = arc_point(lam[s], x[s], t);
           }
-        }
-        apply<true, W>(wk, nv, p, act, ap);
+          apply_wide<true, W>(wk, nv, p, act, ap);
 #pragma unroll
-        for (int s = 0; s < RW; ++s) {
-          if (s * W < nv) {
-            f_lg[s] = p[s] * ap[s];
-            f_rl[s] = rhs[s] * p[s];
+          for (int s = 0; s < SL; ++s) {
+            if (s * W < nv) {
+              terms[0][s] = p[s] * ap[s];
+              terms[1][s] = rhs[s] * p[s];
+            }
           }
-        }
-        T f_a, f_b;
-        row_sums<W>(f_lg, f_rl, nv, f_a, f_b);
-        const T f_t = T(0.5) * f_a - f_b;
-        if (f_t < best_f) {
-          best_f = f_t;
-          best_a = a;
+          shuffle_sums<2, W>(terms, nv, sums);
+          const T f_t = T(0.5) * sums[0] - sums[1];
+          if (f_t < best_f) {
+            best_f = f_t;
+            best_a = a;
+          }
         }
       }
       if (best_a >= 0) {
         const T t = static_cast<T>(kArc[best_a]);
 #pragma unroll
-        for (int s = 0; s < RW; ++s) {
-          if (s * W < nv) {
-            const T v = lam[s] + t * x[s];
-            lam[s] = v < T(0) ? T(0) : v;
-          }
+        for (int s = 0; s < SL; ++s) {
+          if (s * W < nv) lam[s] = arc_point(lam[s], x[s], t);
         }
       }
     }
-    Lanes<W>::sync();  // every lane is done zeroing lam_full
+    if constexpr (!DENSE) Lanes<W>::sync();  // every lane is done zeroing lam_full
 #pragma unroll
-    for (int s = 0; s < RW; ++s) {
+    for (int s = 0; s < SL; ++s) {
       const int r = lane + s * W;
-      if (s * W < nv && r < nv) wk.lam_full[wk.idx[r]] = lam[s];
+      if (r < nv) wk.lam_full[wk.idx[r]] = lam[s];
     }
   }
   Lanes<W>::sync();
@@ -945,6 +1210,21 @@ __device__ void solve_qp(const Model<T>& m, Work<T, N, R>& wk, int nv, int nr) {
   }
   Lanes<W>::sync();
   PLANAR_STAMP(kPhQp);
+}
+
+// The QP of the nv valid rows: on the dense path (nv <= D, and every nv of a
+// build whose row capacity is no more than kDense) or the wide one, each its
+// own instance of qp_rows.
+template <typename T, int N, int R, int W>
+__device__ void solve_qp(const Model<T>& m, Work<T, N, R>& wk, int nv, int nr) {
+  constexpr int RW = (R + W - 1) / W;
+  if constexpr (R > kDense) {
+    if (nv > kDense) {
+      qp_rows<RW, false, T, N, R, W>(m, wk, nv, nr);
+      return;
+    }
+  }
+  qp_rows<kDenseSlots<W, RW>, true, T, N, R, W>(m, wk, nv, nr);
 }
 
 // One constrained forward pass at (q, qv) by the sample's lanes together:
@@ -976,6 +1256,7 @@ __device__ __noinline__ void forward(const Model<T>& m, int nr, const T (&q)[N],
   PLANAR_STAMP(kPhFactor);
   const int nv = contact_rows<T, N, R, W>(m, q, qv, a_smooth, wk);
   PLANAR_STAMP(kPhRows);
+  PLANAR_ROWS(nv);
   solve_qp<T, N, R, W>(m, wk, nv, nr);
 #pragma unroll
   for (int d = 0; d < N; ++d) smooth[d] = smooth[d] + wk.qfrc[d];

@@ -36,14 +36,16 @@
 //   warp (each with its own active rows and branches) set it.
 //
 // What bounds it on an H100 now: the schedulers' issue of each group's long
-// chain of instructions. At W = 32 one HalfCheetah sample alone takes 1.4 ms
-// (K = 1, T = 15), 3.1 ms at one warp a scheduler (K = 528), and past that
-// the time grows with K (6.8 ms at 2048, 13.0 at 4096; scripts/
-// planar_k_scan.py, f32 from reset; H100 80GB HBM3, 700 W); narrower groups
-// pack samples whose rows and branches differ, and ran slower. Per forward
-// pass the QP takes 45-66% (HalfCheetah) to 77-83% (Hopper, Walker2d), its
-// row-order scalars (a shuffle a row) and group barriers more than its
-// arithmetic, and the frames, mass matrix and factor 10-45%
+// chain of instructions. At W = 32 one HalfCheetah sample alone takes
+// 0.96 ms (K = 1, T = 15), 1.7 ms at one warp a scheduler (K = 528), and
+// past that the time grows with K (3.2 ms at 2048, 6.3 at 4096; Hopper 4.8
+// and Walker2d 10.1 ms at 2048; scripts/planar_k_scan.py, f32 from reset;
+// H100 80GB HBM3, 700 W); narrower groups pack samples whose rows and
+// branches differ, and ran slower. Every forward pass from the main path's
+// states takes the QP's dense path (at most 32 valid rows: its sums from
+// shared memory, the arc search in one pass over A), and the QP takes 22-41%
+// of a HalfCheetah pass, 42-49% of a Walker2d and 57-65% of a Hopper pass;
+// the frames, mass matrix and factor take 49-68% of a HalfCheetah pass
 // (scripts/planar_phase_times.py).
 //
 // Interface: plain C functions per dtype, loaded with ctypes. The model comes

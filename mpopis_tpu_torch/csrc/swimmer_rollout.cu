@@ -23,10 +23,10 @@
 // warps for K = 4096: its phase split (scripts/planar_phase_times.py; H100
 // 80GB HBM3, 700 W) put 16-24% of a pass from reset in the factor and
 // solves, 17% in the mass matrix and bias, 21% in the QP. What bounds it now
-// is that serial pass: at W = 16 one sample alone takes 1.96 ms (K = 1,
-// T = 25) and K = 4096 2.98 ms (scripts/planar_k_scan.py); from reset the
-// frames, mass matrix, fluid force and factor are 64% of a pass, the QP 17%
-// (57% from the limit start).
+// is that serial pass: at W = 16 one sample alone takes 1.71 ms (K = 1,
+// T = 25) and K = 4096 2.53 ms (scripts/planar_k_scan.py); from reset the
+// frames, mass matrix, fluid force and factor are 69% of a pass, the QP 14%
+// (41% from the limit start; scripts/planar_phase_times.py).
 //
 // The fluid coefficients come in the packed double array after the model,
 // computed in double on the host (models/swimmer_device.py::FLUID), and ride

@@ -1,8 +1,9 @@
 """The CUDA kernels (car rollout at 1-4 cars and on the sample mesh's
 column blocks, a one-rank nccl mesh, the multi-car harness's chunked loop,
-planar-contact, Swimmer and spatial-contact
-rollouts and control steps, the AIS-update refits and CMA tail, Cholesky and
-forward solve) against their plain PyTorch versions, on the card.
+planar-contact, Swimmer and spatial-contact rollouts and control steps, the
+contact QPs' dense paths at their edges, the AIS-update refits and CMA
+tail, Cholesky and forward solve) against their plain PyTorch versions, on
+the card.
 
 Marked `cuda`; without a card every test skips. This file imports neither
 jax nor the JAX package, so it runs on a machine without jax:
@@ -934,6 +935,94 @@ def test_planar_step_kernels_batch_of_three(cuda_device, which):
     before = getattr(planar_step, counter)
     got = env.step(make_state(xs), acts).x
     assert getattr(planar_step, counter) == before + 1
+    _hold_step_f64(env, xs, acts, got)
+
+
+# -- kernel 2's dense QP at the edges of its 16-byte reads -------------------------
+# Starts whose first forward pass holds n valid rows: 28-33 for HalfCheetah and
+# Walker2d (n mod 4 = 0-3: the last, partial 16-byte load of A's rows, of the
+# vectors and of the row-order sums; 32, the dense path's last row count, and
+# 33, the first past it) and 23-26 for the Hopper (whose 30 rows at most all
+# take the dense path): the numpy seed of the pose (_planar_edge_start) that
+# gives each count, and the range of the draw that lowers each build's root.
+PLANAR_EDGE = {
+    "cheetah": {28: 103, 29: 357, 30: 48, 31: 6, 32: 18, 33: 8},
+    "walker2d": {28: 60, 29: 35, 30: 0, 31: 3, 32: 9, 33: 52},
+    "hopper": {23: 2, 24: 35, 25: 285, 26: 637},
+}
+PLANAR_EDGE_Z = {"cheetah": (-0.7, -0.3), "walker2d": (-1.2, -0.9), "hopper": (-1.3, -0.6)}
+PLANAR_EDGE_CASES = [(which, n) for which, counts in PLANAR_EDGE.items() for n in counts]
+
+
+def _planar_edge_start(which, rows, device):
+    """The build's f64 env and a pose with `rows` valid rows in its first
+    forward pass (counted by the plain version on the CPU): the reset with
+    the root lowered by a draw in PLANAR_EDGE_Z and pitched by up to 0.3, and
+    each limited joint drawn over its range widened by 15% a side."""
+    env = PLANAR_BUILDS[which](dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(PLANAR_EDGE[which][rows])
+    x = env.reset().x.clone()
+    x[1] = x[1] + rng.uniform(*PLANAR_EDGE_Z[which])
+    x[2] = rng.uniform(-0.3, 0.3)
+    for lm in env.MODEL.limits:
+        span = lm.hi - lm.lo
+        x[lm.dof] = rng.uniform(lm.lo - 0.15 * span, lm.hi + 0.15 * span)
+    assert sum(planar_step.first_substep_active_rows(env, x)) == rows
+    return PLANAR_BUILDS[which](dtype=torch.float64, device=device), x.to(device)
+
+
+@pytest.mark.parametrize("which,rows", PLANAR_EDGE_CASES)
+def test_planar_kernel_dense_qp_edges_match_plain_version(cuda_device, which, rows):
+    """Two control steps of 32 candidates from the pressed start, held by
+    _hold_f64 against the batch's largest own spread (pool), as Walker2d's
+    deep drops and kernel 4's edges."""
+    env, x0 = _planar_edge_start(which, rows, cuda_device)
+    ctrl = torch.as_tensor(np.random.default_rng(rows).uniform(-1, 1, (2, env.action_dim, 32)),
+                           dtype=torch.float64, device=cuda_device)
+    before = planar_step.LAUNCHES
+    got = planar_step.planar_rollout_costs_tak(env, x0, ctrl)
+    assert planar_step.LAUNCHES == before + 1 and got.shape == (32,)
+    _hold_f64(env, x0, ctrl, got, ref=planar_step.planar_rollout_costs_tak_reference, pool=True)
+
+
+@pytest.mark.parametrize("which,rows", PLANAR_EDGE_CASES)
+def test_planar_step_kernel_dense_qp_edges_match_plain_step(cuda_device, which, rows):
+    """The step entry from 8 copies of the start under 8 actions: per state
+    within 1e-9 of the plain step, or the nudge rule."""
+    env, x0 = _planar_edge_start(which, rows, cuda_device)
+    xs = x0.expand(8, -1).contiguous()
+    acts = torch.as_tensor(np.random.default_rng(rows).uniform(-1.2, 1.2, (8, env.action_dim)),
+                           dtype=torch.float64, device=cuda_device)
+    before = planar_step.STEP_LAUNCHES
+    got = planar_step.planar_step_states(env, xs, acts)
+    assert planar_step.STEP_LAUNCHES == before + 1
+    _hold_step_f64(env, xs, acts, got)
+
+
+def test_swimmer_kernels_dense_qp_at_two_one_and_no_rows(cuda_device):
+    """The Swimmer's groups of 16 lanes (two a warp) at its 2 rows (both motor
+    joints past their limits), at 1 and at none: the rollout from the limits
+    start at K = 33 (a warp's two groups and a lone one) and the step entry
+    on 8 states cycling 2, 1 and 0 rows, so that the groups of a warp take
+    their QPs apart; f64 within 1e-9 or the nudge rule."""
+    env, two = _planar("swimmer", torch.float64, cuda_device, "lowered")
+    one = two.clone()
+    one[4] = 0.0  # the second joint back inside its range
+    none = env.reset().x
+    assert [planar_step.first_substep_active_rows(env, x) for x in (two, one, none)] == [
+        (2, 0), (1, 0), (0, 0)]
+    ctrl = torch.as_tensor(np.random.default_rng(33).uniform(-1, 1, (3, 2, 33)),
+                           dtype=torch.float64, device=cuda_device)
+    before = planar_step.SWIMMER_LAUNCHES
+    got = planar_step.swimmer_rollout_costs_tak(env, two, ctrl)
+    assert planar_step.SWIMMER_LAUNCHES == before + 1 and got.shape == (33,)
+    _hold_f64(env, two, ctrl, got, ref=planar_step.swimmer_rollout_costs_tak_reference)
+    xs = torch.stack([two, one, none] * 2 + [two, one])
+    acts = torch.as_tensor(np.random.default_rng(8).uniform(-1.2, 1.2, (8, 2)),
+                           device=cuda_device)
+    before = planar_step.SWIMMER_STEP_LAUNCHES
+    got = planar_step.swimmer_step_states(env, xs, acts)
+    assert planar_step.SWIMMER_STEP_LAUNCHES == before + 1
     _hold_step_f64(env, xs, acts, got)
 
 

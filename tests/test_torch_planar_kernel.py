@@ -176,14 +176,20 @@ def test_first_substep_active_rows_counts_limits_and_contacts():
 # -- the kernel's device code built for the host, one lane a sample -------------
 # start -> (model, seed, x[1] or None for `_start`'s): contacts and limits; a
 # deep drop with 45 rows valid in the first substep, past the 32 of the
-# dense operator; the body 2 m up, no row valid.
+# dense operator; 33 and 32 rows, the first past the dense path and its last
+# (with 32 and 0 mod 4 valid rows its 16-byte reads have no remainder); the
+# body 2 m up, no row valid.
 HOST_STARTS = {
     "cheetah": ("cheetah", 21, None),
     "hopper": ("hopper", 22, None),
     "walker2d": ("walker2d", 23, None),
     "cheetah_deep": ("cheetah", 21, -0.7),
+    "walker2d_33": ("walker2d", 22, 0.26),
+    "walker2d_32": ("walker2d", 25, 0.26),
     "cheetah_air": ("cheetah", 21, 2.0),
 }
+HOST_ROWS = {"cheetah_deep": 45, "walker2d_33": 33, "walker2d_32": 32, "cheetah_air": 0}
+NUDGED = ("walker2d", "cheetah_deep", "walker2d_33", "walker2d_32")  # held by the nudge rule
 
 
 @pytest.fixture(scope="module")
@@ -234,17 +240,17 @@ def test_kernel_code_built_for_the_host_matches_the_plain_version(host_check, st
     """Both entries of the build the model picks, compiled for the CPU: costs
     of (T, na, K) controls and one control step of 4 states around the start.
     f64 at rtol 1e-10, f32 at the JAX kernel tests' rtol 2e-4 / atol 2e-3;
-    Walker2d and the deep drop by the nudge rule, their contact QPs turning
-    rounding into other iterates (from the deep drop the plain version's own
-    costs move by up to 2.2e-10 in f64 and 2.1e-2 in f32 under a nudge of
-    the controls, sample 3 of 6)."""
+    Walker2d and the deep starts (NUDGED) by the nudge rule, their contact
+    QPs turning rounding into other iterates (from the deep drop the plain
+    version's own costs move by up to 2.2e-10 in f64 and 2.1e-2 in f32 under
+    a nudge of the controls, sample 3 of 6)."""
     name, seed, z = HOST_STARTS[start]
     rtol, atol, e = HOST_TOL[dtype]
     env = ENVS[name](dtype=dtype, device="cpu")
     x0, controls = _start(name, seed, z)
     x = torch.as_tensor(x0, dtype=dtype)
     rows = sum(planar_step.first_substep_active_rows(env, x))
-    assert {"cheetah_deep": rows > 32, "cheetah_air": rows == 0}.get(start, rows > 0)
+    assert rows == HOST_ROWS[start] if start in HOST_ROWS else rows > 0
     ctrl = torch.as_tensor(controls.transpose(1, 2, 0).copy(), dtype=dtype)
     ref = planar_step.planar_rollout_costs_tak_reference
     want = ref(env, x, ctrl).double().numpy()
@@ -260,7 +266,7 @@ def test_kernel_code_built_for_the_host_matches_the_plain_version(host_check, st
     want_s = step(xs, acts)
     got_s = _run_host(host_check, env, 1, xs.double().numpy(), acts.double().numpy(), 4, 1, tag)
     atol_s = atol * np.abs(want_s).max()
-    if start not in ("walker2d", "cheetah_deep"):
+    if start not in NUDGED:
         np.testing.assert_allclose(got[:, 0], want, rtol=rtol, atol=atol)
         np.testing.assert_allclose(got_s, want_s, rtol=rtol, atol=max(atol_s, rtol * np.abs(
             want_s).max()))
